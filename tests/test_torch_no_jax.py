@@ -1,5 +1,6 @@
-"""The PyTorch port never imports JAX: every module imports, and a frame
-renders, in a process where `import jax` fails."""
+"""The PyTorch port never imports JAX (nor optax): every module imports,
+a frame renders and a fit steps, checkpoints and resumes, in a process
+where `import jax` and `import optax` fail."""
 import ast
 import os
 import pathlib
@@ -28,7 +29,8 @@ def test_sources_import_no_jax():
                 names = [node.module or ""]
             for n in names:
                 top = n.split(".")[0]
-                assert top not in ("jax", "jaxlib", "volumetricrenderer_tpu"), \
+                assert top not in ("jax", "jaxlib", "optax",
+                                   "volumetricrenderer_tpu"), \
                     f"{path.relative_to(ROOT)} imports {n}"
 
 
@@ -37,6 +39,7 @@ def test_port_imports_and_renders_without_jax():
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
         sys.modules["jaxlib"] = None
+        sys.modules["optax"] = None
         import torch
         torch.set_num_threads(1)
         import volumetricrenderer_tpu_torch as T
@@ -49,7 +52,16 @@ def test_port_imports_and_renders_without_jax():
                                             quadrature="sliced"),
                              T.MediumConfig(combine="single", density=8.0))
         assert img.shape == (32, 48, 4) and bool(torch.isfinite(img).all())
-        assert not any(k == "jax" or k.startswith(("jax.", "jaxlib"))
+        import tempfile
+        from volumetricrenderer_tpu_torch import cli
+        from volumetricrenderer_tpu_torch.utils import checkpoint
+        out = tempfile.mkdtemp()
+        args = ["fit", "--size", "8", "--image-size", "16", "--steps", "2",
+                "--out-dir", out]
+        assert cli.main(args) == 0 and cli.main(args + ["--resume"]) == 0
+        assert checkpoint.latest_step(out + "/ckpt") == 2
+        assert not any(k in ("jax", "optax")
+                       or k.startswith(("jax.", "jaxlib", "optax."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
     """)

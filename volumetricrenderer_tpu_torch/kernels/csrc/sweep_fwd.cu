@@ -40,21 +40,14 @@
 // windows per block and slice, TMA) is later work.
 //
 // Numerics: expf, not __expf, and the build passes --fmad=false, so every
-// product and sum is rounded as the plain PyTorch version rounds it.
+// product and sum is rounded as the plain PyTorch version rounds it. The
+// tap math lives in sweep_common.cuh, shared with the backward kernel
+// (sweep_bwd.cu), whose replay of the transmittance must reproduce this
+// kernel's bit for bit.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "sweep_common.cuh"
 
 namespace {
-
-__device__ __forceinline__ int wrap_index(int i, int n) {
-  const int m = i % n;
-  return m < 0 ? m + n : m;
-}
-
-__device__ __forceinline__ int clip_index(int i, int n) {
-  return min(max(i, 0), n - 1);
-}
 
 __global__ void __launch_bounds__(256) sweep_fwd_kernel(
     const float* __restrict__ stack, const float* __restrict__ slice_z,
@@ -66,11 +59,7 @@ __global__ void __launch_bounds__(256) sweep_fwd_kernel(
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= Hb || j >= Wb) return;
 
-  // params: e_k, e_a, e_b, sign, density, sample_scale, early-stop
-  // transmittance, ambient (unused without a light volume).
-  const float e_k = params[0], e_a = params[1], e_b = params[2];
-  const float sign = params[3], density = params[4], sscale = params[5];
-  const float thresh = params[6];
+  const sweep::Params P = sweep::load_params(params);
   const float v = v_grid[i];
   const float u = u_grid[j];
   const size_t pix = (size_t)i * Wb + j;
@@ -79,40 +68,16 @@ __global__ void __launch_bounds__(256) sweep_fwd_kernel(
 
   float acc = 0.f, trans = 1.f, wsum = 0.f, hit = 0.f;
   for (int s = 0; s < S; ++s) {
-    if (emission && !(trans > thresh)) break;
-    const float delta = slice_z[s] - e_k;
-    if (!(delta * sign > 0.f)) continue;
-    const float a01 = e_a + delta * v;
-    const float b01 = e_b + delta * u;
-    if (!(a01 >= 0.f && a01 <= 1.f && b01 >= 0.f && b01 <= 1.f)) continue;
-
-    const float pa = a01 * (float)A - 0.5f;
-    const float pb = b01 * (float)B - 0.5f;
-    const float fa0 = floorf(pa);
-    const float fb0 = floorf(pb);
-    const float fa = pa - fa0;
-    const float fb = pb - fb0;
-    const int ia = (int)fa0;
-    const int ib = (int)fb0;
-    int a0, a1, b0, b1;
-    if (wrap) {
-      a0 = wrap_index(ia, A); a1 = wrap_index(ia + 1, A);
-      b0 = wrap_index(ib, B); b1 = wrap_index(ib + 1, B);
-    } else {
-      a0 = clip_index(ia, A); a1 = clip_index(ia + 1, A);
-      b0 = clip_index(ib, B); b1 = clip_index(ib + 1, B);
-    }
+    if (emission && !(trans > P.thresh)) break;
+    const float delta = slice_z[s] - P.e_k;
+    if (!sweep::in_front(P, delta)) continue;
+    sweep::Taps t;
+    if (!sweep::sample_taps(P, delta, v, u, A, B, wrap, t)) continue;
     const int k = flip ? S - 1 - s : s;
-    const float* g = stack + (size_t)k * layer;
-    const float g00 = __ldg(g + (size_t)a0 * B + b0);
-    const float g01 = __ldg(g + (size_t)a0 * B + b1);
-    const float g10 = __ldg(g + (size_t)a1 * B + b0);
-    const float g11 = __ldg(g + (size_t)a1 * B + b1);
-    const float bil = (1.f - fa) * ((1.f - fb) * g00 + fb * g01)
-                    + fa * ((1.f - fb) * g10 + fb * g11);
-    const float sigma = sscale * bil;
+    const float sigma = sweep::sigma_at(stack + (size_t)k * layer, B, t,
+                                        P.sscale);
     if (emission) {
-      const float alpha = 1.f - expf(-density * sigma * seg);
+      const float alpha = 1.f - sweep::extinction(P, sigma, seg);
       wsum += trans * alpha;
       trans *= 1.f - alpha;
     } else {

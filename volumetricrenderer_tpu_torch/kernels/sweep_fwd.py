@@ -3,13 +3,12 @@ volumetricrenderer_tpu/kernels/sweep_pallas.py's sweep_base_pallas, its
 hand-written CUDA kernel (csrc/sweep_fwd.cu) and the kernel's plain PyTorch
 version (sweep_fwd_reference).
 
-`sweep_base` dispatches on the device of the grid it is given: a CUDA
-tensor launches the kernel (or raises), a CPU tensor runs the plain
-version. There is no fallback from one to the other. The kernel's
-autograd.Function has no backward yet: the backward kernel is a port of
-sweep_pallas.py's `_bwd_kernel`, still to come, and backward() through the
-kernel raises rather than run the plain version. The plain version is
-differentiable by ordinary autograd.
+`sweep_base` runs the sweep as one autograd node on either device: on a
+CUDA tensor its forward launches this kernel and its backward the
+backward kernel of kernels/sweep_bwd.py (the port of sweep_pallas.py's
+`_bwd_kernel`), or they raise; on a CPU tensor they run the two plain
+versions, sweep_fwd_reference and sweep_bwd.sweep_bwd_reference. There is
+no fallback from one device's path to the other's.
 
 `launches` counts the kernel launches made by this module.
 """
@@ -22,7 +21,8 @@ import torch
 from ..config import LightConfig, MediumConfig, RenderConfig
 from ..ops.resample import linear_resample_matrix
 from ..ops.sampling import apply_address_mode
-from .build import build_library
+from . import sweep_bwd
+from .build import build_library, check_sweep_inputs
 
 __all__ = ["supported", "sweep_inputs", "sweep_base", "sweep_fwd_reference",
            "build_kernel", "launch_kernel", "launches"]
@@ -133,30 +133,8 @@ def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, emission,
     (4, Hb, Wb) tensor of acc, trans, wsum, hit."""
     global launches
     dev = stack.device
-    if dev.type != "cuda":
-        raise ValueError(f"sweep_fwd kernel: needs CUDA tensors, got {dev}")
-    named = dict(stack=stack, slice_z=slice_z, v_grid=v_grid, u_grid=u_grid,
-                 seglen=seglen, params=params)
-    for name, t in named.items():
-        if t.device != dev or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"sweep_fwd kernel: {name} must be a contiguous float32 "
-                f"tensor on {dev}; got {t.dtype} on {t.device}, "
-                f"contiguous={t.is_contiguous()}")
-    if stack.dim() != 3:
-        raise ValueError(f"sweep_fwd kernel: stack must be (S, A, B), "
-                         f"got {tuple(stack.shape)}")
-    S, A, B = stack.shape
-    Hb, Wb = v_grid.numel(), u_grid.numel()
-    want = dict(slice_z=(S,), v_grid=(Hb,), u_grid=(Wb,), seglen=(Hb, Wb),
-                params=(8,))
-    for name, shape in want.items():
-        if tuple(named[name].shape) != shape:
-            raise ValueError(f"sweep_fwd kernel: {name} must be {shape}, "
-                             f"got {tuple(named[name].shape)}")
-    if min(S, A, B, Hb, Wb) < 1:
-        raise ValueError("sweep_fwd kernel: empty input")
+    S, A, B, Hb, Wb = check_sweep_inputs("sweep_fwd", stack, slice_z, v_grid,
+                                         u_grid, seglen, params)
     build_kernel()
     out = torch.empty((4, Hb, Wb), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -173,22 +151,50 @@ def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, emission,
 
 
 class _SweepFwd(torch.autograd.Function):
-    """The kernel as an autograd node: forward launches it, backward raises
-    until the backward kernel is ported."""
+    """The sweep as an autograd node, in place of _fused_vjp's f_fwd and
+    f_bwd: the kernels on a CUDA stack, the plain versions on a CPU stack.
+    Only the stack gets a gradient; `hit` is not differentiable."""
 
     @staticmethod
     def forward(ctx, stack, slice_z, v_grid, u_grid, seglen, params,
-                emission, flip, wrap):
-        return tuple(launch_kernel(stack, slice_z, v_grid, u_grid, seglen,
-                                   params, emission, flip, wrap).unbind(0))
+                emission, flip, address_mode):
+        if stack.device.type == "cuda":
+            maps = launch_kernel(stack, slice_z, v_grid, u_grid, seglen,
+                                 params, emission, flip,
+                                 address_mode == "wrap").unbind(0)
+        elif stack.device.type == "cpu":
+            maps = sweep_fwd_reference(stack, slice_z, v_grid, u_grid,
+                                       seglen, params, emission=emission,
+                                       flip=flip, address_mode=address_mode)
+        else:
+            raise ValueError(f"sweep: no kernel for device {stack.device}")
+        ctx.mark_non_differentiable(maps[3])
+        ctx.save_for_backward(stack, slice_z, v_grid, u_grid, seglen, params,
+                              maps[1], maps[2])
+        ctx.static = (emission, flip, address_mode)
+        return tuple(maps)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "backward through the CUDA sweep kernel is not ported yet (it is "
-            "the port of volumetricrenderer_tpu/kernels/sweep_pallas.py "
-            "_bwd_kernel); differentiate a CPU render, which runs the plain "
-            "PyTorch sweep")
+    def backward(ctx, ct_acc, ct_trans, ct_wsum, _ct_hit):
+        none = (None,) * 8
+        if not ctx.needs_input_grad[0]:
+            return (None,) + none
+        stack, slice_z, v_grid, u_grid, seglen, params, trans, wsum = \
+            ctx.saved_tensors
+        emission, flip, address_mode = ctx.static
+        # Cotangents may arrive broadcast (the gradient of a sum); the
+        # kernel reads dense maps.
+        cts = [c.contiguous() for c in (ct_acc, ct_trans, ct_wsum)]
+        if stack.device.type == "cuda":
+            dstack = sweep_bwd.launch_kernel(
+                stack, slice_z, v_grid, u_grid, seglen, params, *cts, trans,
+                wsum, emission, flip, address_mode == "wrap")
+        else:
+            dstack = sweep_bwd.sweep_bwd_reference(
+                stack, slice_z, v_grid, u_grid, seglen, params, *cts, trans,
+                wsum, emission=emission, flip=flip,
+                address_mode=address_mode)
+        return (dstack,) + none
 
 
 def sweep_inputs(gperm, plan, cfg: RenderConfig, medium: MediumConfig,
@@ -214,13 +220,15 @@ def sweep_inputs(gperm, plan, cfg: RenderConfig, medium: MediumConfig,
 def sweep_base(gperm, plan, cfg: RenderConfig, medium: MediumConfig,
                light=None):
     """(acc, trans, wsum, hit) base maps, each (Hb, Wb) float32, for a
-    grid permuted so the sweep axis is dim 0: the kernel for a CUDA grid,
-    sweep_fwd_reference for a CPU grid."""
+    grid permuted so the sweep axis is dim 0: the kernels for a CUDA grid,
+    the plain versions for a CPU grid, differentiable in the grid either
+    way."""
     (stack, *args), flip = sweep_inputs(gperm, plan, cfg, medium, light)
     if stack.device.type == "cuda":
-        return _SweepFwd.apply(stack.contiguous(), *args, cfg.emission, flip,
-                               cfg.address_mode == "wrap")
-    if stack.device.type == "cpu":
-        return sweep_fwd_reference(stack, *args, emission=cfg.emission,
-                                   flip=flip, address_mode=cfg.address_mode)
-    raise ValueError(f"sweep_base: no sweep for device {stack.device}")
+        # The kernel reads a dense stack; autograd carries dG back through
+        # this copy (and through the permute) to the grid.
+        stack = stack.contiguous()
+    elif stack.device.type != "cpu":
+        raise ValueError(f"sweep_base: no sweep for device {stack.device}")
+    return _SweepFwd.apply(stack, *args, cfg.emission, flip,
+                           cfg.address_mode)

@@ -30,9 +30,9 @@ from ..config import LightConfig, MediumConfig, RenderConfig
 from ..kernels import sweep_fwd
 from .camera import Camera
 
-__all__ = ["SweepPlan", "plan_sweep", "plan_base_dims", "sweep_render",
-           "warp_base_to_pixels", "warp_inputs", "postwarp_pixels",
-           "finish_image"]
+__all__ = ["SweepPlan", "plan_sweep", "plan_base_dims", "base_rays",
+           "sweep_render", "warp_base_to_pixels", "warp_inputs",
+           "postwarp_pixels", "finish_image"]
 
 
 # Grid dims are (z, y, x) = dims (0, 1, 2); coord axes are (x, y, z).
@@ -280,6 +280,32 @@ def plan_sweep(
                      warp_cols01=cols01, box_range=rng_perm, box_min=box_min,
                      axis=g["axis"], sign=g["sign"], perm=g["perm"],
                      coord_order=g["coord_order"])
+
+
+def _to_xyz(perm_vec, coord_order):
+    """Reorder the last axis from the plan's (k, a, b) order to (x, y, z)."""
+    inv = [coord_order.index(c) for c in range(3)]
+    return perm_vec[..., inv]
+
+
+def base_rays(plan: SweepPlan):
+    """World-space rays of the base grid (for oracle cross-checks): one ray
+    per (v_i, u_j) base pixel, through the camera eye. Returns (origins,
+    directions), each (Hb, Wb, 3), on the plan's device."""
+    Hb, Wb = plan.base_shape
+    sign = float(plan.sign)
+    w_perm = torch.stack(
+        [torch.full((Hb, Wb), sign, dtype=torch.float32,
+                    device=plan.v_grid.device),
+         sign * plan.v_grid[:, None].expand(Hb, Wb),
+         sign * plan.u_grid[None, :].expand(Hb, Wb)], dim=-1)
+    d = _to_xyz(w_perm, plan.coord_order) \
+        * _to_xyz(plan.box_range, plan.coord_order)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    o = (_to_xyz(plan.box_min, plan.coord_order)
+         + _to_xyz(plan.eye01, plan.coord_order)
+         * _to_xyz(plan.box_range, plan.coord_order))
+    return o.expand(d.shape), d
 
 
 def _in01(x):

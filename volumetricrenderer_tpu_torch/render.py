@@ -2,11 +2,14 @@
 render_image / render from volumetricrenderer_tpu/render.py).
 
 `render_image` renders one RGBA frame (H, W, 4) with the sliced-quadrature
-slice sweep: on a CUDA grid through the hand-written sweep kernel, on a CPU
-grid through its plain PyTorch version. The JAX package's other paths, the
-per-ray integrators (backend "reference", quadrature "fixed", and the
-fallback for cameras with no sweep axis) and the shadow light volume, are
-not ported yet: asking for one raises NotImplementedError.
+slice sweep, differentiable in the grid: on a CUDA grid the forward runs
+the hand-written forward sweep kernel and backward() the backward kernel,
+on a CPU grid both run their plain PyTorch versions. The JAX package's
+other paths through render_image (backend "reference", quadrature
+"fixed", the per-ray fallback for cameras with no sweep axis, and the
+shadow light volume) are not ported yet: asking for one raises
+NotImplementedError. The per-ray integrators themselves are in
+ops/integrate.py.
 """
 from __future__ import annotations
 
