@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: the forward render
-(serving) and the forward+backward render and fit (training).
+(serving) and the forward+backward render and fit (training), for the
+single-channel medium and for the 4-channel reference medium.
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR]    (| tee DIR/log.txt to keep the output)
 
 Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
 
 1. device: requires torch.cuda.is_available(); prints the card's name and
    power limit as nvidia-smi reports them;
-2. build: compiles both hand-written sweep kernels (kernels/csrc/
-   sweep_fwd.cu and sweep_bwd.cu, one nvcc each, started together) from the
-   checkout and prints the build times and ptxas reports;
+2. build: compiles the four hand-written sweep kernels (kernels/csrc/
+   sweep_fwd.cu, sweep_bwd.cu, sweep_ref_fwd.cu and sweep_ref_bwd.cu, one
+   nvcc each, started together) from the checkout and prints the build
+   times and ptxas reports;
 3. the forward kernel against its plain PyTorch version at small shapes:
    five eyes (three sweep axes, both signs) x emission/absorption x
    mirror/clamp/wrap, plus sub-voxel slicing (n_slices != depth);
@@ -36,12 +38,34 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    and the flagship forward+backward step; the fit step on the host clock;
    a torch.profiler table of the forward+backward step with the device's
    busy and idle share;
-9. prints a JSON line of kernel results, then the last line
+9. the 4-channel reference-combine kernels against their plain versions
+   at small shapes (16^3 x 4, 96x64): five eyes x emission/absorption x
+   scroll in {none, reference_media_scroll(1.7), a seeded random (4, 3)
+   scroll whose per-channel offsets are nonzero}, sub-voxel slicing and the
+   density-500 early-stop case; in each the plain backward is also held to
+   autograd of the plain forward; then the gradient check of step 5 with
+   the 4-channel medium and the random scroll (24^3 x 4 at 48x32);
+10. the reference preset at full width, build_volume(VolumeConfig()) =
+   128^3 x 4 at 1280x720: serving, eight frames through render_image
+   (absorption and emission x reference_media_scroll at t = 0 and 1.7 and
+   two seeded random scrolls), one forward-kernel launch each, every frame
+   finite and non-empty with its base maps and image held to the plain
+   version; training, one forward+backward step per mode (sum of rgb^2,
+   gradient to the 4-channel grid, one launch of each kernel), dL held to
+   the plain backward on the same cotangents; the launch counts are set to
+   0 before each of the two paths and read after;
+11. timing of that path (both kernels, their plain versions, the channel
+   slab build forward and backward, render_image, the forward+backward
+   step) at the preset and, timing only, at 256^3 x 4 and 1920x1080, with a
+   torch.profiler table of the preset's step;
+12. prints a JSON line of kernel results (each kernel's launches on the
+   main paths, error, time, plain version's time, and the least time the
+   card could take for the same work), then the last line
    {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is non-zero and no result is printed.
-The default frame and the profile table are saved in --out (default: the
-package's _build/ directory, which git ignores).
+One frame of each medium and the two profile tables are saved in --out
+(default: the package's _build/ directory, which git ignores).
 """
 from __future__ import annotations
 
@@ -61,11 +85,15 @@ import torch
 
 from volumetricrenderer_tpu_torch import (CameraConfig, LightConfig,
                                           MediumConfig, RenderConfig,
+                                          VolumeConfig, build_volume,
                                           cloud_volume, make_camera,
                                           orbit_camera, plan_for,
+                                          reference_media_scroll,
                                           render_image)
 from volumetricrenderer_tpu_torch.fit import fit_grid
-from volumetricrenderer_tpu_torch.kernels import sweep_bwd, sweep_fwd
+from volumetricrenderer_tpu_torch.kernels import (sweep_bwd, sweep_fwd,
+                                                  sweep_ref_bwd,
+                                                  sweep_ref_fwd)
 from volumetricrenderer_tpu_torch.models.scene import bake_scene, \
     config3_scene
 from volumetricrenderer_tpu_torch.ops.integrate import render_rays_sliced
@@ -100,6 +128,46 @@ ORBIT_T = (0.0, 0.5 * math.pi, math.pi)
 WIDTH, HEIGHT, VOLUME = 1920, 1080, 256
 FIT_SIZE, FIT_IMAGE, FIT_STEPS, FIT_LR = 256, 1024, 5, 5e-2
 TIMED_RUNS = 12
+# The reference preset's own width (config.py PRESETS["reference"]:
+# VolumeConfig(), CameraConfig()), and the flagship's for a second timing.
+REF_VOLUME, REF_WIDTH, REF_HEIGHT = 128, 1280, 720
+REF_TIMES = (0.0, 1.7)
+REF_SCROLL_SEEDS = (5, 6)
+
+KERNELS = {  # name -> (module, source, the TPU kernel it replaces)
+    "sweep_fwd": (sweep_fwd, "sweep_fwd.cu", 729),
+    "sweep_bwd": (sweep_bwd, "sweep_bwd.cu", 930),
+    "sweep_ref_fwd": (sweep_ref_fwd, "sweep_ref_fwd.cu", 1750),
+    "sweep_ref_bwd": (sweep_ref_bwd, "sweep_ref_bwd.cu", 1914),
+}
+# The card's published peaks (H100 SXM data sheet): float32 outside the
+# tensor cores, and device memory.
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# Float operations the swept function needs (emission, the mode that is
+# timed), an exp counted as one. Per sample that is in the box and in front
+# of the eye, FLOP_PER_SAMPLE; the tap indices and the fractions f, 1 - f
+# depend on (slice, row, channel) or (slice, column, channel) only, so they
+# are needed once per row and per column of a slice, FLOP_PER_LINE, not
+# once per sample (the kernels here recompute them in every thread; the
+# bound does not count that).
+#   sweep_fwd: the bilinear sum (6 products, 3 adds = 9), sigma (1), exp's
+#     argument (2), exp (1), alpha (1), wsum += T * alpha (2),
+#     T *= 1 - alpha (2)                                              = 18
+#   sweep_bwd: the forward's 18 for the replay, A~ (2), dsigma (5), its
+#     sample_scale (1), the bilinear adjoint (6 products, 4 adds)     = 36
+#   sweep_ref_fwd: four bilinear sums (36), the combine (4), exp's argument,
+#     exp, alpha and the two carries (8)                              = 48
+#   sweep_ref_bwd: the forward's 48, A~ (2), dsigma (5), its sample_scale
+#     (1), the product rule on the combine's r0 * r1 and r2 + r3 (5), four
+#     bilinear adjoints (40)                                          = 101
+FLOP_PER_SAMPLE = {"sweep_fwd": 18, "sweep_bwd": 36, "sweep_ref_fwd": 48,
+                   "sweep_ref_bwd": 101}
+#   one channel: the coordinate e + delta * slope (2), p = x * n - 0.5 (2),
+#     floor (1), f (1), 1 - f (1)                                     = 7
+#   four channels: the coordinate (2), then per channel its scale and
+#     scroll (2) and p, floor, f, 1 - f (5)                           = 30
+FLOP_PER_LINE = {"sweep_fwd": 7, "sweep_bwd": 7, "sweep_ref_fwd": 30,
+                 "sweep_ref_bwd": 30}
 
 
 def log(msg):
@@ -207,24 +275,95 @@ class StepClock:
 
 
 def counts():
-    return sweep_fwd.launches, sweep_bwd.launches
+    """Launches of (sweep_fwd, sweep_bwd, sweep_ref_fwd, sweep_ref_bwd)."""
+    return tuple(mod.launches for mod, _, _ in KERNELS.values())
 
 
 def reset_counts():
-    sweep_fwd.launches = 0
-    sweep_bwd.launches = 0
+    for mod, _, _ in KERNELS.values():
+        mod.launches = 0
 
 
-def build_both():
-    """Build the two kernels' libraries at once: one nvcc each."""
-    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+def build_all():
+    """Build the four kernels' libraries at once: one nvcc each."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         jobs = {name: pool.submit(mod.build_kernel)
-                for name, mod in (("sweep_fwd", sweep_fwd),
-                                  ("sweep_bwd", sweep_bwd))}
+                for name, (mod, _, _) in KERNELS.items()}
         return {name: job.result() for name, job in jobs.items()}
 
 
-def profile_fwdbwd(step, out_dir, n=3):
+def inbox_samples(plan):
+    """(samples, lines) of the plan: the samples that lie in front of the
+    eye and inside the box, which are the samples a sweep kernel does work
+    for when no ray ends early, and the rows plus columns of base pixels
+    that hold such a sample, summed over the slices."""
+    delta = (plan.slice_z - plan.eye01[0])[:, None]
+
+    def inside(e, slopes):
+        x = e + delta * slopes[None, :]
+        return ((x >= 0.0) & (x <= 1.0)).sum(1)
+
+    front = delta[:, 0] * plan.sign > 0.0
+    rows = inside(plan.eye01[1], plan.v_grid) * front
+    cols = inside(plan.eye01[2], plan.u_grid) * front
+    return (int((rows * cols).sum()),
+            int((rows * (cols > 0) + cols * (rows > 0)).sum()))
+
+
+def bound(name, samples, lines, tensors):
+    """The least time the card could take for a kernel's work: the larger
+    of its float operations over the float32 peak and its bytes (each
+    input read once, each output written once: `tensors`) over the memory
+    rate. Returns (ms, "operations" or "bytes", flops, bytes)."""
+    flops = FLOP_PER_SAMPLE[name] * samples + FLOP_PER_LINE[name] * lines
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def seeded_scroll(seed, dev):
+    """A (4, 3) scroll with entries in [-1.5, 1.5]: unlike the preset's
+    own, its per-channel offsets are nonzero on every axis."""
+    return torch.tensor(np.random.default_rng(seed).uniform(-1.5, 1.5,
+                                                            (4, 3)),
+                        dtype=torch.float32, device=dev)
+
+
+def ref_both(grid4, plan, cfg, medium, scroll, rng, autograd=True):
+    """The 4-channel kernels and their plain versions on the same inputs:
+    the forward maps, and dL on the forward kernel's trans and wsum maps
+    and seeded normal cotangents. With `autograd`, also the plain backward
+    against autograd of the plain forward. Comparison launches, not the
+    main path. Returns (maps, plain maps, dL, plain dL, own, auto)."""
+    inputs = sweep_ref_fwd.sweep_ref_inputs(
+        grid4.permute(plan.perm + (3,)), plan, cfg, medium, None, scroll)
+    em = cfg.emission
+    maps = sweep_ref_fwd.launch_kernel(*inputs, em)
+    cts = [torch.tensor(rng.normal(size=plan.base_shape),
+                        dtype=torch.float32, device=grid4.device)
+           for _ in range(3)]
+    got = sweep_ref_bwd.launch_kernel(*inputs, *cts, maps[1], maps[2],
+                                      emission=em)
+    torch.cuda.synchronize()
+    want_maps = sweep_ref_fwd.sweep_ref_fwd_reference(*inputs, emission=em)
+    want = sweep_ref_bwd.sweep_ref_bwd_reference(*inputs, *cts, maps[1],
+                                                 maps[2], emission=em)
+    own = auto = None
+    if autograd:
+        L = inputs[0].detach().clone().requires_grad_()
+        fmaps = sweep_ref_fwd.sweep_ref_fwd_reference(L, *inputs[1:],
+                                                      emission=em)
+        loss = sum((m * c).sum() for m, c in zip(fmaps[:3], cts))
+        auto, = torch.autograd.grad(loss, L)
+        own = sweep_ref_bwd.sweep_ref_bwd_reference(
+            L.detach(), *inputs[1:], *cts, fmaps[1].detach(),
+            fmaps[2].detach(), emission=em)
+    return maps.unbind(0), want_maps, got, want, own, auto
+
+
+def profile_fwdbwd(step, out_dir, name="chip_smoke_profile.txt", n=3):
     """torch.profiler over n forward+backward steps: prints the device
     time by kernel and the device's busy share of the wall clock."""
     from torch.autograd import DeviceType
@@ -242,7 +381,7 @@ def profile_fwdbwd(step, out_dir, n=3):
                                       row_limit=25)
     busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == DeviceType.CUDA) * 1e-3 / n
-    path = os.path.join(out_dir, "chip_smoke_profile.txt")
+    path = os.path.join(out_dir, name)
     with open(path, "w") as f:
         f.write(table + "\n")
     log(table)
@@ -250,16 +389,314 @@ def profile_fwdbwd(step, out_dir, n=3):
         f"ms wall (idle share {1 - busy_ms / wall_ms:.3f}); table in {path}")
 
 
+def ref_small_checks(dev):
+    """Steps 9: the 4-channel kernels against their plain versions at
+    small shapes, and the 4-channel gradient check. Returns the forward
+    and backward max abs errors."""
+    errs, bwd_errs = [], []
+    rng = np.random.default_rng(0)
+    small4 = torch.tensor(rng.uniform(0.1, 1.0, (16, 16, 16, 4)),
+                          dtype=torch.float32, device=dev)
+    scrolls = {"none": None,
+               "preset": reference_media_scroll(1.7, device=dev),
+               "random": seeded_scroll(REF_SCROLL_SEEDS[0], dev)}
+    cases = [(eye, ax, sg, em, kind, None, 1.0)
+             for eye, ax, sg in SMALL_EYES for em in (True, False)
+             for kind in scrolls]
+    cases += [(SMALL_EYES[0][0], 0, -1, em, "random", 24, 1.0)
+              for em in (True, False)]
+    cases.append((SMALL_EYES[0][0], 0, -1, True, "random", None, 500.0))
+    brng = np.random.default_rng(9)
+    for eye, axis, sign, emission, kind, n_slices, density in cases:
+        cfg = RenderConfig(emission=emission, quadrature="sliced")
+        medium = MediumConfig(combine="reference", density=density)
+        cam = make_camera(CameraConfig(eye=eye, width=96, height=64))
+        plan = plan_for(cam, small4.shape, cfg, n_slices=n_slices,
+                        device=dev)
+        if (plan.axis, plan.sign) != (axis, sign):
+            fail(f"eye {eye}: plan sweeps axis {plan.axis} sign {plan.sign},"
+                 f" expected {axis} {sign}")
+        what = (f"ref small eye={eye} axis={axis} sign={sign:+d} "
+                f"emission={emission} scroll={kind} n_slices={n_slices} "
+                f"density={density}")
+        maps, want_maps, got, want, own, auto = ref_both(
+            small4, plan, cfg, medium, scrolls[kind], brng)
+        e = max(check_close(g, w, f"{what} {name}")
+                for g, w, name in zip(maps, want_maps,
+                                      ("acc", "trans", "wsum", "hit")))
+        tol = BWD_TOL_GATE if density > 100.0 else BWD_TOL
+        e_bwd, scale = check_grad(got, want, what + " dL", tol)
+        e_auto, _ = check_grad(own, auto, what + " (plain vs autograd)", tol)
+        if density > 100.0 and not float(maps[1].min()) < 1e-3:
+            fail(f"{what}: no ray reached the early-stop gate")
+        errs.append(e)
+        bwd_errs.append(e_bwd)
+        log(f"{what}: maps max abs err {e:.3e}, dL {e_bwd:.3e} (max|dL| "
+            f"{scale:.3e}); plain vs autograd {e_auto:.3e}")
+
+    # The gradient check with the 4-channel medium: the kernels' grid
+    # gradient on an identity-warp plan against the per-ray oracle's.
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    medium = MediumConfig(combine="reference", density=8.0)
+    cam = make_camera(CameraConfig(width=48, height=32))
+    g24 = torch.tensor(np.random.default_rng(2).uniform(0.1, 1.0,
+                                                        (24, 24, 24, 4)),
+                       dtype=torch.float32, device=dev)
+    scroll = scrolls["random"]
+    plan = plan_for(cam, g24.shape, cfg, device=dev)
+    o, d = base_rays(plan)
+    g1 = g24.clone().requires_grad_()
+    (sweep_render(g1, dataclasses.replace(plan, identity_warp=True), cfg,
+                  medium, scroll=scroll)[..., :3] ** 2).sum().backward()
+    g2 = g24.clone().requires_grad_()
+    (render_rays_sliced(g2, o, d, plan, cfg, medium,
+                        scroll=scroll)[..., :3] ** 2).sum().backward()
+    scale = float(g2.grad.abs().max())
+    ok = scale > 0.0 and bool(torch.allclose(g1.grad, g2.grad, rtol=1e-3,
+                                             atol=1e-3 * scale))
+    log(f"ref grad check: allclose={ok} max_abs_err="
+        f"{max_err(g1.grad, g2.grad):.3e} scale={scale:.3e}")
+    if not ok:
+        fail("4-channel gradient check: the kernels' grid gradient "
+             "disagrees with the per-ray oracle's")
+    return errs, bwd_errs
+
+
+def ref_full_width(dev, out_dir):
+    """Step 10: the reference preset at full width, serving and training.
+    Returns (forward errs, backward errs, serving launches, training
+    launches, the grid, the camera and the plan)."""
+    errs, bwd_errs = [], []
+    t0 = time.perf_counter()
+    grid4 = build_volume(VolumeConfig(), device=dev)
+    torch.cuda.synchronize()
+    log(f"build_volume(VolumeConfig()): {tuple(grid4.shape)} in "
+        f"{time.perf_counter() - t0:.2f} s, channel means "
+        f"{[round(float(grid4[..., c].mean()), 4) for c in range(4)]}")
+    if tuple(grid4.shape) != (REF_VOLUME,) * 3 + (4,):
+        fail(f"reference volume shape {tuple(grid4.shape)}")
+    cam = make_camera(CameraConfig())
+    if (cam.width, cam.height) != (REF_WIDTH, REF_HEIGHT):
+        fail(f"reference camera is {cam.width}x{cam.height}")
+    medium = MediumConfig()
+    scrolls = [(f"reference_media_scroll({t})",
+                reference_media_scroll(t, device=dev)) for t in REF_TIMES]
+    scrolls += [(f"seeded scroll {seed}", seeded_scroll(seed, dev))
+                for seed in REF_SCROLL_SEEDS]
+    cfgs = {em: RenderConfig(emission=em, quadrature="sliced")
+            for em in (False, True)}
+    plan = plan_for(cam, grid4.shape, cfgs[False], device=dev)
+
+    # Serving: eight frames through render_image.
+    frames = []
+    reset_counts()
+    for em, cfg in cfgs.items():
+        for name, scroll in scrolls:
+            before = sweep_ref_fwd.launches
+            img = render_image(grid4, cam, cfg, medium, scroll=scroll,
+                               plan=plan)
+            torch.cuda.synchronize()
+            if sweep_ref_fwd.launches != before + 1:
+                fail(f"{name}: render_image launched the 4-channel sweep "
+                     f"kernel {sweep_ref_fwd.launches - before} times, "
+                     "expected 1")
+            frames.append((f"reference emission={em} {name}", cfg, scroll,
+                           img))
+    serve_launches = counts()
+    log(f"reference serving path: {len(frames)} frames, launches (fwd, bwd, "
+        f"ref_fwd, ref_bwd) {serve_launches}")
+    if serve_launches != (0, 0, len(frames), 0):
+        fail(f"reference serving path launched {serve_launches}, expected "
+             f"(0, 0, {len(frames)}, 0)")
+    for name, cfg, scroll, img in frames:
+        if tuple(img.shape) != (REF_HEIGHT, REF_WIDTH, 4):
+            fail(f"{name}: image shape {tuple(img.shape)}")
+        if not bool(torch.isfinite(img).all()):
+            fail(f"{name}: non-finite pixels")
+        alpha = img[..., 3]
+        if float(alpha.min()) < 0.0 or float(alpha.max()) > 1.0:
+            fail(f"{name}: alpha outside [0, 1]")
+        if float(alpha.max()) <= 0.0 or float(img[..., :3].max()) <= 0.0:
+            fail(f"{name}: empty frame (the cube is in view)")
+        inputs = sweep_ref_fwd.sweep_ref_inputs(
+            grid4.permute(plan.perm + (3,)), plan, cfg, medium, None, scroll)
+        got = sweep_ref_fwd.launch_kernel(*inputs, cfg.emission).unbind(0)
+        want = sweep_ref_fwd.sweep_ref_fwd_reference(
+            *inputs, emission=cfg.emission)
+        e = max(check_close(g, w, f"{name} {n}")
+                for g, w, n in zip(got, want,
+                                   ("acc", "trans", "wsum", "hit")))
+        e_img = check_close(img, finish_image(want, plan, cfg, medium),
+                            f"{name} image")
+        errs += [e, e_img]
+        log(f"{name}: maps max abs err {e:.3e}, image {e_img:.3e}, alpha "
+            f"mean {float(alpha.mean()):.4f}, rgb mean "
+            f"{float(img[..., :3].mean()):.4f}")
+    moved = max_err(frames[2][3], frames[0][3])
+    if not moved > 1e-3:
+        fail("a scroll with nonzero offsets did not move the frame")
+    log(f"seeded scroll against t=0: frame differs by {moved:.3e}; "
+        f"reference_media_scroll({REF_TIMES[1]}) against t=0: "
+        f"{max_err(frames[1][3], frames[0][3]):.3e} (its weighted offsets "
+        "are all zero)")
+    png = write_png(os.path.join(out_dir, "chip_smoke_reference.png"),
+                    frames[2][3])
+    log(f"saved {os.path.normpath(png)}")
+
+    # Training: one forward+backward step per mode.
+    seen = []  # (arguments, keyword arguments, dL) of each K5 launch
+    launch_bwd = sweep_ref_bwd.launch_kernel
+
+    def spy(*a, **kw):
+        dL = launch_bwd(*a, **kw)
+        seen.append((a, kw, dL))
+        return dL
+
+    scroll = scrolls[2][1]
+    reset_counts()
+    sweep_ref_bwd.launch_kernel = spy
+    try:
+        for em, cfg in cfgs.items():
+            before = counts()
+            g = grid4.clone().requires_grad_()
+            img = render_image(g, cam, cfg, medium, scroll=scroll, plan=plan)
+            loss = (img[..., :3] ** 2).sum()
+            loss.backward()
+            torch.cuda.synchronize()
+            step = tuple(a - b for a, b in zip(counts(), before))
+            if step != (0, 0, 1, 1):
+                fail(f"reference forward+backward emission={em} launched "
+                     f"{step}, expected (0, 0, 1, 1)")
+            if not bool(torch.isfinite(g.grad).all()):
+                fail(f"reference grid gradient emission={em} is not finite")
+            per_channel = [float(g.grad[..., c].abs().max())
+                           for c in range(4)]
+            if not min(per_channel) > 0.0:
+                fail(f"reference grid gradient emission={em} is zero in a "
+                     f"channel: max |grad| per channel {per_channel}")
+            a, kw, dL = seen[-1]
+            want = sweep_ref_bwd.sweep_ref_bwd_reference(*a, **kw)
+            e, scale = check_grad(dL, want,
+                                  f"reference dL emission={em}")
+            bwd_errs.append(e)
+            log(f"reference fwd+bwd emission={em}: loss {loss.item():.6e}, "
+                f"launches {step}, dL max abs err {e:.3e} at max|dL| "
+                f"{scale:.3e}, max |grad| per channel "
+                f"{[f'{x:.3e}' for x in per_channel]}")
+    finally:
+        sweep_ref_bwd.launch_kernel = launch_bwd
+    train_launches = counts()
+    log(f"reference training path: launches (fwd, bwd, ref_fwd, ref_bwd) "
+        f"{train_launches}")
+    if train_launches != (0, 0, 2, 2) or len(seen) != 2:
+        fail(f"reference training path launched {train_launches}, expected "
+             "(0, 0, 2, 2)")
+    return errs, bwd_errs, serve_launches, train_launches, grid4, cam, plan
+
+
+def ref_timings(grid4, cam, plan, dev, gpu_line, plain_runs=5):
+    """Step 11: CUDA-event timings of the 4-channel path on one grid,
+    camera and plan, with a seeded scroll (nonzero offsets). Returns the
+    emission-mode numbers for the kernel results, the forward+backward
+    step function and the bounds' inputs."""
+    medium = MediumConfig()
+    scroll = seeded_scroll(REF_SCROLL_SEEDS[0], dev)
+    gperm4 = grid4.permute(plan.perm + (3,))
+    rays = cam.width * cam.height
+    samples, lines = inbox_samples(plan)
+    S, (Hb, Wb) = plan.slice_z.shape[0], plan.base_shape
+    log(f"[{gpu_line}] reference medium {tuple(grid4.shape)} at "
+        f"{cam.width}x{cam.height}, base {plan.base_shape}, {S} slices, "
+        f"{samples} of {S * Hb * Wb} samples in the box and in front, on "
+        f"{lines} rows and columns:")
+    out = {}
+    for em in (False, True):
+        cfg = RenderConfig(emission=em, quadrature="sliced")
+        inputs = sweep_ref_fwd.sweep_ref_inputs(gperm4, plan, cfg, medium,
+                                                None, scroll)
+        maps = sweep_ref_fwd.launch_kernel(*inputs, em)
+        cts = [torch.randn(plan.base_shape, device=dev) for _ in range(3)]
+        bwd_args = (*inputs, *cts, maps[1], maps[2])
+        t = {
+            "fwd": cuda_ms(lambda: sweep_ref_fwd.launch_kernel(*inputs, em)),
+            "fwd_plain": cuda_ms(
+                lambda: sweep_ref_fwd.sweep_ref_fwd_reference(
+                    *inputs, emission=em), runs=plain_runs, warmup=1),
+            "bwd": cuda_ms(lambda: sweep_ref_bwd.launch_kernel(
+                *bwd_args, emission=em)),
+            "bwd_plain": cuda_ms(
+                lambda: sweep_ref_bwd.sweep_ref_bwd_reference(
+                    *bwd_args, emission=em), runs=plain_runs, warmup=1),
+            "render": cuda_ms(lambda: render_image(
+                grid4, cam, cfg, medium, scroll=scroll, plan=plan)),
+        }
+        g = grid4.clone().requires_grad_()
+
+        def fwdbwd(g=g, cfg=cfg):
+            g.grad = None
+            (render_image(g, cam, cfg, medium, scroll=scroll,
+                          plan=plan)[..., :3] ** 2).sum().backward()
+        t["fwdbwd"] = cuda_ms(fwdbwd)
+        min_t = float(maps[1].min())
+        log(f"  emission={em}:")
+        log(f"    sweep_ref_fwd kernel        {t['fwd']:.3f} ms")
+        log(f"    sweep_ref_fwd plain version {t['fwd_plain']:.3f} ms")
+        log(f"    sweep_ref_bwd kernel        {t['bwd']:.3f} ms")
+        log(f"    sweep_ref_bwd plain version {t['bwd_plain']:.3f} ms")
+        log(f"    render_image                {t['render']:.3f} ms = "
+            f"{rays / (t['render'] * 1e-3):.4g} forward rays/s (plan "
+            "excluded)")
+        log(f"    forward+backward step       {t['fwdbwd']:.3f} ms = "
+            f"{rays / (t['fwdbwd'] * 1e-3):.4g} fwd+bwd rays/s (plan "
+            "excluded)")
+        if em:
+            log(f"    min T {min_t:.4f} against the early-stop threshold "
+                f"{cfg.early_stop_transmittance}: "
+                + ("no ray ended early, the in-box count is the work done"
+                   if min_t > cfg.early_stop_transmittance else
+                   "some rays ended early, the in-box count is an upper "
+                   "bound of the work done"))
+            out = dict(t, fwdbwd_fn=fwdbwd, samples=samples, lines=lines,
+                       fwd_tensors=(*inputs, maps),
+                       bwd_tensors=(*inputs, *cts[1:], maps[1], maps[2],
+                                    inputs[0]))
+    # The channel slab build (sweep-axis lerp of the four channels), which
+    # runs once per frame because the scroll moves it.
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    offs = sweep_ref_fwd._channel_offsets(medium, scroll, plan.coord_order,
+                                          device=dev)
+
+    def build(gp):
+        return sweep_ref_fwd._layer_channels(gp, plan.slice_z, medium, offs,
+                                             cfg.address_mode)
+    build_ms = cuda_ms(lambda: build(gperm4))
+    gl = grid4.clone().requires_grad_()
+    ct = torch.randn_like(build(gperm4))
+
+    def build_fwdbwd():
+        gl.grad = None
+        build(gl.permute(plan.perm + (3,))).backward(ct)
+    build_fb_ms = cuda_ms(build_fwdbwd)
+    log(f"  channel slab build forward  {build_ms:.3f} ms")
+    log(f"  channel slab build fwd+bwd  {build_fb_ms:.3f} ms (backward "
+        f"~{build_fb_ms - build_ms:.3f} ms)")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None,
-                        help="directory for the flagship PNG and profile")
+                        help="directory for the PNGs and the profiles")
     args = parser.parse_args(argv)
 
     # 1. Device.
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
              "GPU")
+    out_dir = args.out or os.path.join(
+        os.path.dirname(os.path.abspath(sweep_fwd.__file__)), os.pardir,
+        "_build")
+    os.makedirs(out_dir, exist_ok=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -272,13 +709,9 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    out_dir = args.out or os.path.join(
-        os.path.dirname(os.path.abspath(sweep_fwd.__file__)), os.pardir,
-        "_build")
-    os.makedirs(out_dir, exist_ok=True)
 
     # 2. Build.
-    for name, info in build_both().items():
+    for name, info in build_all().items():
         log(f"build {name}: {info['seconds']:.1f} s -> {info['path']}")
         for line in info["log"].strip().splitlines():
             log(f"  nvcc: {line}")
@@ -380,11 +813,11 @@ def main(argv=None):
                  f"{sweep_fwd.launches - before} times, expected 1")
         frames.append((name, plan, img))
     serve_launches = counts()
-    log(f"serving path: {len(frames)} frames, launches (fwd, bwd) "
-        f"{serve_launches}")
-    if serve_launches != (len(frames), 0):
+    log(f"serving path: {len(frames)} frames, launches (fwd, bwd, ref_fwd, "
+        f"ref_bwd) {serve_launches}")
+    if serve_launches != (len(frames), 0, 0, 0):
         fail(f"serving path launched {serve_launches}, expected "
-             f"({len(frames)}, 0)")
+             f"({len(frames)}, 0, 0, 0)")
 
     for name, plan, img in frames:
         if tuple(img.shape) != (HEIGHT, WIDTH, 4):
@@ -434,9 +867,9 @@ def main(argv=None):
     torch.cuda.synchronize()
     sweep_bwd.launch_kernel = launch_bwd
     step_launches = counts()
-    if step_launches != (1, 1) or len(seen) != 1:
-        fail(f"flagship forward+backward launched (fwd, bwd) "
-             f"{step_launches}, expected (1, 1)")
+    if step_launches != (1, 1, 0, 0) or len(seen) != 1:
+        fail(f"flagship forward+backward launched {step_launches}, "
+             f"expected (1, 1, 0, 0)")
     bwd_args, dG = seen[0]
     if not bool(torch.isfinite(g.grad).all()) or \
             not float(g.grad.abs().max()) > 0.0:
@@ -448,7 +881,7 @@ def main(argv=None):
         address_mode=cfg.address_mode)
     e_flag, scale_flag = check_grad(dG, want, "flagship dG")
     bwd_errs.append(e_flag)
-    log(f"flagship fwd+bwd: loss {loss.item():.6e}, launches (fwd, bwd) "
+    log(f"flagship fwd+bwd: loss {loss.item():.6e}, launches "
         f"{step_launches}, dG max abs err {e_flag:.3e} at max|dG| "
         f"{scale_flag:.3e}, grad nonzero share "
         f"{float((g.grad != 0).float().mean()):.4f}")
@@ -472,18 +905,19 @@ def main(argv=None):
     fit_launches = tuple(a - b for a, b in zip(counts(), before))
     train_launches = counts()
     log(f"config 3 fit: losses {[f'{x:.6e}' for x in res.losses]}, "
-        f"skipped {res.skipped_steps}, launches (fwd, bwd) {fit_launches}, "
+        f"skipped {res.skipped_steps}, launches {fit_launches}, "
         f"{fit_s:.2f} s with the plan build")
-    if fit_launches != (FIT_STEPS, FIT_STEPS):
-        fail(f"fit launched (fwd, bwd) {fit_launches}, expected "
-             f"({FIT_STEPS}, {FIT_STEPS})")
+    if fit_launches != (FIT_STEPS, FIT_STEPS, 0, 0):
+        fail(f"fit launched {fit_launches}, expected "
+             f"({FIT_STEPS}, {FIT_STEPS}, 0, 0)")
     if res.skipped_steps or not all(math.isfinite(x) for x in res.losses) \
             or not res.losses[-1] < res.losses[0]:
         fail(f"config 3 fit did not descend: losses {res.losses}, skipped "
              f"{res.skipped_steps}")
     (s0, c0), (s1, c1) = clock.marks[0], clock.marks[-1]
     fit_step_ms = (c1 - c0) * 1e3 / (s1 - s0)
-    log(f"training path: launches (fwd, bwd) {train_launches}")
+    log(f"training path: launches (fwd, bwd, ref_fwd, ref_bwd) "
+        f"{train_launches}")
 
     # 8. Timing at the flagship, default camera.
     fwd_args, flip = sweep_fwd.sweep_inputs(grid.permute(plan.perm), plan,
@@ -537,27 +971,82 @@ def main(argv=None):
         f"{FIT_IMAGE}: {fit_step_ms:.3f} ms per step (host clock, steps "
         f"{s0 + 1}-{s1}), loss {res.losses[0]:.6e} -> {res.losses[-1]:.6e}")
     profile_fwdbwd(fwdbwd, out_dir)
+    samples, lines = inbox_samples(plan)
+    min_t = float(maps[1].min())
+    log(f"  {samples} of {plan.slice_z.shape[0] * maps[0].numel()} samples "
+        f"in the box and in front, on {lines} rows and columns; min T "
+        f"{min_t:.4f} against the early-stop threshold "
+        f"{cfg.early_stop_transmittance}"
+        + ("" if min_t > cfg.early_stop_transmittance else
+           " (some rays ended early: the in-box count is an upper bound)"))
+    # Emission reads ct_trans, ct_wsum, trans and wsum (bwd_args[7:11]) and
+    # writes a dG of the stack's size.
+    work = {"sweep_fwd": (samples, lines, (*fwd_args, *maps)),
+            "sweep_bwd": (samples, lines, (*bwd_args[:6], *bwd_args[7:11],
+                                           bwd_args[0]))}
 
-    # 9. Results.
-    print(json.dumps({"kernels": [{
-        "name": "sweep_fwd",
-        "route": "cuda",
-        "source": "volumetricrenderer_tpu_torch/kernels/csrc/sweep_fwd.cu",
-        "replaces": "volumetricrenderer_tpu/kernels/sweep_pallas.py:729",
-        "launches": serve_launches[0] + train_launches[0],
-        "max_abs_err": max(errs),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "sweep_bwd",
-        "route": "cuda",
-        "source": "volumetricrenderer_tpu_torch/kernels/csrc/sweep_bwd.cu",
-        "replaces": "volumetricrenderer_tpu/kernels/sweep_pallas.py:930",
-        "launches": serve_launches[1] + train_launches[1],
-        "max_abs_err": max(bwd_errs),
-        "ms": bwd_ms,
-        "plain_ms": bwd_plain_ms,
-    }]}))
+    # 9. The 4-channel reference-combine kernels at small shapes.
+    ref_errs, ref_bwd_errs = ref_small_checks(dev)
+
+    # 10. The reference preset at full width: serving and training.
+    e_f, e_b, ref_serve, ref_train, grid4, cam4, plan4 = ref_full_width(
+        dev, out_dir)
+    ref_errs += e_f
+    ref_bwd_errs += e_b
+
+    # 11. Timing of the 4-channel path: at the preset, then (timing only)
+    # at the flagship's size.
+    ref_t = ref_timings(grid4, cam4, plan4, dev, gpu_line)
+    profile_fwdbwd(ref_t["fwdbwd_fn"], out_dir,
+                   "chip_smoke_profile_reference.txt")
+    work["sweep_ref_fwd"] = (ref_t["samples"], ref_t["lines"],
+                             ref_t["fwd_tensors"])
+    work["sweep_ref_bwd"] = (ref_t["samples"], ref_t["lines"],
+                             ref_t["bwd_tensors"])
+    t0 = time.perf_counter()
+    big4 = build_volume(VolumeConfig(size=VOLUME), device=dev)
+    torch.cuda.synchronize()
+    log(f"build_volume(VolumeConfig(size={VOLUME})): "
+        f"{time.perf_counter() - t0:.2f} s")
+    ref_timings(big4, cams[0][1],
+                plan_for(cams[0][1], big4.shape, cfg, device=dev), dev,
+                gpu_line, plain_runs=3)
+
+    # 12. Results. No single PyTorch call marches a carried, gated slice
+    # sweep (grid_sample does one slice's taps only), so library_ms is null.
+    times = {"sweep_fwd": (kernel_ms, plain_ms),
+             "sweep_bwd": (bwd_ms, bwd_plain_ms),
+             "sweep_ref_fwd": (ref_t["fwd"], ref_t["fwd_plain"]),
+             "sweep_ref_bwd": (ref_t["bwd"], ref_t["bwd_plain"])}
+    kernel_errs = {"sweep_fwd": errs, "sweep_bwd": bwd_errs,
+                   "sweep_ref_fwd": ref_errs, "sweep_ref_bwd": ref_bwd_errs}
+    main_paths = (serve_launches, train_launches, ref_serve, ref_train)
+    results = []
+    for k, (name, (_, source, line)) in enumerate(KERNELS.items()):
+        launches = sum(path[k] for path in main_paths)
+        if launches < 1:
+            fail(f"{name}: no launch on any main path")
+        bound_ms, bound_by, flops, nbytes = bound(name, *work[name])
+        ms, plain = times[name]
+        log(f"[{gpu_line}] {name}: {ms:.3f} ms against a bound of "
+            f"{bound_ms:.4f} ms ({bound_by}: {flops:.4g} float operations "
+            f"at 67 TFLOP/s, {nbytes:.4g} bytes at 3.35 TB/s), {launches} "
+            "launches on the main paths")
+        results.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"volumetricrenderer_tpu_torch/kernels/csrc/{source}",
+            "replaces":
+                f"volumetricrenderer_tpu/kernels/sweep_pallas.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(kernel_errs[name]),
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

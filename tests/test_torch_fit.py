@@ -167,6 +167,21 @@ def test_checkpoint_resumes_across_packages(problem, writer, tmp_path):
                        whole.grid)
 
 
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_checkpoint_round_trips_4_channel_grid(writer, tmp_path):
+    """A (D, H, W, 4) grid, the reference medium's state, written by one
+    package and read by the other."""
+    grid = np.random.default_rng(0).uniform(size=(5, 6, 7, 4)) \
+        .astype(np.float32)
+    ckpt = str(tmp_path / "ckpt")
+    write, read = ((jckpt, tckpt) if writer == "jax" else (tckpt, jckpt))
+    write.save_checkpoint(ckpt, 3, jnp.asarray(grid) if writer == "jax"
+                          else torch.from_numpy(grid))
+    step, got, _, _ = read.restore_checkpoint(ckpt)
+    assert step == 3
+    np.testing.assert_array_equal(np.asarray(got), grid)
+
+
 def test_adam_leaves_round_trip():
     p = torch.nn.Parameter(torch.rand(3, 4, 5))
     opt = torch.optim.Adam([p], lr=LR)

@@ -192,17 +192,106 @@ def test_bench_gradient_check():
     assert torch.allclose(g1.grad, g2.grad, rtol=1e-3, atol=1e-3 * scale)
 
 
+def _scroll4(kind):
+    if kind == "none":
+        return None
+    if kind == "preset":
+        return np.array(jint.reference_media_scroll(1.7))
+    return np.random.default_rng(5).uniform(-1.5, 1.5, (4, 3)) \
+        .astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["none", "preset", "random"])
+def test_sample_sigma_reference_matches_jax(kind):
+    """The 4-channel combine at per-channel scaled and scrolled coords;
+    positions beyond [0, 1] exercise the mirror."""
+    rng = np.random.default_rng(4)
+    grid = rng.uniform(size=(6, 7, 5, 4)).astype(np.float32)
+    pos = rng.uniform(-0.2, 1.2, (11, 9, 3)).astype(np.float32)
+    scroll = _scroll4(kind)
+    got = tint.sample_sigma(_t(grid), _t(pos), T.MediumConfig(), scroll,
+                            "mirror")
+    want = jint.sample_sigma(jnp.asarray(grid), jnp.asarray(pos),
+                             J.MediumConfig(),
+                             None if scroll is None else jnp.asarray(scroll),
+                             "mirror")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="4"):
+        tint.sample_sigma(_t(grid[..., 0]), _t(pos), T.MediumConfig(), None,
+                          "mirror")
+
+
+@pytest.mark.parametrize("eye,emission,kind", [
+    (EYES[0][0], True, "random"), (EYES[2][0], False, "random"),
+    (EYES[3][0], True, "preset"), (EYES[4][0], False, "none")])
+def test_render_rays_sliced_reference_matches_jax(eye, emission, kind):
+    """The oracle with a (D, H, W, 4) grid and a scroll, forward and grid
+    gradient: what the 4-channel kernels' gradient check is held to."""
+    grid = np.random.default_rng(3).uniform(0.2, 1.0, (12, 12, 12, 4)) \
+        .astype(np.float32)
+    jcfg = J.RenderConfig(emission=emission, quadrature="sliced")
+    tcfg = T.RenderConfig(emission=emission, quadrature="sliced")
+    jmed, tmed = J.MediumConfig(density=6.0), T.MediumConfig(density=6.0)
+    jplan = jsweep.plan_sweep(J.make_camera(J.CameraConfig(
+        eye=eye, width=48, height=32)), grid.shape, jcfg)
+    o, d = (np.asarray(x) for x in jsweep.base_rays(jplan))
+    scroll = _scroll4(kind)
+    g = _t(grid).requires_grad_()
+    got = tint.render_rays_sliced(g, _t(o), _t(d), torch_plan(jplan), tcfg,
+                                  tmed, scroll=scroll)
+    (got[..., :3] ** 2).sum().backward()
+
+    def jloss(x):
+        img = jint.render_rays_sliced(
+            x, jnp.asarray(o), jnp.asarray(d), jplan, jcfg, jmed,
+            scroll=None if scroll is None else jnp.asarray(scroll))
+        return jnp.sum(img[..., :3] ** 2), img
+    (_, want), gwant = jax.value_and_grad(jloss, has_aux=True)(
+        jnp.asarray(grid))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+    scale = float(np.abs(gwant).max())
+    assert scale > 0.0
+    np.testing.assert_allclose(g.grad.numpy(), np.asarray(gwant), rtol=RTOL,
+                               atol=2e-4 * scale)
+
+
+def test_bench_gradient_check_reference():
+    """The gradient check with the 4-channel medium and a scroll whose
+    offsets are nonzero: the plain 4-channel sweep's grid gradient on an
+    identity-warp plan against the per-ray oracle's."""
+    cfg = T.RenderConfig(emission=True, quadrature="sliced")
+    medium = T.MediumConfig(density=8.0)
+    cam = T.make_camera(T.CameraConfig(width=48, height=32))
+    grid = _t(np.random.default_rng(2).uniform(0.1, 1.0, (12, 12, 12, 4))
+              .astype(np.float32))
+    scroll = _scroll4("random")
+    plan = T.plan_for(cam, grid.shape, cfg)
+    o, d = tsweep.base_rays(plan)
+    g1 = grid.clone().requires_grad_()
+    (tsweep.sweep_render(g1, dataclasses.replace(plan, identity_warp=True),
+                         cfg, medium, scroll=scroll)[..., :3] ** 2).sum() \
+        .backward()
+    g2 = grid.clone().requires_grad_()
+    (tint.render_rays_sliced(g2, o, d, plan, cfg, medium,
+                             scroll=scroll)[..., :3] ** 2).sum().backward()
+    scale = float(g2.grad.abs().max())
+    assert scale > 0.0
+    assert torch.allclose(g1.grad, g2.grad, rtol=1e-3, atol=1e-3 * scale)
+
+
 def test_unported_paths_raise():
     grid, o, d, jcfg, jmed, tcfg, tmed = _march_setup(True)
     g, o, d = _t(grid), _t(o), _t(d)
-    with pytest.raises(NotImplementedError, match="reference combine"):
+    with pytest.raises(ValueError, match="reference combine"):
         tint.render_rays(g, o, d, tcfg, T.MediumConfig())
     with pytest.raises(NotImplementedError, match="shadow"):
         tint.render_rays(g, o, d, tcfg, tmed, T.LightConfig(shadow_steps=4))
     with pytest.raises(NotImplementedError, match="scene_sigma"):
         tint.scene_sigma([], o, tcfg, tmed)
-    with pytest.raises(NotImplementedError):
-        tint.reference_media_scroll(1.0)
+    with pytest.raises(NotImplementedError, match="shadow"):
+        tint._light_transmittance(g, o, tmed, None, tcfg, T.LightConfig())
     _, so, sd, _, _, _, tplan, scfg, smed = _sliced_setup(EYES[0][0], True)
     with pytest.raises(NotImplementedError, match="light volume"):
         tint.render_rays_sliced(g, _t(so), _t(sd), tplan, scfg, smed,

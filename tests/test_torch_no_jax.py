@@ -52,6 +52,12 @@ def test_port_imports_and_renders_without_jax():
                                             quadrature="sliced"),
                              T.MediumConfig(combine="single", density=8.0))
         assert img.shape == (32, 48, 4) and bool(torch.isfinite(img).all())
+        grid4 = T.build_volume(T.VolumeConfig(size=8))
+        img = T.render_image(grid4, cam, T.RenderConfig(quadrature="sliced"),
+                             T.MediumConfig(),
+                             scroll=T.reference_media_scroll(1.7))
+        assert img.shape == (32, 48, 4) and bool(torch.isfinite(img).all())
+        assert float(img[..., 3].max()) == 1.0
         import tempfile
         from volumetricrenderer_tpu_torch import cli
         from volumetricrenderer_tpu_torch.utils import checkpoint

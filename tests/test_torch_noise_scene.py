@@ -75,8 +75,29 @@ def test_noise_grid(kind, octaves):
 
 @pytest.mark.parametrize("kind", ["simplex", "cellular"])
 def test_unported_noise_raises(kind):
-    with pytest.raises(NotImplementedError):
-        tnoise.noise_grid(kind, 4, 0.1, 1)
+    """Simplex and cellular noise are ported: only a kind that neither
+    package knows raises."""
+    assert tnoise.noise_grid(kind, 4, 0.1, 1).shape == (4, 4, 4)
+    with pytest.raises(ValueError, match="unknown noise kind"):
+        tnoise.noise_grid(kind + "3", 4, 0.1, 1)
+
+
+@pytest.mark.parametrize("name", ["simplex3", "cellular3"])
+@pytest.mark.parametrize("seed", [4, 11])
+def test_simplex_and_cellular(name, seed):
+    c = _coords(seed)
+    c[:4] = [[0, 0, 0], [1, 1, 1], [-1, 2, -3], [0.5, 0.5, 0.5]]
+    got = getattr(tnoise, name)(torch.from_numpy(c), seed)
+    want = np.asarray(getattr(jnoise, name)(jnp.asarray(c), seed))
+    assert got.dtype == torch.float32 and float(got.std()) > 0.1
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", ["simplex", "cellular"])
+def test_noise_grid_simplex_cellular(kind):
+    np.testing.assert_allclose(
+        tnoise.noise_grid(kind, 12, 0.15, 4),
+        np.asarray(jnoise.noise_grid(kind, 12, 0.15, 4)), rtol=0, atol=ATOL)
 
 
 def test_cloud_volume():
@@ -96,3 +117,26 @@ def test_build_volume():
     assert got.shape == (12, 12, 12, 2)
     np.testing.assert_allclose(got.numpy(), np.asarray(jscene.build_volume(jv)),
                                rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_build_volume_reference_recipe(quantize):
+    """The reference preset's recipe (cellular, cellular, Perlin, simplex;
+    channel 0 sharpened by pow 4) at size 16. Quantized values may land one
+    unorm level apart where the float grids differ in the last bit."""
+    got = tscene.build_volume(TVolume(size=16, quantize_uint8=quantize))
+    want = np.asarray(jscene.build_volume(JVolume(size=16,
+                                                  quantize_uint8=quantize)))
+    assert got.shape == (16, 16, 16, 4) and got.dtype == torch.float32
+    assert [c.kind for c in TVolume().channels] == \
+        ["cellular", "cellular", "perlin", "simplex"]
+    if quantize:
+        diff = np.abs(got.numpy() - want)
+        assert diff.max() <= 1.0 / 255.0 + 1e-7 and (diff > 0).mean() < 1e-3
+        np.testing.assert_array_equal(np.round(got.numpy() * 255.0),
+                                      got.numpy() * 255.0)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    for c in range(4):
+        assert float(got[..., c].min()) == 0.0
+        assert float(got[..., c].max()) == 1.0

@@ -4,10 +4,12 @@ volumetricrenderer_tpu, for NVIDIA Hopper GPUs.
 The JAX package beside it stays the reference: every module here has a
 counterpart there under the same relative path, and the tests
 (tests/test_torch_*.py) run both on the same inputs. Ported so far: the
-forward render (configs, noise and the FBM cloud, cameras, the sweep plan,
-the forward slice sweep as a hand-written CUDA kernel with its plain
-PyTorch version, the screen warp, render_image, PNG output). This package
-never imports jax.
+forward render (configs, noise, the FBM cloud and the reference preset's
+4-channel volume, cameras, the sweep plan, the screen warp, render_image,
+PNG output), the training path (fit_grid, the per-ray oracle), and the
+slice sweep as four hand-written CUDA kernels, each with its plain PyTorch
+version: forward and backward of the single-channel medium and of the
+4-channel reference medium. This package never imports jax.
 """
 
 from .config import (  # noqa: F401
@@ -29,6 +31,7 @@ from .ops.camera import (  # noqa: F401
     make_camera,
     orbit_camera,
 )
+from .ops.integrate import reference_media_scroll  # noqa: F401
 from .render import plan_for, render, render_image  # noqa: F401
 
 __version__ = "0.1.0"

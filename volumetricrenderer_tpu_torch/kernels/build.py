@@ -8,7 +8,8 @@ csrc/ that it includes, and of the flags, so an edited source or header
 rebuilds and an unchanged one loads at once. Nothing here runs at
 import time, and a machine without nvcc raises instead of falling back.
 check_sweep_inputs is the sweep wrappers' check of their arguments before
-the pointers are passed to a kernel.
+the pointers are passed to a kernel. NCH, N_PARAMS and channel_resample are
+what the two 4-channel sweep modules (sweep_ref_fwd, sweep_ref_bwd) share.
 """
 from __future__ import annotations
 
@@ -22,8 +23,13 @@ import time
 
 import torch
 
+from ..ops.resample import linear_resample_matrix
+
 __all__ = ["NVCC_FLAGS", "build_library", "source_key",
-           "check_sweep_inputs"]
+           "check_sweep_inputs", "NCH", "N_PARAMS", "channel_resample"]
+
+NCH = 4        # channels of the reference medium
+N_PARAMS = 20  # sweep_fwd._params_for's 8, 4 coord scales, 4 b and 4 a offsets
 
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
@@ -107,26 +113,29 @@ def build_library(name: str):
     return ctypes.CDLL(lib_path), info
 
 
-
 def check_sweep_inputs(kernel: str, stack, slice_z, v_grid, u_grid, seglen,
-                       params, maps=None):
-    """Check the arguments both sweep kernels share, plus `maps` (name ->
+                       params, maps=None, channels=None, n_params=8):
+    """Check the arguments the sweep kernels share, plus `maps` (name ->
     (Hb, Wb) tensor), before their pointers go to a kernel: CUDA, the
-    shapes the kernel assumes, contiguous float32. Returns
-    (S, A, B, Hb, Wb)."""
+    shapes the kernel assumes, contiguous float32. `stack` is (S, A, B),
+    or (S, channels, A, B) for the 4-channel kernels; `params` is
+    (n_params,). Returns (S, A, B, Hb, Wb)."""
     dev = stack.device
     if dev.type != "cuda":
         raise ValueError(f"{kernel} kernel: needs CUDA tensors, got {dev}")
-    if stack.dim() != 3:
-        raise ValueError(f"{kernel} kernel: stack must be (S, A, B), got "
-                         f"{tuple(stack.shape)}")
-    S, A, B = stack.shape
+    lead = () if channels is None else (channels,)
+    if stack.dim() != 3 + len(lead) or tuple(stack.shape[1:-2]) != lead:
+        raise ValueError(
+            f"{kernel} kernel: stack must be (S, "
+            f"{''.join(f'{c}, ' for c in lead)}A, B), got "
+            f"{tuple(stack.shape)}")
+    S, (A, B) = stack.shape[0], stack.shape[-2:]
     Hb, Wb = v_grid.numel(), u_grid.numel()
     if min(S, A, B, Hb, Wb) < 1:
         raise ValueError(f"{kernel} kernel: empty input")
-    named = [("stack", stack, (S, A, B)), ("slice_z", slice_z, (S,)),
+    named = [("stack", stack, (S, *lead, A, B)), ("slice_z", slice_z, (S,)),
              ("v_grid", v_grid, (Hb,)), ("u_grid", u_grid, (Wb,)),
-             ("seglen", seglen, (Hb, Wb)), ("params", params, (8,))]
+             ("seglen", seglen, (Hb, Wb)), ("params", params, (n_params,))]
     named += [(k, t, (Hb, Wb)) for k, t in (maps or {}).items()]
     for name, t, shape in named:
         if t is None:
@@ -141,3 +150,17 @@ def check_sweep_inputs(kernel: str, stack, slice_z, v_grid, u_grid, seglen,
             raise ValueError(f"{kernel} kernel: {name} must be {shape}, got "
                              f"{tuple(t.shape)}")
     return S, A, B, Hb, Wb
+
+
+def channel_resample(a01, b01, params, c, A, B):
+    """Channel c's banded tap matrices on one slice of the 4-channel
+    sweep: (Wa (Hb, A), Wb (Wb, B)) at the scaled and scrolled coords
+    a01 * sc + offa and b01 * sc + offb with mirror addressing. Wa's rows
+    are zeroed where the unscaled a01 leaves [0, 1]: the box test comes from
+    the ray, the mirror applies to the texture coordinate only."""
+    sc = params[8 + c]
+    inr = ((a01 >= 0.0) & (a01 <= 1.0)).to(torch.float32)
+    Wa = linear_resample_matrix(a01 * sc + params[16 + c], A, "mirror") \
+        * inr[:, None]
+    Wbm = linear_resample_matrix(b01 * sc + params[12 + c], B, "mirror")
+    return Wa, Wbm

@@ -1,4 +1,6 @@
-// Device code shared by the slice-sweep kernels (sweep_fwd.cu, sweep_bwd.cu).
+// Device code shared by the slice-sweep kernels (sweep_fwd.cu, sweep_bwd.cu,
+// and through sweep_ref_common.cuh the 4-channel sweep_ref_fwd.cu and
+// sweep_ref_bwd.cu).
 //
 // The backward kernel replays the forward's transmittance slice by slice,
 // and the early-stop gate T > thresh decides which slices contribute. A
@@ -79,16 +81,21 @@ __device__ __forceinline__ bool in_front(const Params& P, float delta) {
   return delta * P.sign > 0.f;
 }
 
-// sigma = sample_scale * bilinear(layer) at the taps.
-__device__ __forceinline__ float sigma_at(const float* __restrict__ layer,
-                                          int B, const Taps& t, float sscale) {
+// The bilinear sample of an (A, B) layer at the taps.
+__device__ __forceinline__ float bilinear_at(const float* __restrict__ layer,
+                                             int B, const Taps& t) {
   const float g00 = __ldg(layer + (size_t)t.a0 * B + t.b0);
   const float g01 = __ldg(layer + (size_t)t.a0 * B + t.b1);
   const float g10 = __ldg(layer + (size_t)t.a1 * B + t.b0);
   const float g11 = __ldg(layer + (size_t)t.a1 * B + t.b1);
-  const float bil = (1.f - t.fa) * ((1.f - t.fb) * g00 + t.fb * g01)
-                  + t.fa * ((1.f - t.fb) * g10 + t.fb * g11);
-  return sscale * bil;
+  return (1.f - t.fa) * ((1.f - t.fb) * g00 + t.fb * g01)
+       + t.fa * ((1.f - t.fb) * g10 + t.fb * g11);
+}
+
+// sigma = sample_scale * bilinear(layer) at the taps.
+__device__ __forceinline__ float sigma_at(const float* __restrict__ layer,
+                                          int B, const Taps& t, float sscale) {
+  return sscale * bilinear_at(layer, B, t);
 }
 
 // E = exp(-density * sigma * seg); the slice's opacity is alpha = 1 - E.

@@ -1,0 +1,111 @@
+// Forward slice sweep of the 4-channel reference medium for Hopper
+// (sm_90a): the emission-absorption march over pre-lerped channel slabs,
+// front to back.
+//
+// Replaces the TPU kernel volumetricrenderer_tpu/kernels/sweep_pallas.py
+// `_fwd_kernel_ref` / `_run_fwd_ref` without its light-volume branch. It
+// computes that kernel's function, not its schedule: no streamed
+// per-(slice, channel) banded row matrices on the MXU, no lane gathers or
+// one-hot column matrices, no (RB, Wb) blocks and no chunk checkpoints.
+// The taps are computed in the kernel from the plan vectors and params.
+//
+// Design. The single-channel kernel's (sweep_fwd.cu): one thread per base
+// pixel (i, j), blocks of 32 x 8 threads with j on the fast axis, the
+// carries (acc, T, wsum, hit) in registers, the four maps written once at
+// the end. Per slice s, with delta = slice_z[s] - e_k:
+//   * slices with delta * sign <= 0 lie behind the eye and are skipped;
+//   * a01 = e_a + delta * v[i], b01 = e_b + delta * u[j]; outside [0, 1]^2
+//     (the unscaled coordinates: the box test is the ray's) sigma is 0 and
+//     the taps are skipped;
+//   * per channel c: taps at a01 * sc_c + offa_c and b01 * sc_c + offb_c,
+//     p = x * N - 0.5, i0 = floor(p), f = p - i0, both indices reflected
+//     with period 2N (a scrolled coordinate leaves [0, 1], so the mirror is
+//     a true reflection, not the clip of the single-channel kernel); four
+//     reads of L[s, c] and a bilinear sum;
+//   * sigma = (r0 * r1) * (r2 + r3) * sample_scale;
+//   * emission: alpha = 1 - exp(-density * sigma * seg), wsum += T * alpha,
+//     T *= 1 - alpha, stopping once T <= thresh as the live gate would;
+//   * absorption: acc += sigma * seg, hit = 1 (hit does not depend on the
+//     channels).
+// L is built by the wrapper in slice_z order (the sweep-axis lerp of each
+// channel at its own scaled and scrolled depth), so there is no flip here.
+//
+// Layout: `L` is a contiguous (S, 4, A, B) float32 tensor.
+//
+// Bound: 16 scattered 4-byte tap reads and about 116 float operations per
+// in-box sample, against 4 and 30 in the single-channel kernel; the four
+// channels' taps fall on four different places of four slabs, so a warp
+// touches four times the cache lines. Operations bound it on paper; the
+// scattered reads through L1/L2 are what a faster version would stage in
+// shared memory, later.
+//
+// Numerics: expf, --fmad=false, and every tap, sample and sigma from
+// sweep_ref_common.cuh, shared with the backward kernel (sweep_ref_bwd.cu),
+// whose replay of the transmittance must reproduce this kernel's bit for
+// bit.
+
+#include "sweep_ref_common.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(256) sweep_ref_fwd_kernel(
+    const float* __restrict__ L, const float* __restrict__ slice_z,
+    const float* __restrict__ v_grid, const float* __restrict__ u_grid,
+    const float* __restrict__ seglen, const float* __restrict__ params,
+    float* __restrict__ out, int S, int A, int B, int Hb, int Wb,
+    int emission) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= Hb || j >= Wb) return;
+
+  const sweep::Params P = sweep::load_params(params);
+  const sweep::RefParams R = sweep::load_ref_params(params);
+  const float v = v_grid[i];
+  const float u = u_grid[j];
+  const size_t pix = (size_t)i * Wb + j;
+  const float seg = seglen[pix];
+  const size_t slab = (size_t)sweep::NCH * A * B;
+
+  float acc = 0.f, trans = 1.f, wsum = 0.f, hit = 0.f;
+  for (int s = 0; s < S; ++s) {
+    if (emission && !(trans > P.thresh)) break;
+    const float delta = slice_z[s] - P.e_k;
+    if (!sweep::in_front(P, delta)) continue;
+    sweep::RefSample smp;
+    if (!sweep::ref_sample(P, R, delta, v, u, L + (size_t)s * slab, A, B,
+                           smp))
+      continue;
+    const float sigma = sweep::ref_sigma(smp.r, P.sscale);
+    if (emission) {
+      const float alpha = 1.f - sweep::extinction(P, sigma, seg);
+      wsum += trans * alpha;
+      trans *= 1.f - alpha;
+    } else {
+      acc += sigma * seg;
+      hit = 1.f;
+    }
+  }
+  const size_t plane = (size_t)Hb * Wb;
+  out[pix] = acc;
+  out[plane + pix] = trans;
+  out[2 * plane + pix] = wsum;
+  out[3 * plane + pix] = hit;
+}
+
+}  // namespace
+
+// Launches the sweep on `stream` and returns cudaGetLastError() (0 when the
+// launch was accepted). `L` is (S, 4, A, B), `params` (20,), `out`
+// (4, Hb, Wb): acc, trans, wsum, hit.
+extern "C" int sweep_ref_fwd_launch(const float* L, const float* slice_z,
+                                    const float* v_grid, const float* u_grid,
+                                    const float* seglen, const float* params,
+                                    float* out, int S, int A, int B, int Hb,
+                                    int Wb, int emission, void* stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
+  sweep_ref_fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      L, slice_z, v_grid, u_grid, seglen, params, out, S, A, B, Hb, Wb,
+      emission);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -37,8 +37,17 @@ _ADDRESS_MODES = ("mirror", "clamp", "wrap")
 
 def supported(cfg: RenderConfig, medium: MediumConfig, light_volume,
               scroll, grid_ndim: int) -> bool:
-    """Configurations the kernel (and its plain version) cover. Unlike the
-    TPU gate, the base grid needs no 128-multiple tiling."""
+    """Configurations the sweep kernels (and their plain versions) cover.
+    Unlike the TPU gate, the base grid needs no 128-multiple tiling.
+
+    combine="reference" (kernels/sweep_ref_fwd.py): a 4-D grid, mirror
+    addressing (the scaled and scrolled coords leave [0, 1]); a scroll is
+    allowed. combine="single" (this module): a 3-D grid, no scroll."""
+    if medium.combine == "reference":
+        return (cfg.dtype == "float32"
+                and grid_ndim == 4
+                and light_volume is None
+                and cfg.address_mode == "mirror")
     return (medium.combine == "single"
             and cfg.dtype == "float32"
             and grid_ndim == 3

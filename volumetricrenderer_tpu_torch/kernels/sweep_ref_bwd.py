@@ -1,0 +1,140 @@
+"""Backward slice sweep of the 4-channel reference medium: the binding of
+the hand-written CUDA kernel csrc/sweep_ref_bwd.cu, in place of
+volumetricrenderer_tpu/kernels/sweep_pallas.py's `_bwd_kernel_ref` /
+`_run_bwd_ref` without its light-volume branch, and the kernel's plain
+PyTorch version (sweep_ref_bwd_reference).
+
+Both compute dL, the gradient of the base maps (acc, trans, wsum) with
+respect to the pre-lerped channel slabs L (S, 4, A, B) that the forward
+swept, from the maps' cotangents: the replay of the transmittance, the
+single-channel backward's dsigma, the product rule of
+sigma = (r0*r1)*(r2+r3)*sample_scale, and each channel's share scattered
+through its own scaled, scrolled and mirrored taps. The autograd node in
+kernels/sweep_ref_fwd.py calls one or the other by device: CUDA slabs
+launch the kernel (or raise), CPU slabs run the plain version. Plan arrays
+and params get no gradient, as in the JAX package.
+
+`launches` counts the kernel launches made by this module.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import (N_PARAMS, NCH, build_library, channel_resample,
+                    check_sweep_inputs)
+
+__all__ = ["sweep_ref_bwd_reference", "build_kernel", "launch_kernel",
+           "launches"]
+
+launches = 0  # kernel launches since import (or since a caller reset it)
+
+_lib = None
+build_info = None  # set by the first build: path, seconds, nvcc output
+
+
+@torch.no_grad()
+def sweep_ref_bwd_reference(L, slice_z, v_grid, u_grid, seglen, params,
+                            ct_acc, ct_trans, ct_wsum, trans, wsum, *,
+                            emission: bool):
+    """Plain PyTorch version of the backward kernel, with the same inputs.
+
+    L, slice_z, v_grid, u_grid, seglen, params: the forward's inputs
+    (kernels/sweep_ref_fwd.sweep_ref_fwd_reference); ct_acc, ct_trans,
+    ct_wsum: the (Hb, Wb) cotangents of the acc, trans and wsum maps;
+    trans, wsum: the forward's own maps. Emission reads ct_trans, ct_wsum,
+    trans and wsum, absorption ct_acc; the others may be None.
+
+    It replays the forward per slice with the banded tap matrices, forms
+    dsigma in closed form (sweep_pallas.py:2007-2027 with shade = 1, not
+    autograd of the forward), splits it by the product rule and scatters
+    each channel's share through its matrices' transposes:
+    dL[s, c] += Wa_c^T @ dr_c @ Wb_c. Returns dL, (S, 4, A, B) float32."""
+    S, _, A, B = L.shape
+    e_k, e_a, e_b, sign, density, sscale, thresh = (params[n]
+                                                    for n in range(7))
+    dL = torch.zeros_like(L)
+    if emission:
+        cw = ct_wsum
+        bct = ct_trans * trans + cw * wsum
+        T = torch.ones_like(seglen)
+        Wr = torch.zeros_like(seglen)
+    for s in range(S):
+        delta = slice_z[s] - e_k
+        a01 = e_a + delta * v_grid
+        b01 = e_b + delta * u_grid
+        front = (delta * sign) > 0.0
+        mask = ((a01 >= 0.0) & (a01 <= 1.0))[:, None] \
+            & ((b01 >= 0.0) & (b01 <= 1.0))[None, :] & front
+        maskf = mask.to(torch.float32)
+        mats = [channel_resample(a01, b01, params, c, A, B)
+                for c in range(NCH)]
+        r = [Wa @ L[s, c] @ Wbm.T for c, (Wa, Wbm) in enumerate(mats)]
+        if emission:
+            sigma = (r[0] * r[1]) * (r[2] + r[3]) * sscale * maskf
+            live = (T > thresh).to(torch.float32)
+            E = torch.exp(-density * sigma * seglen)
+            alpha = live * (1.0 - E)
+            Wr = Wr + T * alpha
+            A_til = bct - cw * Wr
+            dsigma = live * density * seglen * (cw * T * E - A_til)
+            T = T * (1.0 - alpha)
+        else:
+            dsigma = ct_acc * seglen
+        dsigma = dsigma * sscale * maskf
+        s34 = r[2] + r[3]
+        r01 = r[0] * r[1]
+        dr = (dsigma * r[1] * s34, dsigma * r[0] * s34, dsigma * r01,
+              dsigma * r01)
+        for c, (Wa, Wbm) in enumerate(mats):
+            dL[s, c] += Wa.T @ dr[c] @ Wbm
+    return dL
+
+
+def build_kernel():
+    """Build (at first use) and load the kernel's library; returns the
+    build info: library path, build seconds, nvcc's ptxas report."""
+    global _lib, build_info
+    if _lib is None:
+        lib, info = build_library("sweep_ref_bwd")
+        fn = lib.sweep_ref_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib, build_info = lib, info
+    return build_info
+
+
+def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, ct_acc,
+                  ct_trans, ct_wsum, trans, wsum, *, emission: bool):
+    """Check the inputs, allocate the zeroed (S, 4, A, B) gradient, launch
+    the kernel on the current stream and count the launch. Arguments as
+    sweep_ref_bwd_reference's; the maps a mode does not read may be None.
+    Returns dL."""
+    global launches
+    dev = L.device
+    maps = (dict(ct_trans=ct_trans, ct_wsum=ct_wsum, trans=trans, wsum=wsum)
+            if emission else dict(ct_acc=ct_acc))
+    S, A, B, Hb, Wb = check_sweep_inputs(
+        "sweep_ref_bwd", L, slice_z, v_grid, u_grid, seglen, params, maps,
+        channels=NCH, n_params=N_PARAMS)
+    build_kernel()
+
+    def ptr(name):
+        return maps[name].data_ptr() if name in maps else None
+
+    dL = torch.zeros((S, NCH, A, B), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib.sweep_ref_bwd_launch(
+            L.data_ptr(), slice_z.data_ptr(), v_grid.data_ptr(),
+            u_grid.data_ptr(), seglen.data_ptr(), params.data_ptr(),
+            ptr("ct_acc"), ptr("ct_trans"), ptr("ct_wsum"), ptr("trans"),
+            ptr("wsum"), dL.data_ptr(), S, A, B, Hb, Wb, int(emission),
+            stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"sweep_ref_bwd kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return dL

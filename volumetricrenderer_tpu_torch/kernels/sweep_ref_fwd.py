@@ -1,0 +1,245 @@
+"""Forward slice sweep of the 4-channel reference medium: the wrapper in
+place of volumetricrenderer_tpu/kernels/sweep_pallas.py's
+sweep_base_pallas_ref, its hand-written CUDA kernel (csrc/sweep_ref_fwd.cu,
+in place of `_fwd_kernel_ref`) and the kernel's plain PyTorch version
+(sweep_ref_fwd_reference).
+
+The reference medium samples four noise channels, each at its own scaled
+and scrolled coordinate with mirror addressing, and combines them as
+sigma = (s1*s2)*(s3+s4)*sample_scale. As in the JAX package, the
+sweep-axis third of each channel's trilinear sample is taken outside the
+kernel, in plain differentiable PyTorch (_layer_channels): the kernel
+sweeps the pre-lerped channel slabs L (S, 4, A, B), its gradient is dL, and
+autograd carries dL through the lerp to the grid.
+
+`sweep_base_ref` runs the sweep as one autograd node on either device: on
+a CUDA tensor its forward launches this kernel and its backward the
+backward kernel of kernels/sweep_ref_bwd.py (the port of `_bwd_kernel_ref`),
+or they raise; on a CPU tensor they run the two plain versions. There is no
+fallback from one device's path to the other's.
+
+`launches` counts the kernel launches made by this module.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..config import LightConfig, MediumConfig, RenderConfig
+from ..ops.sampling import apply_address_mode
+from . import sweep_ref_bwd
+from .build import (N_PARAMS, NCH, build_library, channel_resample,
+                    check_sweep_inputs)
+from .sweep_fwd import _params_for
+
+__all__ = ["sweep_ref_inputs", "sweep_base_ref", "sweep_ref_fwd_reference",
+           "build_kernel", "launch_kernel", "launches"]
+
+launches = 0  # kernel launches since import (or since a caller reset it)
+
+_lib = None
+build_info = None  # set by the first build: path, seconds, nvcc output
+
+
+def _channel_offsets(medium: MediumConfig, scroll, coord_order, device=None):
+    """Per-channel scroll offsets scroll[c] * channel_scroll_weight[c] in
+    the plan's (k, a, b) coord order: a list of NCH (offk, offa, offb)
+    triples of 0-dim float32 tensors (zeros with no scroll)."""
+    c_k, c_a, c_b = coord_order
+    if scroll is None:
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        return [(zero, zero, zero)] * NCH
+    scroll = torch.as_tensor(scroll, dtype=torch.float32, device=device)
+    offs = []
+    for c in range(NCH):
+        o = scroll[c] * medium.channel_scroll_weight[c]
+        offs.append((o[c_k], o[c_a], o[c_b]))
+    return offs
+
+
+def _layer_channels(gperm4, slice_z, medium: MediumConfig, offs,
+                    address_mode):
+    """For every slice s and channel c, the layer-lerped 2-D slab of
+    channel c at sweep coord slice_z[s] * scale_c + offk_c: the sweep-axis
+    third of the trilinear sample. gperm4 (D, A, B, C) -> (S, NCH, A, B),
+    in slice_z (front-to-back) order. Differentiable in gperm4; the layer
+    fetch is index_select, whose backward is index_add_."""
+    depth = gperm4.shape[0]
+    chans = []
+    for c in range(NCH):
+        qk = slice_z * medium.channel_coord_scale[c] + offs[c][0]
+        p = qk * depth - 0.5
+        i0f = torch.floor(p)
+        f = (p - i0f).to(torch.float32)[:, None, None]
+        i0 = i0f.to(torch.int64)
+        l0 = apply_address_mode(i0, depth, address_mode)
+        l1 = apply_address_mode(i0 + 1, depth, address_mode)
+        g = gperm4[..., c]
+        chans.append(torch.index_select(g, 0, l0) * (1.0 - f)
+                     + torch.index_select(g, 0, l1) * f)
+    return torch.stack(chans, dim=1)
+
+
+def _params_ref(plan, cfg: RenderConfig, medium: MediumConfig,
+                light: LightConfig, offs) -> torch.Tensor:
+    """(N_PARAMS,) float32: _params_for's eight, the four channel coord
+    scales, the four b offsets and the four a offsets. (The TPU kernel
+    takes the first sixteen and gets the a offsets inside its row
+    matrices, which this port does not build.)"""
+    dev = plan.eye01.device
+    scales = torch.tensor(medium.channel_coord_scale, dtype=torch.float32,
+                          device=dev)
+    return torch.cat([_params_for(plan, cfg, medium, light), scales,
+                      torch.stack([offs[c][2] for c in range(NCH)]),
+                      torch.stack([offs[c][1] for c in range(NCH)])])
+
+
+def sweep_ref_fwd_reference(L, slice_z, v_grid, u_grid, seglen, params, *,
+                            emission: bool):
+    """Plain PyTorch version of the 4-channel sweep kernel, with the same
+    inputs.
+
+    L: (S, 4, A, B) float32 pre-lerped channel slabs in slice order;
+    slice_z (S,), v_grid (Hb,), u_grid (Wb,), seglen (Hb, Wb), params
+    (N_PARAMS,) as _params_ref. Each channel of each slice is resampled as
+    Wa @ L[s, c] @ Wb^T with banded matrices at its scaled and scrolled
+    coords; out-of-box and behind-the-eye samples are masked on the
+    unscaled coords. Returns (acc, trans, wsum, hit), each (Hb, Wb)
+    float32."""
+    S, _, A, B = L.shape
+    Hb, Wb = v_grid.shape[0], u_grid.shape[0]
+    e_k, e_a, e_b, sign, density, sscale, thresh = (params[n]
+                                                    for n in range(7))
+    kw = dict(dtype=torch.float32, device=L.device)
+    acc = torch.zeros((Hb, Wb), **kw)
+    trans = torch.ones((Hb, Wb), **kw)
+    wsum = torch.zeros((Hb, Wb), **kw)
+    hit = torch.zeros((Hb, Wb), **kw)
+    for s in range(S):
+        delta = slice_z[s] - e_k
+        a01 = e_a + delta * v_grid
+        b01 = e_b + delta * u_grid
+        front = (delta * sign) > 0.0
+        mask = ((a01 >= 0.0) & (a01 <= 1.0))[:, None] \
+            & ((b01 >= 0.0) & (b01 <= 1.0))[None, :] & front
+        maskf = mask.to(torch.float32)
+        r = []
+        for c in range(NCH):
+            Wa, Wbm = channel_resample(a01, b01, params, c, A, B)
+            r.append(Wa @ L[s, c] @ Wbm.T)
+        sigma = (r[0] * r[1]) * (r[2] + r[3]) * sscale * maskf
+        if emission:
+            live = (trans > thresh).to(torch.float32)
+            alpha = live * (1.0 - torch.exp(-density * sigma * seglen))
+            wsum = wsum + trans * alpha
+            trans = trans * (1.0 - alpha)
+        else:
+            acc = acc + sigma * seglen
+            hit = torch.maximum(hit, maskf)
+    return acc, trans, wsum, hit
+
+
+def build_kernel():
+    """Build (at first use) and load the kernel's library; returns the
+    build info: library path, build seconds, nvcc's ptxas report."""
+    global _lib, build_info
+    if _lib is None:
+        lib, info = build_library("sweep_ref_fwd")
+        fn = lib.sweep_ref_fwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib, build_info = lib, info
+    return build_info
+
+
+def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, emission):
+    """Check the inputs, allocate the (4, Hb, Wb) output, launch the
+    kernel on the current stream and count the launch. Returns the
+    (4, Hb, Wb) tensor of acc, trans, wsum, hit."""
+    global launches
+    dev = L.device
+    S, A, B, Hb, Wb = check_sweep_inputs(
+        "sweep_ref_fwd", L, slice_z, v_grid, u_grid, seglen, params,
+        channels=NCH, n_params=N_PARAMS)
+    build_kernel()
+    out = torch.empty((4, Hb, Wb), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib.sweep_ref_fwd_launch(
+            L.data_ptr(), slice_z.data_ptr(), v_grid.data_ptr(),
+            u_grid.data_ptr(), seglen.data_ptr(), params.data_ptr(),
+            out.data_ptr(), S, A, B, Hb, Wb, int(emission), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"sweep_ref_fwd kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out
+
+
+class _SweepRef(torch.autograd.Function):
+    """The 4-channel sweep as an autograd node, in place of
+    _fused_vjp_ref's no-light f_fwd and f_bwd: the kernels on CUDA slabs,
+    the plain versions on CPU slabs. There are no checkpoint outputs: the
+    backward replays each ray from T = 1. Only L gets a gradient; `hit`
+    is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, L, slice_z, v_grid, u_grid, seglen, params, emission):
+        if L.device.type == "cuda":
+            maps = launch_kernel(L, slice_z, v_grid, u_grid, seglen, params,
+                                 emission).unbind(0)
+        elif L.device.type == "cpu":
+            maps = sweep_ref_fwd_reference(L, slice_z, v_grid, u_grid,
+                                           seglen, params, emission=emission)
+        else:
+            raise ValueError(f"sweep: no kernel for device {L.device}")
+        ctx.mark_non_differentiable(maps[3])
+        ctx.save_for_backward(L, slice_z, v_grid, u_grid, seglen, params,
+                              maps[1], maps[2])
+        ctx.emission = emission
+        return tuple(maps)
+
+    @staticmethod
+    def backward(ctx, ct_acc, ct_trans, ct_wsum, _ct_hit):
+        none = (None,) * 6
+        if not ctx.needs_input_grad[0]:
+            return (None,) + none
+        L, slice_z, v_grid, u_grid, seglen, params, trans, wsum = \
+            ctx.saved_tensors
+        # Cotangents may arrive broadcast (the gradient of a sum); the
+        # kernel reads dense maps.
+        cts = [c.contiguous() for c in (ct_acc, ct_trans, ct_wsum)]
+        bwd = (sweep_ref_bwd.launch_kernel if L.device.type == "cuda"
+               else sweep_ref_bwd.sweep_ref_bwd_reference)
+        dL = bwd(L, slice_z, v_grid, u_grid, seglen, params, *cts, trans,
+                 wsum, emission=ctx.emission)
+        return (dL,) + none
+
+
+def sweep_ref_inputs(gperm4, plan, cfg: RenderConfig, medium: MediumConfig,
+                     light=None, scroll=None):
+    """The kernel's inputs (L, slice_z, v_grid, u_grid, seglen, params) for
+    a 4-channel grid permuted so the sweep axis is dim 0
+    (grid.permute(plan.perm + (3,))) and an optional (4, 3) scroll. L is
+    built per call: the scroll moves the sweep-axis lerp."""
+    lt = light if light is not None else LightConfig()
+    offs = _channel_offsets(medium, scroll, plan.coord_order,
+                            device=gperm4.device)
+    L = _layer_channels(gperm4, plan.slice_z, medium, offs, cfg.address_mode)
+    return (L, plan.slice_z, plan.v_grid, plan.u_grid, plan.seglen,
+            _params_ref(plan, cfg, medium, lt, offs))
+
+
+def sweep_base_ref(gperm4, plan, cfg: RenderConfig, medium: MediumConfig,
+                   light=None, scroll=None):
+    """(acc, trans, wsum, hit) base maps, each (Hb, Wb) float32, of the
+    reference medium for a (D, A, B, 4) grid permuted so the sweep axis is
+    dim 0: the kernels for a CUDA grid, the plain versions for a CPU grid,
+    differentiable in the grid either way."""
+    if gperm4.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"sweep_base_ref: no sweep for device "
+                         f"{gperm4.device}")
+    inputs = sweep_ref_inputs(gperm4, plan, cfg, medium, light, scroll)
+    return _SweepRef.apply(*inputs, cfg.emission)

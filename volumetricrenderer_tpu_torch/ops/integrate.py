@@ -12,10 +12,11 @@ against, and the "fixed" quadrature of fit_grid.
 
 Both are differentiable by ordinary autograd. The JAX versions wrap their
 step in jax.checkpoint; here the oracle runs at small sizes only, so the
-step intermediates are kept. Not ported yet, and raising
-NotImplementedError: the 4-channel reference combine of sample_sigma,
-scene_sigma, the shadow march (_light_transmittance), the light volume of
-render_rays_sliced and reference_media_scroll.
+step intermediates are kept. sample_sigma covers both combines: channel 0
+("single") and the reference medium's four channels at per-channel scaled
+and scrolled coordinates. Not ported yet, and raising NotImplementedError:
+scene_sigma, the shadow march (_light_transmittance) and the light volume
+of render_rays_sliced.
 """
 from __future__ import annotations
 
@@ -41,12 +42,12 @@ def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def reference_media_scroll(t, n_channels=4):
-    """Per-channel scroll vectors of the 4-channel reference medium: not
-    ported yet."""
-    raise NotImplementedError(
-        "reference_media_scroll (the 4-channel reference medium) is not "
-        "ported yet")
+def reference_media_scroll(t, n_channels=4, device=None):
+    """Per-channel scroll 3-vectors from elapsed time t: only channel 0's
+    x component is animated, as (-t, 0, 0). Returns (C, 3) float32."""
+    scroll = torch.zeros((n_channels, 3), dtype=torch.float32, device=device)
+    scroll[0, 0] = -_f32(t, device)
+    return scroll
 
 
 def transform_rays(origins, directions, world_to_local):
@@ -60,12 +61,26 @@ def transform_rays(origins, directions, world_to_local):
 
 
 def sample_sigma(grid, pos01, medium: MediumConfig, scroll, address_mode):
-    """Extinction density at normalized position(s) pos01 (..., 3):
-    combine="single" samples channel 0, sigma = s0 * sample_scale."""
+    """Extinction density at normalized position(s) pos01 (..., 3).
+
+    combine="reference": 4 channels, each sampled at pos01 scaled by its
+    channel_coord_scale and shifted by scroll[c] * channel_scroll_weight[c]
+    (scroll: (4, 3) or None), sigma = (s1*s2)*(s3+s4)*sample_scale;
+    combine="single": channel 0 at pos01, sigma = s0 * sample_scale."""
     if medium.combine == "reference":
-        raise NotImplementedError(
-            "the 4-channel reference combine is not ported yet; use "
-            "combine='single'")
+        if grid.dim() != 4 or grid.shape[-1] < 4:
+            raise ValueError("reference combine needs a (D,H,W,4) grid")
+        if scroll is not None:
+            scroll = _f32(scroll, grid.device)
+        samples = []
+        for c in range(4):
+            coord = pos01 * medium.channel_coord_scale[c]
+            if scroll is not None:
+                coord = coord + scroll[c] * medium.channel_scroll_weight[c]
+            samples.append(sample_trilinear(grid[..., c], coord,
+                                            address_mode))
+        s1, s2, s3, s4 = samples
+        return (s1 * s2) * (s3 + s4) * medium.sample_scale
     if medium.combine == "single":
         g = grid[..., 0] if grid.dim() == 4 else grid
         return sample_trilinear(g, pos01, address_mode) * medium.sample_scale

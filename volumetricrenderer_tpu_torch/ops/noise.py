@@ -1,6 +1,7 @@
 """Procedural 3D noise (port of volumetricrenderer_tpu/ops/noise.py):
-the lattice hash, Perlin noise, FBM and uniform noise grids, enough for the
-FBM cloud. Simplex and cellular noise are not ported yet.
+the lattice hash, Perlin, simplex and cellular noise, FBM and uniform noise
+grids: the generators of the FBM cloud and of the reference preset's
+4-channel volume.
 
 Torch has no general uint32 arithmetic, so the hash runs on int64 tensors
 holding uint32 values: every product is reduced mod 2**32, and products are
@@ -9,9 +10,10 @@ bit-equal to the JAX ones (a test pins that).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["perlin3", "fbm3", "noise_grid"]
+__all__ = ["perlin3", "simplex3", "cellular3", "fbm3", "noise_grid"]
 
 _M32 = 0xFFFFFFFF
 
@@ -94,6 +96,80 @@ def perlin3(coords: torch.Tensor, seed) -> torch.Tensor:
     return (nxy0 + w * (nxy1 - nxy0)) * 0.964921  # ~unit range
 
 
+# float32(1/3) and float32(1/6) and their float32 multiples, as the JAX
+# version rounds them.
+_F3 = float(np.float32(1.0 / 3.0))
+_G3 = float(np.float32(1.0 / 6.0))
+_G3_2 = float(np.float32(2.0) * np.float32(1.0 / 6.0))
+_G3_3 = float(np.float32(3.0) * np.float32(1.0 / 6.0))
+
+
+def simplex3(coords: torch.Tensor, seed) -> torch.Tensor:
+    """3D simplex noise (Gustavson's construction). (..., 3) -> (...)."""
+    coords = coords.to(torch.float32)
+    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
+    s = (x + y + z) * _F3
+    i = torch.floor(x + s)
+    j = torch.floor(y + s)
+    k = torch.floor(z + s)
+    t = (i + j + k) * _G3
+    x0 = x - (i - t)
+    y0 = y - (j - t)
+    z0 = z - (k - t)
+
+    # Rank the components to find the simplex traversal order.
+    gx = (x0 >= y0).to(torch.int64) + (x0 >= z0).to(torch.int64)
+    gy = (y0 > x0).to(torch.int64) + (y0 >= z0).to(torch.int64)
+    gz = (z0 > x0).to(torch.int64) + (z0 > y0).to(torch.int64)
+    i1, j1, k1 = ((g >= 2).to(torch.int64) for g in (gx, gy, gz))
+    i2, j2, k2 = ((g >= 1).to(torch.int64) for g in (gx, gy, gz))
+
+    x1, y1, z1 = x0 - i1 + _G3, y0 - j1 + _G3, z0 - k1 + _G3
+    x2, y2, z2 = x0 - i2 + _G3_2, y0 - j2 + _G3_2, z0 - k2 + _G3_2
+    x3, y3, z3 = x0 - 1.0 + _G3_3, y0 - 1.0 + _G3_3, z0 - 1.0 + _G3_3
+
+    ii, jj, kk = i.to(torch.int64), j.to(torch.int64), k.to(torch.int64)
+
+    def corner(dx, dy, dz, oi, oj, ok):
+        tt = torch.clamp(0.6 - dx * dx - dy * dy - dz * dz, min=0.0)
+        g = _grad_dot(ii + oi, jj + oj, kk + ok, dx, dy, dz, seed)
+        t2 = tt * tt
+        return t2 * t2 * g
+
+    n = (corner(x0, y0, z0, 0, 0, 0)
+         + corner(x1, y1, z1, i1, j1, k1)
+         + corner(x2, y2, z2, i2, j2, k2)
+         + corner(x3, y3, z3, 1, 1, 1))
+    return 32.0 * n
+
+
+def cellular3(coords: torch.Tensor, seed) -> torch.Tensor:
+    """Worley / cellular-distance noise: the distance to the nearest feature
+    point, one feature point per unit cell, rescaled to roughly [-1, 1].
+    (..., 3) -> (...)."""
+    coords = coords.to(torch.float32)
+    cell = torch.floor(coords)
+    base = cell.to(torch.int64)
+    frac = coords - cell
+
+    min_d2 = torch.full(coords.shape[:-1], float("inf"), dtype=torch.float32,
+                        device=coords.device)
+    for ox in (-1, 0, 1):
+        for oy in (-1, 0, 1):
+            for oz in (-1, 0, 1):
+                h = _hash3(base[..., 0] + ox, base[..., 1] + oy,
+                           base[..., 2] + oz, seed)
+                # Three decorrelated uniforms from one hash.
+                fxp = _hash_to_unit(h)
+                fyp = _hash_to_unit(_mul32(h, 0x68E31DA4) ^ (h >> 13))
+                fzp = _hash_to_unit(_mul32(h, 0xB5297A4D) ^ (h >> 7))
+                dx = float(ox) + fxp - frac[..., 0]
+                dy = float(oy) + fyp - frac[..., 1]
+                dz = float(oz) + fzp - frac[..., 2]
+                min_d2 = torch.minimum(min_d2, dx * dx + dy * dy + dz * dz)
+    return torch.sqrt(min_d2) * 1.6 - 1.0
+
+
 def fbm3(coords: torch.Tensor, seed, octaves=5, lacunarity=2.0, gain=0.5):
     """Fractal Brownian motion over perlin3."""
     coords = coords.to(torch.float32)
@@ -108,6 +184,13 @@ def fbm3(coords: torch.Tensor, seed, octaves=5, lacunarity=2.0, gain=0.5):
     return total / norm
 
 
+_GENERATORS = {
+    "perlin": perlin3,
+    "simplex": simplex3,
+    "cellular": cellular3,
+}
+
+
 def noise_grid(kind, size, frequency, seed, octaves=1, device=None):
     """A size^3 float32 grid indexed [z][y][x]: the sample at voxel
     (x, y, z) is noise((x, y, z) * frequency, seed)."""
@@ -117,7 +200,6 @@ def noise_grid(kind, size, frequency, seed, octaves=1, device=None):
     coords = torch.stack([xx, yy, zz], dim=-1)
     if kind == "fbm":
         return fbm3(coords, seed, octaves=octaves)
-    if kind == "perlin":
-        return perlin3(coords, seed)
-    raise NotImplementedError(
-        f"noise kind {kind!r} is not ported yet (perlin and fbm are)")
+    if kind not in _GENERATORS:
+        raise ValueError(f"unknown noise kind {kind!r}")
+    return _GENERATORS[kind](coords, seed)

@@ -9,7 +9,8 @@ k = z_s is affine in the ray's slope coordinates (u, v) = (w_b/w_k, w_a/w_k):
 Rendering onto a regular (v, u) base grid therefore makes every slice's
 resampling separable, and the volume integral becomes a front-to-back loop
 over slices (kernels/sweep_fwd.py) followed by one projective warp from the
-base grid to the screen pixels (warp_base_to_pixels).
+base grid to the screen pixels (warp_base_to_pixels). The 4-channel
+reference medium sweeps the same way (kernels/sweep_ref_fwd.py).
 
 The plan is built on the host in numpy, as in the JAX package, and its
 arrays are placed on the requested device. Of the JAX plan's fields, only
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from ..config import LightConfig, MediumConfig, RenderConfig
-from ..kernels import sweep_fwd
+from ..kernels import sweep_fwd, sweep_ref_fwd
 from .camera import Camera
 
 __all__ = ["SweepPlan", "plan_sweep", "plan_base_dims", "base_rays",
@@ -386,23 +387,39 @@ def finish_image(base_maps, plan: SweepPlan, cfg: RenderConfig,
 def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
                  medium: MediumConfig, light: Optional[LightConfig] = None,
                  scroll=None, light_volume=None):
-    """Render one RGBA frame (H, W, 4) from a (D, H, W) float32 density
-    grid by sweeping slices front to back.
+    """Render one RGBA frame (H, W, 4) by sweeping slices front to back.
 
-    A CUDA grid goes through the hand-written sweep kernel, a CPU grid
-    through its plain PyTorch version (kernels/sweep_fwd.sweep_base).
-    Configurations the kernel does not cover raise NotImplementedError:
-    the JAX package's general jnp sweep (4-channel combine, scroll, light
-    volume) is not ported yet."""
+    grid: a (D, H, W) float32 density grid with medium.combine "single",
+    or a (D, H, W, 4) grid with "reference" and an optional (4, 3)
+    per-channel scroll. A CUDA grid goes through the hand-written sweep
+    kernels, a CPU grid through their plain PyTorch versions
+    (kernels/sweep_fwd.sweep_base, kernels/sweep_ref_fwd.sweep_base_ref).
+    Configurations the kernels do not cover raise NotImplementedError: the
+    light-volume branch of the kernels and the bfloat16 stream mode wait
+    for later slices of the port, and the JAX package's general jnp sweep
+    (a scroll or a 4-D grid with combine="single", clamp or wrap
+    addressing with "reference") is not ported."""
+    if light_volume is not None:
+        raise NotImplementedError(
+            "light volumes wait for the light-volume slice of the port "
+            "(the shade branch of the four sweep kernels)")
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r}: the bfloat16 stream mode of the sweep "
+            "kernels waits for a later slice of the port; use 'float32'")
     if not sweep_fwd.supported(cfg, medium, light_volume, scroll,
                                grid.dim()):
         raise NotImplementedError(
-            "the torch sweep covers combine='single', float32, a 3-D grid, "
-            "no scroll, no light volume and mirror/clamp/wrap addressing; "
-            f"got combine={medium.combine!r}, dtype={cfg.dtype!r}, "
-            f"grid.dim()={grid.dim()}, scroll={scroll is not None}, "
-            f"light_volume={light_volume is not None}, "
+            "the torch sweep covers combine='single' with a 3-D grid, no "
+            "scroll and mirror/clamp/wrap addressing, and "
+            "combine='reference' with a 4-D grid and mirror addressing; "
+            f"got combine={medium.combine!r}, grid.dim()={grid.dim()}, "
+            f"scroll={scroll is not None}, "
             f"address_mode={cfg.address_mode!r}")
-    base_maps = sweep_fwd.sweep_base(grid.permute(plan.perm), plan, cfg,
-                                     medium, light)
+    if medium.combine == "reference":
+        base_maps = sweep_ref_fwd.sweep_base_ref(
+            grid.permute(plan.perm + (3,)), plan, cfg, medium, light, scroll)
+    else:
+        base_maps = sweep_fwd.sweep_base(grid.permute(plan.perm), plan, cfg,
+                                         medium, light)
     return finish_image(base_maps, plan, cfg, medium, light=light)

@@ -3,20 +3,24 @@ render_image / render from volumetricrenderer_tpu/render.py).
 
 `render_image` renders one RGBA frame (H, W, 4) with the sliced-quadrature
 slice sweep, differentiable in the grid: on a CUDA grid the forward runs
-the hand-written forward sweep kernel and backward() the backward kernel,
-on a CPU grid both run their plain PyTorch versions. The JAX package's
-other paths through render_image (backend "reference", quadrature
-"fixed", the per-ray fallback for cameras with no sweep axis, and the
-shadow light volume) are not ported yet: asking for one raises
-NotImplementedError. The per-ray integrators themselves are in
-ops/integrate.py.
+a hand-written forward sweep kernel and backward() its backward kernel,
+on a CPU grid both run their plain PyTorch versions. A (D, H, W) grid with
+combine="single" goes through the single-channel kernels, a (D, H, W, 4)
+grid with combine="reference" (and an optional per-channel scroll) through
+the 4-channel reference-combine kernels. backend="reference" renders the
+same sliced integral per ray with ops/integrate.render_rays_sliced, the
+sweep's oracle. The JAX package's other paths through render_image
+(quadrature "fixed", the per-ray fallback for cameras with no sweep axis,
+and the shadow light volume) are not ported yet: asking for one raises
+NotImplementedError.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from .config import LightConfig, MediumConfig, RenderConfig
-from .ops.camera import Camera
+from .ops.camera import Camera, camera_rays
+from .ops.integrate import render_rays_sliced
 from .ops.sweep import SweepPlan, plan_sweep, sweep_render
 
 __all__ = ["render", "render_image", "plan_for"]
@@ -45,17 +49,20 @@ def render_image(
     plan: Optional[SweepPlan] = None,
     light_volume=None,
 ):
-    """Render one RGBA frame (H, W, 4) from a (D, H, W) density grid and a
-    camera, on the grid's device."""
+    """Render one RGBA frame (H, W, 4) from a density grid and a camera, on
+    the grid's device.
+
+    grid: (D, H, W) with medium.combine "single", or (D, H, W, 4) with
+    "reference"; scroll: optional (4, 3) per-channel scroll of the
+    reference medium (ops/integrate.reference_media_scroll). backend "auto"
+    and "sweep" (alias "pallas") run the slice sweep, "reference" the
+    per-ray oracle of the same sliced quadrature."""
     if backend == "pallas":
         backend = "sweep"  # alias: the sweep kernel implements "sweep"
     if backend not in ("auto", "sweep", "reference"):
         raise ValueError(
             f"unknown backend {backend!r}: expected 'auto', 'sweep' "
             "(alias 'pallas'), or 'reference'")
-    if backend == "reference":
-        raise NotImplementedError(
-            "backend 'reference' (the per-ray integrator) is not ported yet")
     if cfg.quadrature != "sliced":
         if backend == "sweep":
             raise ValueError('backend "sweep" requires quadrature "sliced"')
@@ -76,6 +83,12 @@ def render_image(
             raise NotImplementedError(
                 f"no sweep axis for this camera ({e}); the per-ray fallback "
                 "integrator is not ported yet") from e
+    if backend == "reference":
+        origins, directions = (r.to(grid.device)
+                               for r in camera_rays(camera))
+        return render_rays_sliced(grid, origins, directions, plan, cfg,
+                                  medium, light, scroll=scroll,
+                                  light_volume=light_volume)
     return sweep_render(grid, plan, cfg, medium, light, scroll=scroll,
                         light_volume=light_volume)
 
