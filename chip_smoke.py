@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: the forward render
 (serving) and the forward+backward render and fit (training), for the
-single-channel medium and for the 4-channel reference medium.
+single-channel medium and for the 4-channel reference medium, without and
+with shadows (BASELINE config 4's light volume).
 
     python3 chip_smoke.py [--out DIR]    (| tee DIR/log.txt to keep the output)
 
@@ -58,14 +59,45 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    slab build forward and backward, render_image, the forward+backward
    step) at the preset and, timing only, at 256^3 x 4 and 1920x1080, with a
    torch.profiler table of the preset's step;
-12. prints a JSON line of kernel results (each kernel's launches on the
+12. the light branch of the four kernels at small shapes (16^3, 96x64):
+   five eyes x mirror/wrap x the real light volume (exactly 1.0 where
+   fully lit: the clip's tie) and that volume stretched to [-0.2, 1.3]
+   (all three arms of the clip's subgradient), sub-voxel slicing and the
+   density-500 early-stop case; maps, dG and dL against the plain
+   versions, and the plain backward against autograd of the plain forward;
+   the same for the 4-channel kernels with a seeded scroll and a light
+   volume from materialize_sigma; then the gradient check with shadows,
+   the light volume built from the grid inside the loss, single-channel
+   and 4-channel (24^3 at 48x32);
+13. config 4 at full width: cloud_volume(256, 7) at 1920x1080, emission,
+   density 8, LightConfig(shadow_steps=32), eight orbit cameras around the
+   full circle, the light volume rebuilt each frame by render_image;
+   exactly one forward-kernel launch per frame (counts set to 0 before,
+   read after); every frame finite, alpha in [0, 1] and equal to the
+   unshadowed frame's, rgb nowhere brighter and somewhere darker; the base
+   maps of two frames (one per sweep sign) held to the plain version;
+   training, one forward+backward step (sum of rgb^2, gradient to the grid
+   through dG and through dL and the light sweep), one launch of each
+   kernel, dG and dL held to the plain backward on the same cotangents;
+14. the reference medium with shadows at the preset's width (128^3 x 4,
+   1280x720, emission, density 8, seeded scrolls): two frames and one forward+backward
+   step through the 4-channel kernels' light branch, counted and held to
+   the plain versions in the same way;
+15. timing of the shadowed paths: light_transmittance_volume forward and
+   forward+backward at 256^3, materialize_sigma at 128^3 x 4, the four
+   kernels with a light volume and their plain versions, render_image
+   with shadows per frame (plan reused, light volume rebuilt) and the
+   shadowed forward+backward step, with a torch.profiler table of that
+   step;
+16. prints a JSON line of kernel results (each kernel's launches on the
    main paths, error, time, plain version's time, and the least time the
-   card could take for the same work), then the last line
-   {"ok": true, "device": {...}}.
+   card could take for the same work, each also for the light variant),
+   then the last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is non-zero and no result is printed.
-One frame of each medium and the two profile tables are saved in --out
-(default: the package's _build/ directory, which git ignores).
+One frame of each medium, one shadowed frame and the profile tables are
+saved in --out (default: the package's _build/ directory, which git
+ignores).
 """
 from __future__ import annotations
 
@@ -86,7 +118,9 @@ import torch
 from volumetricrenderer_tpu_torch import (CameraConfig, LightConfig,
                                           MediumConfig, RenderConfig,
                                           VolumeConfig, build_volume,
-                                          cloud_volume, make_camera,
+                                          cloud_volume,
+                                          light_transmittance_volume,
+                                          make_camera, materialize_sigma,
                                           orbit_camera, plan_for,
                                           reference_media_scroll,
                                           render_image)
@@ -160,14 +194,34 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 #   sweep_ref_bwd: the forward's 48, A~ (2), dsigma (5), its sample_scale
 #     (1), the product rule on the combine's r0 * r1 and r2 + r3 (5), four
 #     bilinear adjoints (40)                                          = 101
+# With a light volume, forward: the light's bilinear sum (9), the clip (2),
+# the shade (2) and its product into wsum (1) = 14 more; backward: those 14
+# for the replay, shade in dsigma (1), dlT with the clip's subgradient (6)
+# and the second bilinear adjoint (10) = 31 more.
 FLOP_PER_SAMPLE = {"sweep_fwd": 18, "sweep_bwd": 36, "sweep_ref_fwd": 48,
-                   "sweep_ref_bwd": 101}
+                   "sweep_ref_bwd": 101,
+                   "sweep_fwd+light": 32, "sweep_bwd+light": 67,
+                   "sweep_ref_fwd+light": 62, "sweep_ref_bwd+light": 132}
 #   one channel: the coordinate e + delta * slope (2), p = x * n - 0.5 (2),
 #     floor (1), f (1), 1 - f (1)                                     = 7
 #   four channels: the coordinate (2), then per channel its scale and
 #     scroll (2) and p, floor, f, 1 - f (5)                           = 30
+#   the single-channel light taps are the grid's own; the 4-channel
+#     kernels' light taps are a fifth, unscaled set: p, floor, f, 1 - f = 5
 FLOP_PER_LINE = {"sweep_fwd": 7, "sweep_bwd": 7, "sweep_ref_fwd": 30,
-                 "sweep_ref_bwd": 30}
+                 "sweep_ref_bwd": 30,
+                 "sweep_fwd+light": 7, "sweep_bwd+light": 7,
+                 "sweep_ref_fwd+light": 35, "sweep_ref_bwd+light": 35}
+# Config 4 (config.py PRESETS["config4"], with the 3-D cloud the kernels
+# take): eight orbit cameras around the full circle cross the x and y
+# sectors with both signs and the z sector.
+CONFIG4_FRAMES = 8
+CONFIG4_LIGHT = LightConfig(shadow_steps=32)
+# The reference medium with shadows: the preset's medium at density 8, as
+# the JAX package's own test of this path takes it
+# (tests/test_sweep_pallas_ref.py); at the preset's density 1 the cube
+# stays above T = 0.9 and its shadows darken a pixel by less than 1e-3.
+REF_SHADOW_MEDIUM = MediumConfig(density=8.0)
 
 
 def log(msg):
@@ -272,6 +326,28 @@ class StepClock:
 
     def write(self, step, **metrics):
         self.marks.append((step, time.perf_counter()))
+
+
+class BackwardSpy:
+    """Wraps a backward module's launch_kernel for the time of a `with`
+    block and records (arguments, keyword arguments, result) of each
+    launch, so the result can be held to the plain version afterwards."""
+
+    def __init__(self, module):
+        self.module, self.seen = module, []
+
+    def __enter__(self):
+        self.launch = self.module.launch_kernel
+
+        def spy(*a, **kw):
+            out = self.launch(*a, **kw)
+            self.seen.append((a, kw, out))
+            return out
+        self.module.launch_kernel = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.launch_kernel = self.launch
 
 
 def counts():
@@ -544,18 +620,9 @@ def ref_full_width(dev, out_dir):
     log(f"saved {os.path.normpath(png)}")
 
     # Training: one forward+backward step per mode.
-    seen = []  # (arguments, keyword arguments, dL) of each K5 launch
-    launch_bwd = sweep_ref_bwd.launch_kernel
-
-    def spy(*a, **kw):
-        dL = launch_bwd(*a, **kw)
-        seen.append((a, kw, dL))
-        return dL
-
     scroll = scrolls[2][1]
     reset_counts()
-    sweep_ref_bwd.launch_kernel = spy
-    try:
+    with BackwardSpy(sweep_ref_bwd) as spy:
         for em, cfg in cfgs.items():
             before = counts()
             g = grid4.clone().requires_grad_()
@@ -574,7 +641,7 @@ def ref_full_width(dev, out_dir):
             if not min(per_channel) > 0.0:
                 fail(f"reference grid gradient emission={em} is zero in a "
                      f"channel: max |grad| per channel {per_channel}")
-            a, kw, dL = seen[-1]
+            a, kw, dL = spy.seen[-1]
             want = sweep_ref_bwd.sweep_ref_bwd_reference(*a, **kw)
             e, scale = check_grad(dL, want,
                                   f"reference dL emission={em}")
@@ -583,12 +650,10 @@ def ref_full_width(dev, out_dir):
                 f"launches {step}, dL max abs err {e:.3e} at max|dL| "
                 f"{scale:.3e}, max |grad| per channel "
                 f"{[f'{x:.3e}' for x in per_channel]}")
-    finally:
-        sweep_ref_bwd.launch_kernel = launch_bwd
     train_launches = counts()
     log(f"reference training path: launches (fwd, bwd, ref_fwd, ref_bwd) "
         f"{train_launches}")
-    if train_launches != (0, 0, 2, 2) or len(seen) != 2:
+    if train_launches != (0, 0, 2, 2) or len(spy.seen) != 2:
         fail(f"reference training path launched {train_launches}, expected "
              "(0, 0, 2, 2)")
     return errs, bwd_errs, serve_launches, train_launches, grid4, cam, plan
@@ -680,6 +745,543 @@ def ref_timings(grid4, cam, plan, dev, gpu_line, plain_runs=5):
     log(f"  channel slab build forward  {build_ms:.3f} ms")
     log(f"  channel slab build fwd+bwd  {build_fb_ms:.3f} ms (backward "
         f"~{build_fb_ms - build_ms:.3f} ms)")
+    return out
+
+
+def stretched(lvol):
+    """A light volume stretched to [-0.2, 1.3]: the clip cuts it on both
+    sides, so its subgradient takes all three values."""
+    lo = lvol.min()
+    out = 1.5 * (lvol - lo) / (1.0 - lo) - 0.2
+    if not (float(out.max()) > 1.0 and float(out.min()) < 0.0):
+        fail("the stretched light volume does not leave [0, 1]")
+    return out
+
+
+def light_both(grid, lvol, plan, cfg, medium, light, scroll, cts,
+               autograd=True):
+    """The kernels with a light volume and their plain versions on the
+    same inputs, for either medium: the forward maps, and (dG, dL) on the
+    forward kernel's trans and wsum maps and the cotangents `cts`. With
+    `autograd`, also the plain backward against autograd of the plain
+    forward (whose clip is clip_unit). Comparison launches, not the main
+    path. Returns (maps, plain maps, grads, plain grads, own, auto)."""
+    if medium.combine == "reference":
+        inputs = sweep_ref_fwd.sweep_ref_inputs(
+            grid.permute(plan.perm + (3,)), plan, cfg, medium, light, scroll)
+        lstack = sweep_ref_fwd.sweep_ref_light_slabs(
+            lvol.permute(plan.perm), plan, cfg)
+        fwd_kw = bwd_kw = dict(emission=True)
+        fwd, bwd = sweep_ref_fwd.sweep_ref_fwd_reference, \
+            sweep_ref_bwd.sweep_ref_bwd_reference
+        maps = sweep_ref_fwd.launch_kernel(*inputs, True, lstack)
+        got = sweep_ref_bwd.launch_kernel(*inputs, *cts, maps[1], maps[2],
+                                          emission=True, light=lstack)
+    else:
+        (stack, *args), flip = sweep_fwd.sweep_inputs(
+            grid.permute(plan.perm), plan, cfg, medium, light)
+        inputs = (stack.contiguous(), *args)
+        lstack = sweep_fwd.sweep_light_stack(lvol.permute(plan.perm), plan,
+                                             cfg).contiguous()
+        wrap = cfg.address_mode == "wrap"
+        fwd_kw = bwd_kw = dict(emission=True, flip=flip,
+                               address_mode=cfg.address_mode)
+        fwd, bwd = sweep_fwd.sweep_fwd_reference, \
+            sweep_bwd.sweep_bwd_reference
+        maps = sweep_fwd.launch_kernel(*inputs, True, flip, wrap, lstack)
+        got = sweep_bwd.launch_kernel(*inputs, *cts, maps[1], maps[2], True,
+                                      flip, wrap, light=lstack)
+    torch.cuda.synchronize()
+    want_maps = fwd(*inputs, light=lstack, **fwd_kw)
+    want = bwd(*inputs, *cts, maps[1], maps[2], light=lstack, **bwd_kw)
+    own = auto = None
+    if autograd:
+        L = inputs[0].detach().clone().requires_grad_()
+        lt = lstack.detach().clone().requires_grad_()
+        fmaps = fwd(L, *inputs[1:], light=lt, **fwd_kw)
+        loss = sum((m * c).sum() for m, c in zip(fmaps[:3], cts))
+        auto = torch.autograd.grad(loss, (L, lt))
+        own = bwd(L.detach(), *inputs[1:], *cts, fmaps[1].detach(),
+                  fmaps[2].detach(), light=lt.detach(), **bwd_kw)
+    return maps.unbind(0), want_maps, got, want, own, auto
+
+
+def check_light_case(what, result, tol=BWD_TOL):
+    """Holds one light_both result to the tolerances; returns the maps'
+    and the gradients' max abs errors."""
+    maps, want_maps, got, want, own, auto = result
+    e = max(check_close(g, w, f"{what} {name}")
+            for g, w, name in zip(maps, want_maps,
+                                  ("acc", "trans", "wsum", "hit")))
+    e_g, s_g = check_grad(got[0], want[0], what + " dG", tol)
+    e_l, s_l = check_grad(got[1], want[1], what + " dL", tol)
+    msg = (f"{what}: maps max abs err {e:.3e}, dG {e_g:.3e} (max {s_g:.3e}),"
+           f" dL {e_l:.3e} (max {s_l:.3e})")
+    if own is not None:
+        a_g, _ = check_grad(own[0], auto[0],
+                            what + " dG (plain vs autograd)", tol)
+        a_l, _ = check_grad(own[1], auto[1],
+                            what + " dL (plain vs autograd)", tol)
+        msg += f"; plain vs autograd {a_g:.3e}, {a_l:.3e}"
+    log(msg)
+    return e, max(e_g, e_l)
+
+
+def light_small_checks(dev):
+    """Step 12: the light branch of the four kernels at small shapes and
+    the gradient checks with shadows. Returns {kernel: [errors]}."""
+    errs = {name: [] for name in KERNELS}
+    light = LightConfig(ambient=0.2, shadow_steps=32)
+    rng = np.random.default_rng(0)
+    small = torch.tensor(rng.uniform(0.2, 1.0, (16, 16, 16)),
+                         dtype=torch.float32, device=dev)
+    small4 = torch.tensor(rng.uniform(0.1, 1.0, (16, 16, 16, 4)),
+                          dtype=torch.float32, device=dev)
+    scroll = seeded_scroll(REF_SCROLL_SEEDS[0], dev)
+    # (combine, eye, axis, sign, address mode, light kind, n_slices, density)
+    cases = [("single", eye, ax, sg, mode, kind, None, 8.0)
+             for eye, ax, sg in SMALL_EYES for mode in ("mirror", "wrap")
+             for kind in ("ones", "stretched")]
+    cases += [("single", SMALL_EYES[0][0], 0, -1, "mirror", kind, 24, 8.0)
+              for kind in ("ones", "stretched")]
+    cases.append(("single", SMALL_EYES[0][0], 0, -1, "mirror", "ones", None,
+                  500.0))
+    cases += [("reference", eye, ax, sg, "mirror", kind, None, 8.0)
+              for eye, ax, sg in SMALL_EYES for kind in ("ones", "stretched")]
+    cases.append(("reference", SMALL_EYES[0][0], 0, -1, "mirror",
+                  "stretched", 24, 8.0))
+    cases.append(("reference", SMALL_EYES[0][0], 0, -1, "mirror", "ones",
+                  None, 500.0))
+    brng = np.random.default_rng(9)
+    for combine, eye, axis, sign, mode, kind, n_slices, density in cases:
+        ref = combine == "reference"
+        grid, sc = (small4, scroll) if ref else (small, None)
+        cfg = RenderConfig(emission=True, quadrature="sliced",
+                           address_mode=mode)
+        medium = MediumConfig(combine=combine, density=density)
+        cam = make_camera(CameraConfig(eye=eye, width=96, height=64))
+        plan = plan_for(cam, grid.shape, cfg, n_slices=n_slices, device=dev)
+        if (plan.axis, plan.sign) != (axis, sign):
+            fail(f"eye {eye}: plan sweeps axis {plan.axis} sign {plan.sign},"
+                 f" expected {axis} {sign}")
+        lvol = light_transmittance_volume(grid, light, cfg, medium,
+                                          scroll=sc)
+        if not float((lvol == 1.0).float().mean()) > 0.02:
+            fail("the light volume has no fully lit voxels (exact ones)")
+        if kind == "stretched":
+            lvol = stretched(lvol)
+        cts = [torch.tensor(brng.normal(size=plan.base_shape),
+                            dtype=torch.float32, device=dev)
+               for _ in range(3)]
+        what = (f"light small {combine} eye={eye} axis={axis} "
+                f"sign={sign:+d} {mode} light={kind} n_slices={n_slices} "
+                f"density={density}")
+        result = light_both(grid, lvol, plan, cfg, medium, light, sc, cts)
+        if density > 100.0 and not float(result[0][1].min()) < 1e-3:
+            fail(f"{what}: no ray reached the early-stop gate")
+        e, e_bwd = check_light_case(
+            what, result, BWD_TOL_GATE if density > 100.0 else BWD_TOL)
+        errs["sweep_ref_fwd" if ref else "sweep_fwd"].append(e)
+        errs["sweep_ref_bwd" if ref else "sweep_bwd"].append(e_bwd)
+
+    # bench.py's gradient check with shadows: the light volume is built
+    # from the grid inside the loss, so the gradient reaches the grid
+    # through dG and through dL and the light sweep.
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    cam = make_camera(CameraConfig(width=48, height=32))
+    g24x4 = torch.tensor(np.random.default_rng(2).uniform(
+        0.1, 1.0, (24, 24, 24, 4)), dtype=torch.float32, device=dev)
+    for name, g24, medium, sc in (
+            ("single-channel", cloud_volume(24, 7, device=dev),
+             MediumConfig(combine="single", density=8.0), None),
+            ("4-channel", g24x4, MediumConfig(density=8.0), scroll)):
+        plan = plan_for(cam, g24.shape, cfg, device=dev)
+        o, d = base_rays(plan)
+
+        def lvol_of(g, medium=medium, sc=sc):
+            return light_transmittance_volume(g, CONFIG4_LIGHT, cfg, medium,
+                                              scroll=sc)
+        g1 = g24.clone().requires_grad_()
+        (sweep_render(g1, dataclasses.replace(plan, identity_warp=True), cfg,
+                      medium, CONFIG4_LIGHT, scroll=sc,
+                      light_volume=lvol_of(g1))[..., :3] ** 2).sum() \
+            .backward()
+        g2 = g24.clone().requires_grad_()
+        (render_rays_sliced(g2, o, d, plan, cfg, medium, CONFIG4_LIGHT,
+                            scroll=sc,
+                            light_volume=lvol_of(g2))[..., :3] ** 2).sum() \
+            .backward()
+        scale = float(g2.grad.abs().max())
+        ok = scale > 0.0 and bool(torch.allclose(g1.grad, g2.grad, rtol=1e-3,
+                                                 atol=1e-3 * scale))
+        log(f"grad check with shadows, {name}: allclose={ok} max_abs_err="
+            f"{max_err(g1.grad, g2.grad):.3e} scale={scale:.3e}")
+        if not ok:
+            fail(f"{name} gradient check with shadows: the kernels' grid "
+                 "gradient disagrees with the per-ray oracle's")
+    return errs
+
+
+def shadow_frame_checks(name, img, lit):
+    """A shadowed frame against the unshadowed one (tests/test_lighting.py):
+    finite, alpha in [0, 1] and unchanged, rgb nowhere brighter and
+    somewhere darker. Returns the largest darkening."""
+    if img.shape != lit.shape or not bool(torch.isfinite(img).all()):
+        fail(f"{name}: shape {tuple(img.shape)} or non-finite pixels")
+    alpha = img[..., 3]
+    if float(alpha.min()) < 0.0 or float(alpha.max()) > 1.0 \
+            or float(alpha.max()) <= 0.0:
+        fail(f"{name}: alpha outside [0, 1] or an empty frame")
+    if max_err(alpha, lit[..., 3]) > 1e-6:
+        fail(f"{name}: shadows changed alpha by "
+             f"{max_err(alpha, lit[..., 3]):.3e}")
+    if not bool((img[..., :3] <= lit[..., :3] + 1e-6).all()):
+        fail(f"{name}: a shadowed pixel is brighter than the unshadowed one")
+    dark = float((lit[..., :3] - img[..., :3]).max())
+    if not dark > 1e-3:
+        fail(f"{name}: the shadows darkened nothing (max {dark:.3e})")
+    return dark
+
+
+def config4_full_width(grid, dev, out_dir):
+    """Step 13: config 4 at full width, serving and training. Returns
+    ({kernel: [errors]}, serving launches, training launches, and what the
+    timings reuse: the first frame's camera and plan)."""
+    errs = {name: [] for name in KERNELS}
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    medium = MediumConfig(combine="single", density=8.0)
+    light = CONFIG4_LIGHT
+    cams = [orbit_camera(2.0 * math.pi * i / CONFIG4_FRAMES, width=WIDTH,
+                         height=HEIGHT) for i in range(CONFIG4_FRAMES)]
+    plans = [plan_for(cam, grid.shape, cfg, device=dev) for cam in cams]
+
+    # Serving: the light volume is rebuilt by render_image in every frame.
+    frames = []
+    reset_counts()
+    for i, (cam, plan) in enumerate(zip(cams, plans)):
+        before = sweep_fwd.launches
+        img = render_image(grid, cam, cfg, medium, light, plan=plan)
+        torch.cuda.synchronize()
+        if sweep_fwd.launches != before + 1:
+            fail(f"config 4 frame {i}: render_image launched the sweep "
+                 f"kernel {sweep_fwd.launches - before} times, expected 1")
+        frames.append(img)
+    serve_launches = counts()
+    log(f"config 4 serving path: {len(frames)} shadowed frames, launches "
+        f"(fwd, bwd, ref_fwd, ref_bwd) {serve_launches}")
+    if serve_launches != (len(frames), 0, 0, 0):
+        fail(f"config 4 serving path launched {serve_launches}, expected "
+             f"({len(frames)}, 0, 0, 0)")
+    sectors = {(p.axis, p.sign) for p in plans}
+    if not {(0, -1), (0, 1), (1, -1), (1, 1)} <= sectors \
+            or 2 not in {a for a, _ in sectors}:
+        fail(f"the orbit did not cross every sector: {sorted(sectors)}")
+    lvol = light_transmittance_volume(grid, light, cfg, medium)
+    if tuple(lvol.shape) != tuple(grid.shape) or float(lvol.max()) != 1.0 \
+            or float(lvol.min()) < 0.0:
+        fail("the config 4 light volume is not a (D, H, W) transmittance")
+    log(f"config 4 light volume: min {float(lvol.min()):.4f}, mean "
+        f"{float(lvol.mean()):.4f}, share exactly 1.0 "
+        f"{float((lvol == 1.0).float().mean()):.4f}")
+    held = {}  # sign -> frame index whose base maps are held to plain
+    for i, plan in enumerate(plans):
+        held.setdefault(plan.sign, i)
+    for i, (cam, plan, img) in enumerate(zip(cams, plans, frames)):
+        name = f"config 4 frame {i}"
+        if tuple(img.shape) != (HEIGHT, WIDTH, 4):
+            fail(f"{name}: image shape {tuple(img.shape)}")
+        lit = render_image(grid, cam, cfg, medium, plan=plan)
+        dark = shadow_frame_checks(name, img, lit)
+        msg = (f"{name}: axis={plan.axis} sign={plan.sign:+d} base "
+               f"{plan.base_shape}; alpha mean "
+               f"{float(img[..., 3].mean()):.4f}, rgb mean "
+               f"{float(img[..., :3].mean()):.4f} against "
+               f"{float(lit[..., :3].mean()):.4f} unshadowed, darkest by "
+               f"{dark:.4f}")
+        if i in held.values():
+            (stack, *args), flip = sweep_fwd.sweep_inputs(
+                grid.permute(plan.perm), plan, cfg, medium, light)
+            stack = stack.contiguous()
+            lstack = sweep_fwd.sweep_light_stack(lvol.permute(plan.perm),
+                                                 plan, cfg).contiguous()
+            got = sweep_fwd.launch_kernel(stack, *args, True, flip, False,
+                                          lstack).unbind(0)
+            want = sweep_fwd.sweep_fwd_reference(
+                stack, *args, emission=True, flip=flip,
+                address_mode=cfg.address_mode, light=lstack)
+            e = max(check_close(g, w, f"{name} {n}")
+                    for g, w, n in zip(got, want,
+                                       ("acc", "trans", "wsum", "hit")))
+            e_img = check_close(img, finish_image(want, plan, cfg, medium,
+                                                  light), f"{name} image")
+            errs["sweep_fwd"] += [e, e_img]
+            msg += f"; maps max abs err {e:.3e}, image {e_img:.3e}"
+        log(msg)
+    png = write_png(os.path.join(out_dir, "chip_smoke_config4.png"),
+                    frames[1])
+    log(f"saved {os.path.normpath(png)}")
+
+    # Training: one forward+backward step; the gradient reaches the grid
+    # through dG and through dL and the light sweep.
+    cam, plan = cams[0], plans[0]
+    reset_counts()
+    g = grid.clone().requires_grad_()
+    with BackwardSpy(sweep_bwd) as spy:
+        img = render_image(g, cam, cfg, medium, light, plan=plan)
+        loss = (img[..., :3] ** 2).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+    train_launches = counts()
+    if train_launches != (1, 1, 0, 0) or len(spy.seen) != 1:
+        fail(f"config 4 forward+backward launched {train_launches}, "
+             "expected (1, 1, 0, 0)")
+    a, kw, (dG, dL) = spy.seen[0]
+    want_g, want_l = sweep_bwd.sweep_bwd_reference(
+        *a[:11], emission=a[11], flip=a[12], address_mode=cfg.address_mode,
+        **kw)
+    e_g, s_g = check_grad(dG, want_g, "config 4 dG")
+    e_l, s_l = check_grad(dL, want_l, "config 4 dL")
+    errs["sweep_bwd"] += [e_g, e_l]
+    g0 = grid.clone().requires_grad_()
+    (render_image(g0, cam, cfg, medium, plan=plan)[..., :3] ** 2).sum() \
+        .backward()
+    moved = max_err(g.grad, g0.grad)
+    if not bool(torch.isfinite(g.grad).all()) \
+            or not moved > 1e-3 * float(g0.grad.abs().max()):
+        fail("config 4 grid gradient is not finite, or equals the "
+             f"unshadowed step's (differs by {moved:.3e})")
+    log(f"config 4 fwd+bwd: loss {loss.item():.6e}, launches "
+        f"{train_launches}, dG max abs err {e_g:.3e} at max {s_g:.3e}, dL "
+        f"{e_l:.3e} at max {s_l:.3e}; grid gradient max "
+        f"{float(g.grad.abs().max()):.3e}, differs from the unshadowed "
+        f"step's (max {float(g0.grad.abs().max()):.3e}) by {moved:.3e}")
+    return errs, serve_launches, train_launches, cam, plan
+
+
+def ref_shadow_full_width(grid4, cam, plan, dev):
+    """Step 14: the reference medium with shadows at the preset's width:
+    two frames and one forward+backward step through K4 and K5's light
+    branch. Returns ({kernel: [errors]}, serving launches, training
+    launches)."""
+    errs = {name: [] for name in KERNELS}
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    medium, light = REF_SHADOW_MEDIUM, CONFIG4_LIGHT
+    scrolls = [seeded_scroll(seed, dev) for seed in REF_SCROLL_SEEDS]
+
+    def both(scroll, cts):
+        lvol = light_transmittance_volume(grid4, light, cfg, medium,
+                                          scroll=scroll)
+        return light_both(grid4, lvol, plan, cfg, medium, light, scroll, cts,
+                          autograd=False)
+
+    reset_counts()
+    frames = []
+    for scroll in scrolls:
+        frames.append(render_image(grid4, cam, cfg, medium, light,
+                                   scroll=scroll, plan=plan))
+        torch.cuda.synchronize()
+    serve_launches = counts()
+    if serve_launches != (0, 0, len(frames), 0):
+        fail(f"reference shadowed serving launched {serve_launches}, "
+             f"expected (0, 0, {len(frames)}, 0)")
+    cts = [torch.randn(plan.base_shape, device=dev) for _ in range(3)]
+    for k, (scroll, img) in enumerate(zip(scrolls, frames)):
+        name = f"reference shadowed frame {k}"
+        lit = render_image(grid4, cam, cfg, medium, scroll=scroll, plan=plan)
+        dark = shadow_frame_checks(name, img, lit)
+        maps, want_maps, got, want, _, _ = both(scroll, cts)
+        e = max(check_close(g, w, f"{name} {n}")
+                for g, w, n in zip(maps, want_maps,
+                                   ("acc", "trans", "wsum", "hit")))
+        e_img = check_close(img, finish_image(want_maps, plan, cfg, medium,
+                                              light), f"{name} image")
+        errs["sweep_ref_fwd"] += [e, e_img]
+        log(f"{name}: maps max abs err {e:.3e}, image {e_img:.3e}, rgb mean "
+            f"{float(img[..., :3].mean()):.4f} against "
+            f"{float(lit[..., :3].mean()):.4f} unshadowed, darkest by "
+            f"{dark:.4f}")
+
+    reset_counts()
+    g = grid4.clone().requires_grad_()
+    with BackwardSpy(sweep_ref_bwd) as spy:
+        img = render_image(g, cam, cfg, medium, light, scroll=scrolls[0],
+                           plan=plan)
+        loss = (img[..., :3] ** 2).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+    train_launches = counts()
+    if train_launches != (0, 0, 1, 1) or len(spy.seen) != 1:
+        fail(f"reference shadowed forward+backward launched "
+             f"{train_launches}, expected (0, 0, 1, 1)")
+    a, kw, (dLc, dLl) = spy.seen[0]
+    want_c, want_l = sweep_ref_bwd.sweep_ref_bwd_reference(*a, **kw)
+    e_c, s_c = check_grad(dLc, want_c, "reference shadowed dL (channels)")
+    e_l, s_l = check_grad(dLl, want_l, "reference shadowed dL (light)")
+    errs["sweep_ref_bwd"] += [e_c, e_l]
+    per_channel = [float(g.grad[..., c].abs().max()) for c in range(4)]
+    if not bool(torch.isfinite(g.grad).all()) or not min(per_channel) > 0.0:
+        fail("reference shadowed grid gradient is not finite and nonzero in "
+             f"every channel: {per_channel}")
+    log(f"reference shadowed fwd+bwd: loss {loss.item():.6e}, launches "
+        f"{train_launches}, channel-slab dL max abs err {e_c:.3e} at max "
+        f"{s_c:.3e}, light-slab dL {e_l:.3e} at max {s_l:.3e}")
+    return errs, serve_launches, train_launches
+
+
+def light_timings(grid, cam, plan, grid4, cam4, plan4, dev, gpu_line,
+                  out_dir):
+    """Step 15: CUDA-event timings of the shadowed paths. Returns
+    {kernel: (ms, plain ms, samples, lines, tensors)} for the light
+    variants."""
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    light = CONFIG4_LIGHT
+    out = {}
+
+    # Config 4: the light sweep, K1 and K2 with light, frame and step.
+    medium = MediumConfig(combine="single", density=8.0)
+    sweep_ms = cuda_ms(lambda: light_transmittance_volume(grid, light, cfg,
+                                                          medium), runs=6)
+    gl = grid.clone().requires_grad_()
+    ct = torch.randn_like(grid)
+
+    def sweep_fwdbwd():
+        gl.grad = None
+        light_transmittance_volume(gl, light, cfg, medium).backward(ct)
+    sweep_fb_ms = cuda_ms(sweep_fwdbwd, runs=6)
+    lvol = light_transmittance_volume(grid, light, cfg, medium)
+    (stack, *args), flip = sweep_fwd.sweep_inputs(grid.permute(plan.perm),
+                                                  plan, cfg, medium, light)
+    stack = stack.contiguous()
+    lstack = sweep_fwd.sweep_light_stack(lvol.permute(plan.perm), plan,
+                                         cfg).contiguous()
+    maps = sweep_fwd.launch_kernel(stack, *args, True, flip, False, lstack)
+    cts = [torch.randn(plan.base_shape, device=dev) for _ in range(3)]
+    kw = dict(emission=True, flip=flip, address_mode=cfg.address_mode,
+              light=lstack)
+    t = {
+        "fwd": cuda_ms(lambda: sweep_fwd.launch_kernel(
+            stack, *args, True, flip, False, lstack)),
+        "fwd_nolight": cuda_ms(lambda: sweep_fwd.launch_kernel(
+            stack, *args, True, flip, False)),
+        "fwd_plain": cuda_ms(lambda: sweep_fwd.sweep_fwd_reference(
+            stack, *args, **kw), runs=3, warmup=1),
+        "bwd": cuda_ms(lambda: sweep_bwd.launch_kernel(
+            stack, *args, *cts, maps[1], maps[2], True, flip, False,
+            light=lstack)),
+        "bwd_nolight": cuda_ms(lambda: sweep_bwd.launch_kernel(
+            stack, *args, *cts, maps[1], maps[2], True, flip, False)),
+        "bwd_plain": cuda_ms(lambda: sweep_bwd.sweep_bwd_reference(
+            stack, *args, *cts, maps[1], maps[2], **kw), runs=3, warmup=1),
+        "render": cuda_ms(lambda: render_image(grid, cam, cfg, medium, light,
+                                               plan=plan)),
+        "render_nolight": cuda_ms(lambda: render_image(grid, cam, cfg,
+                                                       medium, plan=plan)),
+    }
+    g = grid.clone().requires_grad_()
+
+    def fwdbwd():
+        g.grad = None
+        (render_image(g, cam, cfg, medium, light,
+                      plan=plan)[..., :3] ** 2).sum().backward()
+    t["fwdbwd"] = cuda_ms(fwdbwd, runs=6)
+    rays = cam.width * cam.height
+    samples, lines = inbox_samples(plan)
+    min_t = float(maps[1].min())
+    log(f"[{gpu_line}] config 4: {tuple(grid.shape)} at {cam.width}x"
+        f"{cam.height}, orbit frame 0 (axis {plan.axis}, sign "
+        f"{plan.sign:+d}), base {plan.base_shape}, "
+        f"{plan.slice_z.shape[0]} slices, {samples} samples in the box and "
+        f"in front on {lines} rows and columns, min T {min_t:.4f}"
+        + ("" if min_t > cfg.early_stop_transmittance else
+           " (some rays ended early: the in-box count is an upper bound)")
+        + ":")
+    log(f"  light_transmittance_volume forward   {sweep_ms:.3f} ms")
+    log(f"  light_transmittance_volume fwd+bwd   {sweep_fb_ms:.3f} ms")
+    log(f"  sweep_fwd kernel with light          {t['fwd']:.3f} ms "
+        f"(without, same plan: {t['fwd_nolight']:.3f} ms)")
+    log(f"  sweep_fwd plain version with light   {t['fwd_plain']:.3f} ms")
+    log(f"  sweep_bwd kernel with light          {t['bwd']:.3f} ms "
+        f"(without, same plan: {t['bwd_nolight']:.3f} ms)")
+    log(f"  sweep_bwd plain version with light   {t['bwd_plain']:.3f} ms")
+    log(f"  render_image with shadows            {t['render']:.3f} ms = "
+        f"{rays / (t['render'] * 1e-3):.4g} forward rays/s (plan reused, "
+        f"light volume rebuilt; unshadowed {t['render_nolight']:.3f} ms)")
+    log(f"  shadowed forward+backward step       {t['fwdbwd']:.3f} ms = "
+        f"{rays / (t['fwdbwd'] * 1e-3):.4g} fwd+bwd rays/s")
+    profile_fwdbwd(fwdbwd, out_dir, "chip_smoke_profile_config4.txt")
+    base = (stack, *args)
+    out["sweep_fwd"] = (t["fwd"], t["fwd_plain"], samples, lines,
+                        (*base, lstack, maps))
+    out["sweep_bwd"] = (t["bwd"], t["bwd_plain"], samples, lines,
+                        (*base, lstack, *cts[1:], maps[1], maps[2], stack,
+                         lstack))
+
+    # The reference medium with shadows at the preset.
+    medium = REF_SHADOW_MEDIUM
+    scroll = seeded_scroll(REF_SCROLL_SEEDS[0], dev)
+    mat_ms = cuda_ms(lambda: materialize_sigma(grid4, medium, scroll))
+    sweep4_ms = cuda_ms(lambda: light_transmittance_volume(
+        grid4, light, cfg, medium, scroll=scroll), runs=6)
+    lvol = light_transmittance_volume(grid4, light, cfg, medium,
+                                      scroll=scroll)
+    inputs = sweep_ref_fwd.sweep_ref_inputs(
+        grid4.permute(plan4.perm + (3,)), plan4, cfg, medium, light, scroll)
+    lslabs = sweep_ref_fwd.sweep_ref_light_slabs(lvol.permute(plan4.perm),
+                                                 plan4, cfg)
+    slab_ms = cuda_ms(lambda: sweep_ref_fwd.sweep_ref_light_slabs(
+        lvol.permute(plan4.perm), plan4, cfg))
+    maps = sweep_ref_fwd.launch_kernel(*inputs, True, lslabs)
+    cts = [torch.randn(plan4.base_shape, device=dev) for _ in range(3)]
+    bwd_args = (*inputs, *cts, maps[1], maps[2])
+    t = {
+        "fwd": cuda_ms(lambda: sweep_ref_fwd.launch_kernel(*inputs, True,
+                                                           lslabs)),
+        "fwd_nolight": cuda_ms(lambda: sweep_ref_fwd.launch_kernel(*inputs,
+                                                                   True)),
+        "fwd_plain": cuda_ms(lambda: sweep_ref_fwd.sweep_ref_fwd_reference(
+            *inputs, emission=True, light=lslabs), runs=3, warmup=1),
+        "bwd": cuda_ms(lambda: sweep_ref_bwd.launch_kernel(
+            *bwd_args, emission=True, light=lslabs)),
+        "bwd_nolight": cuda_ms(lambda: sweep_ref_bwd.launch_kernel(
+            *bwd_args, emission=True)),
+        "bwd_plain": cuda_ms(lambda: sweep_ref_bwd.sweep_ref_bwd_reference(
+            *bwd_args, emission=True, light=lslabs), runs=3, warmup=1),
+        "render": cuda_ms(lambda: render_image(
+            grid4, cam4, cfg, medium, light, scroll=scroll, plan=plan4)),
+    }
+    g4 = grid4.clone().requires_grad_()
+
+    def fwdbwd4():
+        g4.grad = None
+        (render_image(g4, cam4, cfg, medium, light, scroll=scroll,
+                      plan=plan4)[..., :3] ** 2).sum().backward()
+    t["fwdbwd"] = cuda_ms(fwdbwd4, runs=6)
+    rays = cam4.width * cam4.height
+    samples, lines = inbox_samples(plan4)
+    log(f"[{gpu_line}] reference medium with shadows, density "
+        f"{medium.density}: {tuple(grid4.shape)} "
+        f"at {cam4.width}x{cam4.height}, base {plan4.base_shape}, "
+        f"{plan4.slice_z.shape[0]} slices, {samples} samples in the box and "
+        f"in front, min T {float(maps[1].min()):.4f}:")
+    log(f"  materialize_sigma                    {mat_ms:.3f} ms")
+    log(f"  light_transmittance_volume forward   {sweep4_ms:.3f} ms "
+        "(materialize_sigma included)")
+    log(f"  light slab lerp                      {slab_ms:.3f} ms")
+    log(f"  sweep_ref_fwd kernel with light      {t['fwd']:.3f} ms "
+        f"(without: {t['fwd_nolight']:.3f} ms)")
+    log(f"  sweep_ref_fwd plain with light       {t['fwd_plain']:.3f} ms")
+    log(f"  sweep_ref_bwd kernel with light      {t['bwd']:.3f} ms "
+        f"(without: {t['bwd_nolight']:.3f} ms)")
+    log(f"  sweep_ref_bwd plain with light       {t['bwd_plain']:.3f} ms")
+    log(f"  render_image with shadows            {t['render']:.3f} ms = "
+        f"{rays / (t['render'] * 1e-3):.4g} forward rays/s")
+    log(f"  shadowed forward+backward step       {t['fwdbwd']:.3f} ms = "
+        f"{rays / (t['fwdbwd'] * 1e-3):.4g} fwd+bwd rays/s")
+    out["sweep_ref_fwd"] = (t["fwd"], t["fwd_plain"], samples, lines,
+                            (*inputs, lslabs, maps))
+    out["sweep_ref_bwd"] = (t["bwd"], t["bwd_plain"], samples, lines,
+                            (*inputs, lslabs, *cts[1:], maps[1], maps[2],
+                             inputs[0], lslabs))
     return out
 
 
@@ -850,27 +1452,18 @@ def main(argv=None):
     # fit at spec.
     _, plan, _ = frames[0]
     cam = cams[0][1]
-    seen = []  # (arguments, dG) of each backward kernel launch
-    launch_bwd = sweep_bwd.launch_kernel
-
-    def spy(*a):
-        dG = launch_bwd(*a)
-        seen.append((a, dG))
-        return dG
-
     reset_counts()
-    sweep_bwd.launch_kernel = spy
     g = grid.clone().requires_grad_()
-    img = render_image(g, cam, cfg, medium, plan=plan)
-    loss = (img[..., :3] ** 2).sum()
-    loss.backward()
-    torch.cuda.synchronize()
-    sweep_bwd.launch_kernel = launch_bwd
+    with BackwardSpy(sweep_bwd) as spy:
+        img = render_image(g, cam, cfg, medium, plan=plan)
+        loss = (img[..., :3] ** 2).sum()
+        loss.backward()
+        torch.cuda.synchronize()
     step_launches = counts()
-    if step_launches != (1, 1, 0, 0) or len(seen) != 1:
+    if step_launches != (1, 1, 0, 0) or len(spy.seen) != 1:
         fail(f"flagship forward+backward launched {step_launches}, "
              f"expected (1, 1, 0, 0)")
-    bwd_args, dG = seen[0]
+    bwd_args, _, dG = spy.seen[0]
     if not bool(torch.isfinite(g.grad).all()) or \
             not float(g.grad.abs().max()) > 0.0:
         fail("flagship grid gradient is not finite and nonzero")
@@ -1012,7 +1605,25 @@ def main(argv=None):
                 plan_for(cams[0][1], big4.shape, cfg, device=dev), dev,
                 gpu_line, plain_runs=3)
 
-    # 12. Results. No single PyTorch call marches a carried, gated slice
+    # 12. The light branch at small shapes, and the gradient checks with
+    # shadows.
+    light_errs = [light_small_checks(dev)]
+
+    # 13. Config 4 at full width: shadowed serving and training.
+    e4, c4_serve, c4_train, cam_c4, plan_c4 = config4_full_width(
+        grid, dev, out_dir)
+    light_errs.append(e4)
+
+    # 14. The reference medium with shadows at the preset's width.
+    e4r, ref_sh_serve, ref_sh_train = ref_shadow_full_width(grid4, cam4,
+                                                            plan4, dev)
+    light_errs.append(e4r)
+
+    # 15. Timing of the shadowed paths.
+    light_t = light_timings(grid, cam_c4, plan_c4, grid4, cam4, plan4, dev,
+                            gpu_line, out_dir)
+
+    # 16. Results. No single PyTorch call marches a carried, gated slice
     # sweep (grid_sample does one slice's taps only), so library_ms is null.
     times = {"sweep_fwd": (kernel_ms, plain_ms),
              "sweep_bwd": (bwd_ms, bwd_plain_ms),
@@ -1021,17 +1632,28 @@ def main(argv=None):
     kernel_errs = {"sweep_fwd": errs, "sweep_bwd": bwd_errs,
                    "sweep_ref_fwd": ref_errs, "sweep_ref_bwd": ref_bwd_errs}
     main_paths = (serve_launches, train_launches, ref_serve, ref_train)
+    light_paths = (c4_serve, c4_train, ref_sh_serve, ref_sh_train)
     results = []
     for k, (name, (_, source, line)) in enumerate(KERNELS.items()):
-        launches = sum(path[k] for path in main_paths)
-        if launches < 1:
-            fail(f"{name}: no launch on any main path")
+        launches_light = sum(path[k] for path in light_paths)
+        launches = sum(path[k] for path in main_paths) + launches_light
+        if launches - launches_light < 1 or launches_light < 1:
+            fail(f"{name}: no launch on a main path ({launches} in all, "
+                 f"{launches_light} with a light volume)")
         bound_ms, bound_by, flops, nbytes = bound(name, *work[name])
         ms, plain = times[name]
         log(f"[{gpu_line}] {name}: {ms:.3f} ms against a bound of "
             f"{bound_ms:.4f} ms ({bound_by}: {flops:.4g} float operations "
             f"at 67 TFLOP/s, {nbytes:.4g} bytes at 3.35 TB/s), {launches} "
             "launches on the main paths")
+        ms_l, plain_l, *work_l = light_t[name]
+        bound_l, by_l, flops, nbytes = bound(name + "+light", *work_l)
+        log(f"[{gpu_line}] {name} with a light volume: {ms_l:.3f} ms "
+            f"against a bound of {bound_l:.4f} ms ({by_l}: {flops:.4g} "
+            f"float operations, {nbytes:.4g} bytes), {launches_light} of "
+            "those launches")
+        kernel_errs[name] += [e for errs_ in light_errs
+                              for e in errs_[name]]
         results.append({
             "name": name,
             "route": "cuda",
@@ -1045,6 +1667,11 @@ def main(argv=None):
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
+            "launches_light": launches_light,
+            "ms_light": ms_l,
+            "plain_ms_light": plain_l,
+            "bound_ms_light": bound_l,
+            "bound_by_light": by_l,
         })
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The hand-written CUDA sweep kernels (forward and backward, of the
-single-channel medium and of the 4-channel reference medium) against their
-plain PyTorch versions on the card. Every test here needs a CUDA GPU and
+single-channel medium and of the 4-channel reference medium, without and
+with a light volume) against their plain PyTorch versions on the card. Every test here needs a CUDA GPU and
 skips without one (a CUDA kernel has no CPU mode). The file imports no
 JAX, so it runs on a GPU machine without it:
 
@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from volumetricrenderer_tpu_torch import CameraConfig, MediumConfig, \
-    RenderConfig, make_camera, plan_for
+from volumetricrenderer_tpu_torch import CameraConfig, LightConfig, \
+    MediumConfig, RenderConfig, light_transmittance_volume, make_camera, \
+    plan_for
 from volumetricrenderer_tpu_torch.kernels import sweep_bwd, sweep_fwd, \
     sweep_ref_bwd, sweep_ref_fwd
 from volumetricrenderer_tpu_torch.ops.integrate import reference_media_scroll
@@ -380,3 +381,263 @@ def test_ref_launches_validate_inputs(cuda):
         sweep_ref_bwd.launch_kernel(L, *args, None, None, None, None, None,
                                     emission=False)
     assert (sweep_ref_fwd.launches, sweep_ref_bwd.launches) == before
+
+
+# --- the light branch of the four kernels ---------------------------------
+
+LIGHT = LightConfig(ambient=0.2, shadow_steps=32)
+
+
+def _light_volume(grid, cfg, medium, kind, scroll=None):
+    """The real light volume (exactly 1.0 where fully lit: the clip's tie),
+    that volume stretched to [-0.2, 1.3] (all three arms of the clip's
+    subgradient), or all ones (shade exactly 1)."""
+    lvol = light_transmittance_volume(grid, LIGHT, cfg, medium, scroll=scroll)
+    assert float((lvol == 1.0).float().mean()) > 0.02
+    if kind == "pushed":
+        lo = lvol.min()
+        lvol = 1.5 * (lvol - lo) / (1.0 - lo) - 0.2
+        assert float(lvol.max()) > 1.0 and float(lvol.min()) < 0.0
+    elif kind == "unit":
+        lvol = torch.ones_like(lvol)
+    return lvol
+
+
+def _light_case(dev, eye, mode="mirror", n_slices=None, density=8.0,
+                kind="ones"):
+    """K1 and K2 with a light stack and their plain versions on the same
+    inputs. Returns (maps, plain maps, (dG, dL), plain (dG, dL))."""
+    grid, cfg, plan, _ = _setup(dev, eye, True, mode, n_slices)
+    medium = MediumConfig(combine="single", density=density)
+    lvol = _light_volume(grid, cfg, medium, kind)
+    (stack, *args), flip = sweep_fwd.sweep_inputs(
+        grid.permute(plan.perm), plan, cfg, medium, LIGHT)
+    stack = stack.contiguous()
+    light = sweep_fwd.sweep_light_stack(lvol.permute(plan.perm), plan,
+                                        cfg).contiguous()
+    wrap = mode == "wrap"
+    before = (sweep_fwd.launches, sweep_bwd.launches)
+    maps = sweep_fwd.launch_kernel(stack, *args, True, flip, wrap, light)
+    rng = np.random.default_rng(9)
+    cts = [torch.tensor(rng.normal(size=plan.base_shape), dtype=torch.float32,
+                        device=dev) for _ in range(3)]
+    got = sweep_bwd.launch_kernel(stack, *args, *cts, maps[1], maps[2], True,
+                                  flip, wrap, light=light)
+    torch.cuda.synchronize()
+    assert (sweep_fwd.launches, sweep_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    kw = dict(emission=True, flip=flip, address_mode=mode, light=light)
+    want_maps = sweep_fwd.sweep_fwd_reference(stack, *args, **kw)
+    want = sweep_bwd.sweep_bwd_reference(stack, *args, *cts, maps[1],
+                                         maps[2], **kw)
+    return maps, want_maps, got, want
+
+
+def _assert_light_case(maps, want_maps, got, want, tol=BWD_TOL):
+    for g, w, n in zip(maps, want_maps, NAMES):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=n)
+    for g, w in zip(got, want):  # dG, dL
+        _assert_grad_close(g, w, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eye,axis,sign", EYES)
+@pytest.mark.parametrize("mode", ["mirror", "wrap"])
+@pytest.mark.parametrize("kind", ["ones", "pushed"])
+def test_light_kernels_match_plain_versions(cuda, eye, axis, sign, mode,
+                                            kind):
+    _assert_light_case(*_light_case(cuda, eye, mode, kind=kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ones", "pushed"])
+def test_light_kernels_sub_voxel(cuda, kind):
+    _assert_light_case(*_light_case(cuda, EYES[0][0], n_slices=24,
+                                    kind=kind))
+
+
+@pytest.mark.gpu
+def test_light_backward_kernel_early_stop_gate(cuda):
+    """Density 500 with a light volume: Wr holds the shade, so the replay
+    must add the forward's very products or A~ drifts at the last
+    slices."""
+    maps, want_maps, got, want = _light_case(cuda, EYES[0][0],
+                                             density=500.0)
+    assert float(maps[1].min()) < 1e-3
+    _assert_light_case(maps, want_maps, got, want, tol=5e-4)
+
+
+def _ref_light_case(dev, eye, kind, n_slices=None, density=8.0):
+    grid, cfg, plan, _, _ = _ref_setup(dev, eye, True, n_slices=n_slices)
+    medium = MediumConfig(combine="reference", density=density)
+    scroll = _scroll("random", dev)
+    inputs = sweep_ref_fwd.sweep_ref_inputs(
+        grid.permute(plan.perm + (3,)), plan, cfg, medium, LIGHT, scroll)
+    lvol = _light_volume(grid, cfg, medium, kind, scroll)
+    light = sweep_ref_fwd.sweep_ref_light_slabs(lvol.permute(plan.perm),
+                                                plan, cfg)
+    before = (sweep_ref_fwd.launches, sweep_ref_bwd.launches)
+    maps = sweep_ref_fwd.launch_kernel(*inputs, True, light)
+    rng = np.random.default_rng(9)
+    cts = [torch.tensor(rng.normal(size=plan.base_shape), dtype=torch.float32,
+                        device=dev) for _ in range(3)]
+    got = sweep_ref_bwd.launch_kernel(*inputs, *cts, maps[1], maps[2],
+                                      emission=True, light=light)
+    torch.cuda.synchronize()
+    assert (sweep_ref_fwd.launches, sweep_ref_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_maps = sweep_ref_fwd.sweep_ref_fwd_reference(
+        *inputs, emission=True, light=light)
+    want = sweep_ref_bwd.sweep_ref_bwd_reference(
+        *inputs, *cts, maps[1], maps[2], emission=True, light=light)
+    return maps, want_maps, got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eye,axis,sign", EYES)
+@pytest.mark.parametrize("kind", ["ones", "pushed"])
+def test_ref_light_kernels_match_plain_versions(cuda, eye, axis, sign, kind):
+    """K4 and K5 with light slabs from materialize_sigma's light volume:
+    the maps, dL of the channel slabs and dL of the light slabs."""
+    _assert_light_case(*_ref_light_case(cuda, eye, kind))
+
+
+@pytest.mark.gpu
+def test_ref_light_kernels_sub_voxel_and_gate(cuda):
+    _assert_light_case(*_ref_light_case(cuda, EYES[0][0], "pushed",
+                                        n_slices=24))
+    maps, want_maps, got, want = _ref_light_case(cuda, EYES[0][0], "ones",
+                                                 density=500.0)
+    assert float(maps[1].min()) < 1e-3
+    _assert_light_case(maps, want_maps, got, want, tol=5e-4)
+
+
+@pytest.mark.gpu
+def test_unit_light_equals_no_light_bit_for_bit(cuda):
+    """An all-ones light stack gives shade = ambient + (1 - ambient) = 1.0
+    exactly, so the light instantiation of each forward kernel must
+    reproduce the no-light instantiation bit for bit: the branch changed
+    nothing else in the march."""
+    grid, cfg, plan, medium = _setup(cuda, EYES[0][0], True)
+    (stack, *args), flip = sweep_fwd.sweep_inputs(
+        grid.permute(plan.perm), plan, cfg, medium, LIGHT)
+    stack = stack.contiguous()
+    ones = torch.ones_like(stack)
+    assert torch.equal(
+        sweep_fwd.launch_kernel(stack, *args, True, flip, False, ones),
+        sweep_fwd.launch_kernel(stack, *args, True, flip, False))
+    _, _, _, _, inputs = _ref_setup(cuda, EYES[0][0], True)
+    ones = torch.ones_like(inputs[0][:, 0])
+    assert torch.equal(sweep_ref_fwd.launch_kernel(*inputs, True, ones),
+                       sweep_ref_fwd.launch_kernel(*inputs, True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combine", ["single", "reference"])
+def test_cuda_light_path_never_runs_plain_versions(cuda, monkeypatch,
+                                                   combine):
+    """With a light volume on a CUDA grid, forward and backward launch the
+    kernels, once each, and never reach a plain version; both inputs get a
+    gradient."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called on the CUDA path")
+    monkeypatch.setattr(sweep_fwd, "sweep_fwd_reference", refuse)
+    monkeypatch.setattr(sweep_bwd, "sweep_bwd_reference", refuse)
+    monkeypatch.setattr(sweep_ref_fwd, "sweep_ref_fwd_reference", refuse)
+    monkeypatch.setattr(sweep_ref_bwd, "sweep_ref_bwd_reference", refuse)
+    if combine == "single":
+        grid, cfg, plan, medium = _setup(cuda, EYES[3][0], True)
+        mods = (sweep_fwd, sweep_bwd)
+    else:
+        grid, cfg, plan, medium, _ = _ref_setup(cuda, EYES[3][0], True)
+        mods = (sweep_ref_fwd, sweep_ref_bwd)
+    lv = _light_volume(grid, cfg, medium, "ones").requires_grad_()
+    g = grid.clone().requires_grad_()
+    before = [m.launches for m in mods]
+    if combine == "single":
+        maps = sweep_fwd.sweep_base(g.permute(plan.perm), plan, cfg, medium,
+                                    LIGHT, lperm=lv.permute(plan.perm))
+    else:
+        maps = sweep_ref_fwd.sweep_base_ref(
+            g.permute(plan.perm + (3,)), plan, cfg, medium, LIGHT,
+            lperm=lv.permute(plan.perm))
+    (maps[1].sum() + (maps[2] ** 2).sum()).backward()
+    torch.cuda.synchronize()
+    assert [m.launches for m in mods] == [b + 1 for b in before]
+    for t in (g, lv):
+        assert bool(torch.isfinite(t.grad).all())
+        assert float(t.grad.abs().max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combine", ["single", "reference"])
+def test_gpu_shadowed_render_and_gradient_match_cpu(cuda, combine):
+    """render_image with LightConfig(shadow_steps=32) on the card (the
+    light sweep, the kernels' light branch, dG and dL) against the same on
+    the CPU (the plain versions): image and d/dgrid of sum(rgb^2)."""
+    from volumetricrenderer_tpu_torch import cloud_volume, render_image
+    if combine == "single":
+        grid_c = cloud_volume(32, 7)
+        medium, scroll = MediumConfig(combine="single", density=8.0), "none"
+    else:
+        grid_c = torch.tensor(
+            np.random.default_rng(1).uniform(0.1, 1.0, (24, 24, 24, 4)),
+            dtype=torch.float32)
+        medium, scroll = MediumConfig(combine="reference", density=6.0), \
+            "random"
+    cam = make_camera(CameraConfig(width=96, height=64))
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    imgs, grads = [], []
+    for g in (grid_c.to(cuda), grid_c.clone()):
+        g.requires_grad_()
+        img = render_image(g, cam, cfg, medium, LightConfig(shadow_steps=32),
+                           scroll=_scroll(scroll, g.device))
+        (img[..., :3] ** 2).sum().backward()
+        imgs.append(img.detach().cpu())
+        grads.append(g.grad.cpu())
+    torch.testing.assert_close(imgs[0], imgs[1], rtol=RTOL, atol=1e-4)
+    _assert_grad_close(*grads)
+
+
+@pytest.mark.gpu
+def test_light_launches_validate_inputs(cuda):
+    """A light stack of the wrong shape, dtype or device, or one given
+    without emission, is refused before any pointer reaches a kernel."""
+    grid, cfg, plan, medium = _setup(cuda, EYES[0][0], True)
+    (stack, *args), flip = sweep_fwd.sweep_inputs(grid.permute(plan.perm),
+                                                  plan, cfg, medium)
+    stack = stack.contiguous()
+    light = torch.ones_like(stack)
+    maps = torch.zeros((3,) + plan.base_shape, device=cuda)
+    _, _, _, _, inputs = _ref_setup(cuda, EYES[0][0], True)
+    slabs = torch.ones_like(inputs[0][:, 0])
+    mods = (sweep_fwd, sweep_bwd, sweep_ref_fwd, sweep_ref_bwd)
+    before = [m.launches for m in mods]
+    for bad, match in ((light[:-1], "light must be"),
+                       (light.double(), "float32"),
+                       (light.cpu(), "float32 tensor on cuda"),
+                       (light.transpose(1, 2), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            sweep_fwd.launch_kernel(stack, *args, True, flip, False, bad)
+        with pytest.raises(ValueError, match=match):
+            sweep_bwd.launch_kernel(stack, *args, *maps, maps[1], maps[2],
+                                    True, flip, False, light=bad)
+    for bad, match in ((slabs[:, :-1], "light must be"),
+                       (slabs.double(), "float32"),
+                       (slabs.cpu(), "float32 tensor on cuda")):
+        with pytest.raises(ValueError, match=match):
+            sweep_ref_fwd.launch_kernel(*inputs, True, bad)
+        with pytest.raises(ValueError, match=match):
+            sweep_ref_bwd.launch_kernel(*inputs, *maps, maps[1], maps[2],
+                                        emission=True, light=bad)
+    with pytest.raises(ValueError, match="emission"):
+        sweep_fwd.launch_kernel(stack, *args, False, flip, False, light)
+    with pytest.raises(ValueError, match="emission"):
+        sweep_bwd.launch_kernel(stack, *args, *maps, maps[1], maps[2], False,
+                                flip, False, light=light)
+    with pytest.raises(ValueError, match="emission"):
+        sweep_ref_fwd.launch_kernel(*inputs, False, slabs)
+    with pytest.raises(ValueError, match="emission"):
+        sweep_ref_bwd.launch_kernel(*inputs, *maps, maps[1], maps[2],
+                                    emission=False, light=slabs)
+    assert [m.launches for m in mods] == before

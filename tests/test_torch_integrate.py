@@ -24,6 +24,8 @@ from volumetricrenderer_tpu.ops import aabb as jaabb
 from volumetricrenderer_tpu.ops import integrate as jint
 from volumetricrenderer_tpu.ops import sampling as jsamp
 from volumetricrenderer_tpu.ops import sweep as jsweep
+from volumetricrenderer_tpu.ops.lighting import \
+    light_transmittance_volume as jlight_volume
 from volumetricrenderer_tpu_torch.ops import aabb as taabb
 from volumetricrenderer_tpu_torch.ops import integrate as tint
 from volumetricrenderer_tpu_torch.ops import sampling as tsamp
@@ -281,18 +283,160 @@ def test_bench_gradient_check_reference():
     assert torch.allclose(g1.grad, g2.grad, rtol=1e-3, atol=1e-3 * scale)
 
 
+def test_light_transmittance_matches_jax():
+    """The nested shadow march: 6 steps toward an oblique light from
+    seeded positions in and around the box, single and reference medium."""
+    rng = np.random.default_rng(6)
+    pos = rng.uniform(-0.1, 1.1, (7, 9, 3)).astype(np.float32)
+    kw = dict(direction=(0.4, -0.3, 1.0), shadow_steps=6,
+              shadow_step_size=0.11)
+    for grid, jmed, tmed, scroll in (
+            (rng.uniform(size=(8, 9, 7)).astype(np.float32),
+             J.MediumConfig(combine="single", density=5.0),
+             T.MediumConfig(combine="single", density=5.0), None),
+            (rng.uniform(size=(8, 9, 7, 4)).astype(np.float32),
+             J.MediumConfig(density=5.0), T.MediumConfig(density=5.0),
+             _scroll4("random"))):
+        got = tint._light_transmittance(_t(grid), _t(pos), tmed, scroll,
+                                        T.RenderConfig(),
+                                        T.LightConfig(**kw))
+        want = jint._light_transmittance(
+            jnp.asarray(grid), jnp.asarray(pos), jmed,
+            None if scroll is None else jnp.asarray(scroll),
+            J.RenderConfig(), J.LightConfig(**kw))
+        assert tuple(got.shape) == want.shape == (7, 9)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-6)
+        assert float(got.min()) < 0.9 and float(got.max()) <= 1.0
+
+
+def test_render_rays_with_shadows_matches_jax():
+    """render_rays with shadow_steps=4, forward and grid gradient: the
+    gradient also flows through every nested march (this path has no
+    clip)."""
+    grid, o, d, jcfg, jmed, tcfg, tmed = _march_setup(True, seed=5)
+    kw = dict(shadow_steps=4, shadow_step_size=0.15, ambient=0.2)
+    g = _t(grid).requires_grad_()
+    got = tint.render_rays(g, _t(o), _t(d), tcfg, tmed, T.LightConfig(**kw))
+    (got[..., :3] ** 2).sum().backward()
+
+    def jloss(x):
+        img = jint.render_rays(x, jnp.asarray(o), jnp.asarray(d), jcfg, jmed,
+                               J.LightConfig(**kw))
+        return jnp.sum(img[..., :3] ** 2), img
+    (_, want), gwant = jax.value_and_grad(jloss, has_aux=True)(
+        jnp.asarray(grid))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+    scale = float(np.abs(gwant).max())
+    np.testing.assert_allclose(g.grad.numpy(), np.asarray(gwant), rtol=RTOL,
+                               atol=2e-4 * scale)
+    unlit = tint.render_rays(_t(grid), _t(o), _t(d), tcfg, tmed,
+                             T.LightConfig(ambient=0.2))
+    assert float((unlit[..., :3] - got[..., :3].detach()).max()) > 1e-3
+
+
+@pytest.mark.parametrize("eye,stretched", [(EYES[0][0], False),
+                                           (EYES[4][0], True)])
+def test_render_rays_sliced_light_volume_matches_jax(eye, stretched):
+    """The oracle with a light volume, forward and both gradients; the
+    light volume is the real one (exactly 1.0 where fully lit) or that
+    stretched to [-0.2, 1.3], which the clip cuts on both sides."""
+    grid, o, d, jplan, jcfg, jmed, tplan, tcfg, tmed = _sliced_setup(
+        eye, True)
+    kw = dict(ambient=0.2, shadow_steps=32)
+    lvol = np.array(jlight_volume(jnp.asarray(grid), J.LightConfig(**kw),
+                                  jcfg, jmed))
+    if stretched:
+        lvol = 1.5 * (lvol - lvol.min()) / (1.0 - lvol.min()) - 0.2
+    g, lv = _t(grid).requires_grad_(), _t(lvol).requires_grad_()
+    got = tint.render_rays_sliced(g, _t(o), _t(d), tplan, tcfg, tmed,
+                                  T.LightConfig(**kw), light_volume=lv)
+    (got[..., :3] ** 2).sum().backward()
+
+    def jloss(x, l):
+        img = jint.render_rays_sliced(x, jnp.asarray(o), jnp.asarray(d),
+                                      jplan, jcfg, jmed, J.LightConfig(**kw),
+                                      light_volume=l)
+        return jnp.sum(img[..., :3] ** 2), img
+    (_, want), (gwant, lwant) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(grid),
+                                             jnp.asarray(lvol))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+    for mine, theirs in ((g.grad, gwant), (lv.grad, lwant)):
+        scale = float(np.abs(theirs).max())
+        assert scale > 0.0
+        np.testing.assert_allclose(mine.numpy(), np.asarray(theirs),
+                                   rtol=RTOL, atol=2e-4 * scale)
+
+
+@pytest.mark.parametrize("combine", ["single", "reference"])
+def test_bench_gradient_check_with_shadows(combine):
+    """bench.py's gradient check with shadows: the light volume is built
+    from the grid inside the loss, so the gradient reaches the grid through
+    dG and through dL and the light sweep; the plain sweep on an
+    identity-warp plan against the per-ray oracle."""
+    cfg = T.RenderConfig(emission=True, quadrature="sliced")
+    light = T.LightConfig(shadow_steps=32)
+    cam = T.make_camera(T.CameraConfig(width=48, height=32))
+    if combine == "single":
+        medium = T.MediumConfig(combine="single", density=8.0)
+        grid, scroll = T.cloud_volume(16, 7), None
+    else:
+        medium = T.MediumConfig(density=8.0)
+        grid = _t(np.random.default_rng(2).uniform(0.1, 1.0, (12, 12, 12, 4))
+                  .astype(np.float32))
+        scroll = _scroll4("random")
+    plan = T.plan_for(cam, grid.shape, cfg)
+    o, d = tsweep.base_rays(plan)
+
+    def lvol(g):
+        return T.light_transmittance_volume(g, light, cfg, medium,
+                                            scroll=scroll)
+    g1 = grid.clone().requires_grad_()
+    (tsweep.sweep_render(g1, dataclasses.replace(plan, identity_warp=True),
+                         cfg, medium, light, scroll=scroll,
+                         light_volume=lvol(g1))[..., :3] ** 2).sum() \
+        .backward()
+    g2 = grid.clone().requires_grad_()
+    (tint.render_rays_sliced(g2, o, d, plan, cfg, medium, light,
+                             scroll=scroll,
+                             light_volume=lvol(g2))[..., :3] ** 2).sum() \
+        .backward()
+    scale = float(g2.grad.abs().max())
+    assert scale > 0.0
+    assert torch.allclose(g1.grad, g2.grad, rtol=1e-3, atol=1e-3 * scale)
+    # the light path carries gradient of its own
+    g3 = grid.clone().requires_grad_()
+    (tsweep.sweep_render(g3, dataclasses.replace(plan, identity_warp=True),
+                         cfg, medium, light, scroll=scroll,
+                         light_volume=lvol(grid))[..., :3] ** 2).sum() \
+        .backward()
+    assert float((g1.grad - g3.grad).abs().max()) > 1e-3 * scale
+
+
 def test_unported_paths_raise():
     grid, o, d, jcfg, jmed, tcfg, tmed = _march_setup(True)
     g, o, d = _t(grid), _t(o), _t(d)
     with pytest.raises(ValueError, match="reference combine"):
         tint.render_rays(g, o, d, tcfg, T.MediumConfig())
-    with pytest.raises(NotImplementedError, match="shadow"):
-        tint.render_rays(g, o, d, tcfg, tmed, T.LightConfig(shadow_steps=4))
+    # the shadow march samples the same medium: a 3-D grid has no
+    # reference combine
+    with pytest.raises(ValueError, match="reference combine"):
+        tint.render_rays(g, o, d, tcfg, T.MediumConfig(),
+                         T.LightConfig(shadow_steps=4))
     with pytest.raises(NotImplementedError, match="scene_sigma"):
         tint.scene_sigma([], o, tcfg, tmed)
-    with pytest.raises(NotImplementedError, match="shadow"):
-        tint._light_transmittance(g, o, tmed, None, tcfg, T.LightConfig())
-    _, so, sd, _, _, _, tplan, scfg, smed = _sliced_setup(EYES[0][0], True)
+    with pytest.raises(ValueError, match="unknown combine"):
+        tint._light_transmittance(
+            g, o, dataclasses.replace(tmed, combine="other"), None, tcfg,
+            T.LightConfig(shadow_steps=2))
+    # the sweep takes a light volume with emission only (absorption has no
+    # in-scatter to shade)
+    sgrid, _, _, _, _, _, tplan, _, smed = _sliced_setup(EYES[0][0], False)
     with pytest.raises(NotImplementedError, match="light volume"):
-        tint.render_rays_sliced(g, _t(so), _t(sd), tplan, scfg, smed,
-                                light_volume=g)
+        tsweep.sweep_render(_t(sgrid), tplan,
+                            T.RenderConfig(emission=False,
+                                           quadrature="sliced"), smed,
+                            light_volume=_t(sgrid))

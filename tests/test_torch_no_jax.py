@@ -20,6 +20,10 @@ def _port_sources():
 
 
 def test_sources_import_no_jax():
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"volumetricrenderer_tpu_torch/ops/lighting.py",
+            "volumetricrenderer_tpu_torch/ops/media.py",
+            "chip_smoke.py"} <= names
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
@@ -58,6 +62,16 @@ def test_port_imports_and_renders_without_jax():
                              scroll=T.reference_media_scroll(1.7))
         assert img.shape == (32, 48, 4) and bool(torch.isfinite(img).all())
         assert float(img[..., 3].max()) == 1.0
+        # config 4's path: the light volume and the shadowed sweep
+        shadows = T.LightConfig(shadow_steps=32)
+        for g, med in ((grid, T.MediumConfig(combine="single", density=8.0)),
+                       (grid4, T.MediumConfig())):
+            cfg = T.RenderConfig(emission=True, quadrature="sliced")
+            lvol = T.light_transmittance_volume(g, shadows, cfg, med)
+            assert lvol.shape == g.shape[:3] and float(lvol.max()) == 1.0
+            img = T.render_image(g, cam, cfg, med, shadows)
+            assert img.shape == (32, 48, 4)
+            assert bool(torch.isfinite(img).all())
         import tempfile
         from volumetricrenderer_tpu_torch import cli
         from volumetricrenderer_tpu_torch.utils import checkpoint

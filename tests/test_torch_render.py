@@ -1,6 +1,7 @@
 """The port's forward render as a whole against the JAX package's jnp sweep
 (`sweep_render(..., use_pallas=False)`) on the FBM cloud, and the plain
-sweep's grid gradient against jax.grad of the same loss."""
+sweep's grid gradient against jax.grad of the same loss; the same for the
+reference medium and for shadowed frames (config 4's light volume)."""
 import dataclasses
 
 import jax
@@ -13,7 +14,8 @@ import volumetricrenderer_tpu as J
 import volumetricrenderer_tpu_torch as T
 from test_torch_sweep_fwd import torch_plan
 from volumetricrenderer_tpu.ops import sweep as jsweep
-from volumetricrenderer_tpu_torch.ops.sweep import sweep_render
+from volumetricrenderer_tpu_torch.ops.integrate import render_rays_sliced
+from volumetricrenderer_tpu_torch.ops.sweep import base_rays, sweep_render
 
 torch.set_num_threads(1)
 
@@ -105,15 +107,22 @@ def test_render_backends_and_errors(cloud):
     with pytest.raises(NotImplementedError):
         T.render_image(grid[..., None], tcam, tcfg, tmed, plan=plan)
     grid4 = grid[..., None].expand(-1, -1, -1, 4)
-    with pytest.raises(NotImplementedError, match="light-volume slice"):
+    # a light volume must have the grid's spatial shape, and needs emission
+    with pytest.raises(NotImplementedError, match="light volume"):
         T.render_image(grid4, tcam, tcfg, T.MediumConfig(), plan=plan,
-                       light_volume=grid)
+                       light_volume=grid[:-1])
+    with pytest.raises(NotImplementedError, match="light volume"):
+        T.render_image(grid, tcam, dataclasses.replace(tcfg, emission=False),
+                       tmed, plan=plan, light_volume=grid)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         T.render_image(grid4, tcam,
                        dataclasses.replace(tcfg, dtype="bfloat16"),
                        T.MediumConfig(), plan=plan)
-    with pytest.raises(NotImplementedError, match="shadow"):
-        T.render_image(grid, tcam, tcfg, tmed,
+    # shadows with the "fixed" quadrature (the nested march) stay unported
+    # in render_image
+    with pytest.raises(NotImplementedError, match="fixed"):
+        T.render_image(grid, tcam,
+                       dataclasses.replace(tcfg, quadrature="fixed"), tmed,
                        light=T.LightConfig(shadow_steps=32))
 
 
@@ -218,3 +227,86 @@ def test_backend_reference_matches_jax(cloud, combine):
     # and it is the integral the sweep computes, up to the warp's resampling
     swept = T.render_image(g, tcam, tcfg, tmed, scroll=scroll)
     assert float((swept - got).abs().mean()) < 2e-2
+
+
+@pytest.mark.parametrize("combine,eye", [("single", (3.0, 3.0, 3.0)),
+                                         ("single", (-2.5, 0.8, -1.0)),
+                                         ("reference", (2.0, -3.2, 2.4))])
+def test_render_image_with_shadows_matches_jax(cloud, combine, eye):
+    """The light-volume slice as a whole: render_image with
+    LightConfig(shadow_steps=32) builds the light volume from the grid and
+    sweeps with it, against the JAX render_image (the jnp sweep on the
+    CPU), forward and the gradient of sum(rgb^2) to the grid, which runs
+    through dG and through dL and the light sweep."""
+    if combine == "single":
+        grid, scroll = cloud[::2, ::2, ::2].copy(), None
+        jmed = J.MediumConfig(combine="single", density=8.0)
+        tmed = T.MediumConfig(combine="single", density=8.0)
+    else:
+        grid, scroll = _grid4(seed=1), _scroll4("random")
+        jmed, tmed = J.MediumConfig(density=6.0), T.MediumConfig(density=6.0)
+    cam_kw = dict(eye=eye, width=96, height=64)
+    jcfg = J.RenderConfig(emission=True, quadrature="sliced")
+    tcfg = T.RenderConfig(emission=True, quadrature="sliced")
+    jlight, tlight = J.LightConfig(shadow_steps=32), \
+        T.LightConfig(shadow_steps=32)
+    jcam = J.make_camera(J.CameraConfig(**cam_kw))
+    jplan = jsweep.plan_sweep(jcam, grid.shape, jcfg)
+    jscroll = None if scroll is None else jnp.asarray(scroll)
+
+    def jloss(g):
+        img = J.render_image(g, jcam, jcfg, jmed, jlight, scroll=jscroll,
+                             plan=jplan)
+        return jnp.sum(img[..., :3] ** 2), img
+    with jax.default_matmul_precision("highest"):
+        (_, want), gwant = jax.value_and_grad(jloss, has_aux=True)(
+            jnp.asarray(grid))
+    want, gwant = np.asarray(want), np.asarray(gwant)
+    g = torch.from_numpy(grid.copy()).requires_grad_()
+    tcam = T.make_camera(T.CameraConfig(**cam_kw))
+    got = T.render_image(g, tcam, tcfg, tmed, tlight, scroll=scroll,
+                         plan=torch_plan(jplan))
+    (got[..., :3] ** 2).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL,
+                               atol=ATOL)
+    scale = float(np.abs(gwant).max())
+    assert scale > 0.0
+    np.testing.assert_allclose(g.grad.numpy(), gwant, rtol=RTOL,
+                               atol=RTOL * scale)
+    # with the port's own plan (atol 1e-4: the plans' warp coords differ in
+    # float32 atan), and against the unshadowed frame: shadows only darken
+    with torch.no_grad():
+        own = T.render_image(g, tcam, tcfg, tmed, tlight, scroll=scroll)
+        lit = T.render_image(g, tcam, tcfg, tmed, scroll=scroll)
+    np.testing.assert_allclose(own.numpy(), want, rtol=RTOL, atol=1e-4)
+    assert bool((own[..., :3] <= lit[..., :3] + 1e-6).all())
+    torch.testing.assert_close(own[..., 3], lit[..., 3], rtol=0, atol=1e-6)
+    assert float((lit[..., :3] - own[..., :3]).max()) > 1e-3
+
+
+def test_shaded_sweep_matches_oracle():
+    """tests/test_lighting.py's test_shaded_render_sweep_matches_oracle in
+    the port: the sweep on an identity-warp plan and the per-ray oracle
+    sample the same light volume; and backend="reference" of render_image
+    builds and passes it."""
+    grid = torch.from_numpy(np.array(J.cloud_volume(12, 3)))
+    cfg = T.RenderConfig(emission=True, quadrature="sliced")
+    medium = T.MediumConfig(combine="single", density=6.0)
+    light = T.LightConfig(direction=(0.4, 0.2, 1.0), ambient=0.2,
+                          shadow_steps=1)
+    L = T.light_transmittance_volume(grid, light, cfg, medium)
+    cam = T.make_camera(T.CameraConfig(eye=(2.5, 2.2, 2.8), width=24,
+                                       height=16))
+    plan = T.plan_for(cam, grid.shape, cfg)
+    got = sweep_render(grid, dataclasses.replace(plan, identity_warp=True),
+                       cfg, medium, light, light_volume=L)
+    o, d = base_rays(plan)
+    want = render_rays_sliced(grid, o, d, plan, cfg, medium, light,
+                              light_volume=L)
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+    per_ray = T.render_image(grid, cam, cfg, medium, light,
+                             backend="reference", plan=plan)
+    o, d = T.camera_rays(cam)
+    torch.testing.assert_close(
+        per_ray, render_rays_sliced(grid, o, d, plan, cfg, medium, light,
+                                    light_volume=L), rtol=0, atol=0)

@@ -188,7 +188,12 @@ def test_supported_gate():
         dataclasses.replace(cfg, dtype="bfloat16"), med, None, None, 3)
     assert not sweep_fwd.supported(cfg, med, None, None, 4)
     assert not sweep_fwd.supported(cfg, med, None, object(), 3)
-    assert not sweep_fwd.supported(cfg, med, object(), None, 3)
+    # a light volume is taken with emission when it is 3-D
+    lvol = torch.ones((D, D, D))
+    assert sweep_fwd.supported(cfg, med, lvol, None, 3)
+    assert not sweep_fwd.supported(cfg, med, lvol[..., None], None, 3)
+    assert not sweep_fwd.supported(dataclasses.replace(cfg, emission=False),
+                                   med, lvol, None, 3)
 
 
 def test_kernel_launch_refuses_cpu_tensors():

@@ -294,8 +294,14 @@ def test_supported_gate_reference():
 def test_unported_reference_options_raise():
     grid, _, _, _, tcfg, tplan, tmed = _setup(True)
     g = torch.from_numpy(grid)
-    with pytest.raises(NotImplementedError, match="light-volume slice"):
-        sweep_render(g, tplan, tcfg, tmed, light_volume=g[..., 0])
+    # a light volume needs emission and the grid's spatial shape
+    with pytest.raises(NotImplementedError, match="light volume"):
+        sweep_render(g, tplan, dataclasses.replace(tcfg, emission=False),
+                     tmed, light_volume=g[..., 0])
+    with pytest.raises(NotImplementedError, match="light volume"):
+        sweep_render(g, tplan, tcfg, tmed, light_volume=g[:-1, :, :, 0])
+    with pytest.raises(NotImplementedError, match="light volume"):
+        sweep_render(g, tplan, tcfg, tmed, light_volume=g)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         sweep_render(g, tplan, dataclasses.replace(tcfg, dtype="bfloat16"),
                      tmed)

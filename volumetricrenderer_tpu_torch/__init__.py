@@ -6,10 +6,12 @@ counterpart there under the same relative path, and the tests
 (tests/test_torch_*.py) run both on the same inputs. Ported so far: the
 forward render (configs, noise, the FBM cloud and the reference preset's
 4-channel volume, cameras, the sweep plan, the screen warp, render_image,
-PNG output), the training path (fit_grid, the per-ray oracle), and the
+PNG output), the training path (fit_grid, the per-ray oracle), the
 slice sweep as four hand-written CUDA kernels, each with its plain PyTorch
 version: forward and backward of the single-channel medium and of the
-4-channel reference medium. This package never imports jax.
+4-channel reference medium, and the shadows of BASELINE config 4 (the
+light-transmittance volume and the kernels' light branch). This package
+never imports jax.
 """
 
 from .config import (  # noqa: F401
@@ -32,6 +34,8 @@ from .ops.camera import (  # noqa: F401
     orbit_camera,
 )
 from .ops.integrate import reference_media_scroll  # noqa: F401
+from .ops.lighting import light_transmittance_volume  # noqa: F401
+from .ops.media import materialize_sigma  # noqa: F401
 from .render import plan_for, render, render_image  # noqa: F401
 
 __version__ = "0.1.0"

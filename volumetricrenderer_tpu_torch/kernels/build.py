@@ -9,7 +9,8 @@ rebuilds and an unchanged one loads at once. Nothing here runs at
 import time, and a machine without nvcc raises instead of falling back.
 check_sweep_inputs is the sweep wrappers' check of their arguments before
 the pointers are passed to a kernel. NCH, N_PARAMS and channel_resample are
-what the two 4-channel sweep modules (sweep_ref_fwd, sweep_ref_bwd) share.
+what the two 4-channel sweep modules (sweep_ref_fwd, sweep_ref_bwd) share;
+light_sample is what the four plain versions share.
 """
 from __future__ import annotations
 
@@ -23,10 +24,11 @@ import time
 
 import torch
 
-from ..ops.resample import linear_resample_matrix
+from ..ops.resample import linear_resample_matrix, linear_taps
 
 __all__ = ["NVCC_FLAGS", "build_library", "source_key",
-           "check_sweep_inputs", "NCH", "N_PARAMS", "channel_resample"]
+           "check_sweep_inputs", "NCH", "N_PARAMS", "channel_resample",
+           "light_sample"]
 
 NCH = 4        # channels of the reference medium
 N_PARAMS = 20  # sweep_fwd._params_for's 8, 4 coord scales, 4 b and 4 a offsets
@@ -114,12 +116,14 @@ def build_library(name: str):
 
 
 def check_sweep_inputs(kernel: str, stack, slice_z, v_grid, u_grid, seglen,
-                       params, maps=None, channels=None, n_params=8):
+                       params, maps=None, channels=None, n_params=8,
+                       light=None):
     """Check the arguments the sweep kernels share, plus `maps` (name ->
-    (Hb, Wb) tensor), before their pointers go to a kernel: CUDA, the
-    shapes the kernel assumes, contiguous float32. `stack` is (S, A, B),
-    or (S, channels, A, B) for the 4-channel kernels; `params` is
-    (n_params,). Returns (S, A, B, Hb, Wb)."""
+    (Hb, Wb) tensor) and the optional (S, A, B) `light` stack, before
+    their pointers go to a kernel: CUDA, the shapes the kernel assumes,
+    contiguous float32. `stack` is (S, A, B), or (S, channels, A, B) for
+    the 4-channel kernels; `params` is (n_params,). Returns
+    (S, A, B, Hb, Wb)."""
     dev = stack.device
     if dev.type != "cuda":
         raise ValueError(f"{kernel} kernel: needs CUDA tensors, got {dev}")
@@ -137,6 +141,8 @@ def check_sweep_inputs(kernel: str, stack, slice_z, v_grid, u_grid, seglen,
              ("v_grid", v_grid, (Hb,)), ("u_grid", u_grid, (Wb,)),
              ("seglen", seglen, (Hb, Wb)), ("params", params, (n_params,))]
     named += [(k, t, (Hb, Wb)) for k, t in (maps or {}).items()]
+    if light is not None:
+        named.append(("light", light, (S, A, B)))
     for name, t, shape in named:
         if t is None:
             raise ValueError(f"{kernel} kernel: {name} is required")
@@ -164,3 +170,26 @@ def channel_resample(a01, b01, params, c, A, B):
         * inr[:, None]
     Wbm = linear_resample_matrix(b01 * sc + params[12 + c], B, "mirror")
     return Wa, Wbm
+
+
+def light_sample(layer, a01, b01, address_mode):
+    """The plain versions' bilinear sample lT of an (A, B) light layer at
+    rows a01 (Hb,) and columns b01 (Wb,): (Hb, Wb), differentiable in the
+    layer.
+
+    It takes the four taps explicitly and sums them in the kernels' order
+    (sweep_common.cuh bilinear_at), not as two banded matmuls like sigma:
+    lT feeds the clip to [0, 1], whose subgradient jumps at the bounds
+    (1, 0.5 at a tie, 0), and a fully lit region has lT = 1.0 exactly or to
+    within an ulp. A sample that rounds to 1.0 in one summation order and
+    to 1 - 2^-24 in another would halve that sample's share of dL; summed
+    in one order, kernel and plain version decide every tie on the same
+    float."""
+    A, B = layer.shape
+    a0, a1, wa0, wa1 = linear_taps(a01, A, address_mode)
+    b0, b1, wb0, wb1 = linear_taps(b01, B, address_mode)
+    r0, r1 = layer.index_select(0, a0), layer.index_select(0, a1)
+    wa0, wa1, wb0, wb1 = wa0[:, None], wa1[:, None], wb0[None, :], wb1[None, :]
+    return (wa0 * (wb0 * r0.index_select(1, b0) + wb1 * r0.index_select(1, b1))
+            + wa1 * (wb0 * r1.index_select(1, b0)
+                     + wb1 * r1.index_select(1, b1)))

@@ -2,10 +2,11 @@
 // single-channel sweep of sweep_fwd.cu with respect to the stack.
 //
 // Replaces the TPU kernel volumetricrenderer_tpu/kernels/sweep_pallas.py
-// `_bwd_kernel` / `_run_bwd` (K2) without its light-volume branch. It
+// `_bwd_kernel` / `_run_bwd` (K2), its light-volume branch included. It
 // computes K2's function, not its schedule: no chunk checkpoints (tck,
 // wck), because one thread replays all S slices of its ray from T = 1; no
-// one-hot MXU matrices, no gw/v scratch and no row windows.
+// one-hot MXU matrices, no gw/v scratch (nor the light branch's second
+// one) and no row windows.
 //
 // Design. The forward's thread layout: one thread per base pixel (i, j),
 // blocks of 32 x 8 threads with j on the fast axis. Each thread replays
@@ -21,13 +22,22 @@
 //     come from the shared tap math (sweep_common.cuh), so T is the
 //     forward's bit for bit and the live gate T > thresh stops the replay
 //     at the slice where the forward stopped.
+//   * Emission with a light volume (the light branch, a template
+//     parameter; a null light pointer launches the kernel without it):
+//     shade and lT from sweep::light_shade at the grid's layer and taps,
+//       Wr += (T * alpha) * shade, the forward's own product,
+//       dsigma = density * seg * (cw * T * shade * E - A~),
+//     and the second output dlight: dlT = cw * T * alpha * (1 - ambient) *
+//     clip'(lT) through the same four taps (sweep::light_shade_adjoint),
+//     four more atomics per live sample.
 //   * Absorption: dsigma = ct_acc * seg on every in-box, in-front sample.
 //   * The scatter: du = dsigma * sample_scale goes through the bilinear
 //     adjoint to the four taps of layer k = S - 1 - s when `flip`, else
 //     k = s, so dG leaves the kernel in the stack's own layer order.
 //   * Behind-eye and out-of-box samples have no taps and are skipped, as
 //     the forward skips them.
-// dG must be zeroed by the caller: the taps are added with atomicAdd.
+// dG and dlight must be zeroed by the caller: the taps are added with
+// atomicAdd.
 //
 // Bound: the atomics. At the flagship (1536^2 base pixels, 256 slices,
 // 256^3 grid) a texel of a layer is shared by ~6 x 6 base pixels, so up to
@@ -43,14 +53,17 @@
 
 namespace {
 
+template <bool kLight>
 __global__ void __launch_bounds__(256) sweep_bwd_kernel(
-    const float* __restrict__ stack, const float* __restrict__ slice_z,
+    const float* __restrict__ stack, const float* __restrict__ light,
+    const float* __restrict__ slice_z,
     const float* __restrict__ v_grid, const float* __restrict__ u_grid,
     const float* __restrict__ seglen, const float* __restrict__ params,
     const float* __restrict__ ct_acc, const float* __restrict__ ct_trans,
     const float* __restrict__ ct_wsum, const float* __restrict__ trans_out,
-    const float* __restrict__ wsum_out, float* __restrict__ dstack, int S,
-    int A, int B, int Hb, int Wb, int emission, int flip, int wrap) {
+    const float* __restrict__ wsum_out, float* __restrict__ dstack,
+    float* __restrict__ dlight, int S, int A, int B, int Hb, int Wb,
+    int emission, int flip, int wrap) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= Hb || j >= Wb) return;
@@ -77,9 +90,21 @@ __global__ void __launch_bounds__(256) sweep_bwd_kernel(
                                           P.sscale);
       const float e = sweep::extinction(P, sigma, seg);
       const float alpha = 1.f - e;
-      wr += trans * alpha;
-      const float a_til = bct - cw * wr;
-      const float dsigma = P.density * seg * (cw * trans * e - a_til);
+      float dsigma;
+      if constexpr (kLight) {
+        float lT;
+        const float shade = sweep::light_shade(light + (size_t)k * layer, B,
+                                               t, P.ambient, lT);
+        wr += (trans * alpha) * shade;
+        const float a_til = bct - cw * wr;
+        dsigma = P.density * seg * (cw * trans * shade * e - a_til);
+        sweep::light_shade_adjoint(dlight + (size_t)k * layer, B, t,
+                                   P.ambient, lT, cw, trans, alpha);
+      } else {
+        wr += trans * alpha;
+        const float a_til = bct - cw * wr;
+        dsigma = P.density * seg * (cw * trans * e - a_til);
+      }
       trans *= 1.f - alpha;
       sweep::bilinear_adjoint(dstack + (size_t)k * layer, B, t,
                               dsigma * P.sscale);
@@ -103,20 +128,30 @@ __global__ void __launch_bounds__(256) sweep_bwd_kernel(
 // (0 when the launch was accepted). Emission reads ct_trans, ct_wsum and
 // the forward's trans and wsum maps; absorption reads ct_acc. The maps are
 // (Hb, Wb); the pointers a mode does not read may be null. `dstack` is the
-// zeroed (S, A, B) gradient.
-extern "C" int sweep_bwd_launch(const float* stack, const float* slice_z,
-                                const float* v_grid, const float* u_grid,
-                                const float* seglen, const float* params,
-                                const float* ct_acc, const float* ct_trans,
-                                const float* ct_wsum, const float* trans_out,
-                                const float* wsum_out, float* dstack, int S,
-                                int A, int B, int Hb, int Wb, int emission,
-                                int flip, int wrap, void* stream) {
+// zeroed (S, A, B) gradient. `light` is the (S, A, B) light stack the
+// forward read and `dlight` its zeroed gradient, or both null for no light
+// volume (emission only).
+extern "C" int sweep_bwd_launch(const float* stack, const float* light,
+                                const float* slice_z, const float* v_grid,
+                                const float* u_grid, const float* seglen,
+                                const float* params, const float* ct_acc,
+                                const float* ct_trans, const float* ct_wsum,
+                                const float* trans_out, const float* wsum_out,
+                                float* dstack, float* dlight, int S, int A,
+                                int B, int Hb, int Wb, int emission, int flip,
+                                int wrap, void* stream) {
   const dim3 block(32, 8);
   const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
-  sweep_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      stack, slice_z, v_grid, u_grid, seglen, params, ct_acc, ct_trans,
-      ct_wsum, trans_out, wsum_out, dstack, S, A, B, Hb, Wb, emission, flip,
-      wrap);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (light)
+    sweep_bwd_kernel<true><<<grid, block, 0, st>>>(
+        stack, light, slice_z, v_grid, u_grid, seglen, params, ct_acc,
+        ct_trans, ct_wsum, trans_out, wsum_out, dstack, dlight, S, A, B, Hb,
+        Wb, emission, flip, wrap);
+  else
+    sweep_bwd_kernel<false><<<grid, block, 0, st>>>(
+        stack, light, slice_z, v_grid, u_grid, seglen, params, ct_acc,
+        ct_trans, ct_wsum, trans_out, wsum_out, dstack, dlight, S, A, B, Hb,
+        Wb, emission, flip, wrap);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,13 +18,13 @@
 namespace sweep {
 
 // params (8,) float32: e_k, e_a, e_b, sign, density, sample_scale,
-// early-stop transmittance, ambient (unused without a light volume).
+// early-stop transmittance, ambient (read only by the light branch).
 struct Params {
-  float e_k, e_a, e_b, sign, density, sscale, thresh;
+  float e_k, e_a, e_b, sign, density, sscale, thresh, ambient;
 };
 
 __device__ __forceinline__ Params load_params(const float* __restrict__ p) {
-  return Params{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
+  return Params{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7]};
 }
 
 __device__ __forceinline__ int wrap_index(int i, int n) {
@@ -117,6 +117,34 @@ __device__ __forceinline__ void bilinear_adjoint(float* __restrict__ layer,
   atomicAdd(layer + (size_t)t.a0 * B + t.b1, ra * t.fb);
   atomicAdd(layer + (size_t)t.a1 * B + t.b0, rb * (1.f - t.fb));
   atomicAdd(layer + (size_t)t.a1 * B + t.b1, rb * t.fb);
+}
+
+// The light branch of all four sweep kernels. `light_layer` is the (A, B)
+// layer of the light-transmittance stack that belongs to the sample's slice,
+// `t` the sample's taps on it. Returns shade = ambient + (1 - ambient) *
+// clip(lT, 0, 1) and keeps lT, the bilinear sample, for the adjoint. The
+// forward kernels add (T * alpha) * shade to wsum and the backward kernels
+// replay exactly that product, so both take the shade from here.
+__device__ __forceinline__ float light_shade(
+    const float* __restrict__ light_layer, int B, const Taps& t,
+    float ambient, float& lT) {
+  lT = bilinear_at(light_layer, B, t);
+  return ambient + (1.f - ambient) * fminf(fmaxf(lT, 0.f), 1.f);
+}
+
+// The adjoint of light_shade: dlT = cw * T * alpha * (1 - ambient) * clip',
+// added to the four taps of `dlight_layer`. clip' is the subgradient of
+// minimum(maximum(x, 0), 1): 1 inside (0, 1), 0.5 at lT == 0 and lT == 1
+// (a fully lit voxel has lT == 1 exactly, so ties are common), 0 outside.
+// It is decided on the lT that light_shade clipped.
+__device__ __forceinline__ void light_shade_adjoint(
+    float* __restrict__ dlight_layer, int B, const Taps& t, float ambient,
+    float lT, float cw, float trans, float alpha) {
+  const float clip_g = (lT > 0.f && lT < 1.f)
+                           ? 1.f
+                           : ((lT == 0.f || lT == 1.f) ? 0.5f : 0.f);
+  const float dlT = cw * trans * alpha * (1.f - ambient) * clip_g;
+  bilinear_adjoint(dlight_layer, B, t, dlT);
 }
 
 }  // namespace sweep

@@ -25,6 +25,14 @@
 //   * emission: alpha = 1 - exp(-density * sigma * seg), wsum += T * alpha,
 //     T *= 1 - alpha. Once T <= thresh the live gate zeroes alpha for every
 //     later slice, so the thread stops there with the same result;
+//   * emission with a light volume (the kernels' light branch): the light
+//     stack has the grid's layout and is read at the same layer k and the
+//     same taps; lT is its bilinear sample, shade = ambient + (1 - ambient)
+//     * clip(lT, 0, 1) and wsum += (T * alpha) * shade
+//     (sweep::light_shade). The TPU kernels' second row matmul and column
+//     stage for the light volume are not carried over. The branch is a
+//     template parameter: a null light pointer launches the instantiation
+//     without it, which is the kernel as it was;
 //   * absorption: acc += sigma * seg, hit = 1.
 // `flip` and the lerped sub-voxel stack (n_slices != depth) are decided by
 // the wrapper: it passes the stack already in slice order with flip = 0.
@@ -49,8 +57,10 @@
 
 namespace {
 
+template <bool kLight>
 __global__ void __launch_bounds__(256) sweep_fwd_kernel(
-    const float* __restrict__ stack, const float* __restrict__ slice_z,
+    const float* __restrict__ stack, const float* __restrict__ light,
+    const float* __restrict__ slice_z,
     const float* __restrict__ v_grid, const float* __restrict__ u_grid,
     const float* __restrict__ seglen, const float* __restrict__ params,
     float* __restrict__ out, int S, int A, int B, int Hb, int Wb,
@@ -78,7 +88,14 @@ __global__ void __launch_bounds__(256) sweep_fwd_kernel(
                                         P.sscale);
     if (emission) {
       const float alpha = 1.f - sweep::extinction(P, sigma, seg);
-      wsum += trans * alpha;
+      if constexpr (kLight) {
+        float lT;
+        const float shade = sweep::light_shade(light + (size_t)k * layer, B,
+                                               t, P.ambient, lT);
+        wsum += (trans * alpha) * shade;
+      } else {
+        wsum += trans * alpha;
+      }
       trans *= 1.f - alpha;
     } else {
       acc += sigma * seg;
@@ -95,17 +112,25 @@ __global__ void __launch_bounds__(256) sweep_fwd_kernel(
 }  // namespace
 
 // Launches the sweep on `stream` and returns cudaGetLastError() (0 when the
-// launch was accepted). `out` is (4, Hb, Wb): acc, trans, wsum, hit.
-extern "C" int sweep_fwd_launch(const float* stack, const float* slice_z,
-                                const float* v_grid, const float* u_grid,
-                                const float* seglen, const float* params,
-                                float* out, int S, int A, int B, int Hb,
-                                int Wb, int emission, int flip, int wrap,
-                                void* stream) {
+// launch was accepted). `light` is the (S, A, B) light-transmittance stack
+// in the stack's layer order, or null for no light volume (emission only).
+// `out` is (4, Hb, Wb): acc, trans, wsum, hit.
+extern "C" int sweep_fwd_launch(const float* stack, const float* light,
+                                const float* slice_z, const float* v_grid,
+                                const float* u_grid, const float* seglen,
+                                const float* params, float* out, int S, int A,
+                                int B, int Hb, int Wb, int emission, int flip,
+                                int wrap, void* stream) {
   const dim3 block(32, 8);
   const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
-  sweep_fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      stack, slice_z, v_grid, u_grid, seglen, params, out, S, A, B, Hb, Wb,
-      emission, flip, wrap);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (light)
+    sweep_fwd_kernel<true><<<grid, block, 0, st>>>(
+        stack, light, slice_z, v_grid, u_grid, seglen, params, out, S, A, B,
+        Hb, Wb, emission, flip, wrap);
+  else
+    sweep_fwd_kernel<false><<<grid, block, 0, st>>>(
+        stack, light, slice_z, v_grid, u_grid, seglen, params, out, S, A, B,
+        Hb, Wb, emission, flip, wrap);
   return static_cast<int>(cudaGetLastError());
 }

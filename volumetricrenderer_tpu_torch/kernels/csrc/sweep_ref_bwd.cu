@@ -3,7 +3,7 @@
 // channel slabs L.
 //
 // Replaces the TPU kernel volumetricrenderer_tpu/kernels/sweep_pallas.py
-// `_bwd_kernel_ref` / `_run_bwd_ref` without its light-volume branch. It
+// `_bwd_kernel_ref` / `_run_bwd_ref`, its light-volume branch included. It
 // computes that kernel's function, not its schedule: no chunk checkpoints
 // (one thread replays all S slices of its ray from T = 1), no one-hot
 // scatter matrices on the MXU and no per-(slice, channel) scratch.
@@ -23,6 +23,12 @@
 //     the forward updates wsum, so T is the forward's bit for bit and the
 //     live gate T > thresh stops the replay at the slice where the forward
 //     stopped.
+//   * Emission with light slabs (the light branch, a template parameter; a
+//     null light pointer launches the kernel without it): shade and lT from
+//     sweep::light_shade on slab s at the unscaled, clipped taps, as in the
+//     forward; Wr += (T * alpha) * shade, dsigma = density * seg *
+//     (cw * T * shade * E - A~), and the second output dlight through those
+//     taps (sweep::light_shade_adjoint), four more atomics per live sample.
 //   * Absorption: dsigma = ct_acc * seg on every in-box, in-front sample.
 //   * The product rule of sigma = (r0 * r1) * (r2 + r3) * sample_scale,
 //     with d = dsigma * sample_scale:
@@ -32,7 +38,8 @@
 //     mirrored taps of L[s, c]: 16 float atomics per live sample. Where the
 //     mirror puts both taps of an axis on one texel, both weights land
 //     there.
-// dL must be zeroed by the caller: the taps are added with atomicAdd.
+// dL and dlight must be zeroed by the caller: the taps are added with
+// atomicAdd.
 //
 // Bound: the 16 atomics per live sample, four times the single-channel
 // backward's, spread over four slabs; and the forward's 16 tap reads for
@@ -61,14 +68,17 @@ __device__ __forceinline__ void scatter_channels(float* __restrict__ dslab,
     sweep::bilinear_adjoint(dslab + c * layer, B, smp.t[c], dr[c]);
 }
 
+template <bool kLight>
 __global__ void __launch_bounds__(256) sweep_ref_bwd_kernel(
-    const float* __restrict__ L, const float* __restrict__ slice_z,
+    const float* __restrict__ L, const float* __restrict__ light,
+    const float* __restrict__ slice_z,
     const float* __restrict__ v_grid, const float* __restrict__ u_grid,
     const float* __restrict__ seglen, const float* __restrict__ params,
     const float* __restrict__ ct_acc, const float* __restrict__ ct_trans,
     const float* __restrict__ ct_wsum, const float* __restrict__ trans_out,
-    const float* __restrict__ wsum_out, float* __restrict__ dL, int S, int A,
-    int B, int Hb, int Wb, int emission) {
+    const float* __restrict__ wsum_out, float* __restrict__ dL,
+    float* __restrict__ dlight, int S, int A, int B, int Hb, int Wb,
+    int emission) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= Hb || j >= Wb) return;
@@ -96,9 +106,24 @@ __global__ void __launch_bounds__(256) sweep_ref_bwd_kernel(
       const float sigma = sweep::ref_sigma(smp.r, P.sscale);
       const float e = sweep::extinction(P, sigma, seg);
       const float alpha = 1.f - e;
-      wr += trans * alpha;
-      const float a_til = bct - cw * wr;
-      const float dsigma = P.density * seg * (cw * trans * e - a_til);
+      float dsigma;
+      if constexpr (kLight) {
+        sweep::Taps tl;
+        sweep::sample_taps(P, delta, v, u, A, B, 0, tl);
+        const size_t lslab = (size_t)s * A * B;
+        float lT;
+        const float shade = sweep::light_shade(light + lslab, B, tl,
+                                               P.ambient, lT);
+        wr += (trans * alpha) * shade;
+        const float a_til = bct - cw * wr;
+        dsigma = P.density * seg * (cw * trans * shade * e - a_til);
+        sweep::light_shade_adjoint(dlight + lslab, B, tl, P.ambient, lT, cw,
+                                   trans, alpha);
+      } else {
+        wr += trans * alpha;
+        const float a_til = bct - cw * wr;
+        dsigma = P.density * seg * (cw * trans * e - a_til);
+      }
       trans *= 1.f - alpha;
       scatter_channels(dL + (size_t)s * slab, A, B, smp, dsigma * P.sscale);
     }
@@ -122,20 +147,26 @@ __global__ void __launch_bounds__(256) sweep_ref_bwd_kernel(
 // (0 when the launch was accepted). Emission reads ct_trans, ct_wsum and
 // the forward's trans and wsum maps; absorption reads ct_acc. The maps are
 // (Hb, Wb); the pointers a mode does not read may be null. `dL` is the
-// zeroed (S, 4, A, B) gradient.
-extern "C" int sweep_ref_bwd_launch(const float* L, const float* slice_z,
-                                    const float* v_grid, const float* u_grid,
-                                    const float* seglen, const float* params,
-                                    const float* ct_acc, const float* ct_trans,
-                                    const float* ct_wsum,
-                                    const float* trans_out,
-                                    const float* wsum_out, float* dL, int S,
-                                    int A, int B, int Hb, int Wb, int emission,
-                                    void* stream) {
+// zeroed (S, 4, A, B) gradient. `light` is the (S, A, B) light slabs the
+// forward read and `dlight` their zeroed gradient, or both null for no
+// light volume (emission only).
+extern "C" int sweep_ref_bwd_launch(
+    const float* L, const float* light, const float* slice_z,
+    const float* v_grid, const float* u_grid, const float* seglen,
+    const float* params, const float* ct_acc, const float* ct_trans,
+    const float* ct_wsum, const float* trans_out, const float* wsum_out,
+    float* dL, float* dlight, int S, int A, int B, int Hb, int Wb,
+    int emission, void* stream) {
   const dim3 block(32, 8);
   const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
-  sweep_ref_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      L, slice_z, v_grid, u_grid, seglen, params, ct_acc, ct_trans, ct_wsum,
-      trans_out, wsum_out, dL, S, A, B, Hb, Wb, emission);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (light)
+    sweep_ref_bwd_kernel<true><<<grid, block, 0, st>>>(
+        L, light, slice_z, v_grid, u_grid, seglen, params, ct_acc, ct_trans,
+        ct_wsum, trans_out, wsum_out, dL, dlight, S, A, B, Hb, Wb, emission);
+  else
+    sweep_ref_bwd_kernel<false><<<grid, block, 0, st>>>(
+        L, light, slice_z, v_grid, u_grid, seglen, params, ct_acc, ct_trans,
+        ct_wsum, trans_out, wsum_out, dL, dlight, S, A, B, Hb, Wb, emission);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,7 @@
 // front to back.
 //
 // Replaces the TPU kernel volumetricrenderer_tpu/kernels/sweep_pallas.py
-// `_fwd_kernel_ref` / `_run_fwd_ref` without its light-volume branch. It
+// `_fwd_kernel_ref` / `_run_fwd_ref`, its light-volume branch included. It
 // computes that kernel's function, not its schedule: no streamed
 // per-(slice, channel) banded row matrices on the MXU, no lane gathers or
 // one-hot column matrices, no (RB, Wb) blocks and no chunk checkpoints.
@@ -25,6 +25,13 @@
 //   * sigma = (r0 * r1) * (r2 + r3) * sample_scale;
 //   * emission: alpha = 1 - exp(-density * sigma * seg), wsum += T * alpha,
 //     T *= 1 - alpha, stopping once T <= thresh as the live gate would;
+//   * emission with a light volume (the light branch, a template
+//     parameter; a null light pointer launches the kernel without it): the
+//     light slabs (S, A, B) are pre-lerped onto the slice planes by the
+//     wrapper, so slab s belongs to slice s; the light is not a scrolled
+//     noise channel, so its taps are the unscaled a01, b01 with clipping
+//     (sweep::sample_taps), shade and wsum += (T * alpha) * shade as in the
+//     single-channel kernel (sweep::light_shade);
 //   * absorption: acc += sigma * seg, hit = 1 (hit does not depend on the
 //     channels).
 // L is built by the wrapper in slice_z order (the sweep-axis lerp of each
@@ -48,8 +55,10 @@
 
 namespace {
 
+template <bool kLight>
 __global__ void __launch_bounds__(256) sweep_ref_fwd_kernel(
-    const float* __restrict__ L, const float* __restrict__ slice_z,
+    const float* __restrict__ L, const float* __restrict__ light,
+    const float* __restrict__ slice_z,
     const float* __restrict__ v_grid, const float* __restrict__ u_grid,
     const float* __restrict__ seglen, const float* __restrict__ params,
     float* __restrict__ out, int S, int A, int B, int Hb, int Wb,
@@ -78,7 +87,16 @@ __global__ void __launch_bounds__(256) sweep_ref_fwd_kernel(
     const float sigma = sweep::ref_sigma(smp.r, P.sscale);
     if (emission) {
       const float alpha = 1.f - sweep::extinction(P, sigma, seg);
-      wsum += trans * alpha;
+      if constexpr (kLight) {
+        sweep::Taps tl;
+        sweep::sample_taps(P, delta, v, u, A, B, 0, tl);
+        float lT;
+        const float shade = sweep::light_shade(
+            light + (size_t)s * A * B, B, tl, P.ambient, lT);
+        wsum += (trans * alpha) * shade;
+      } else {
+        wsum += trans * alpha;
+      }
       trans *= 1.f - alpha;
     } else {
       acc += sigma * seg;
@@ -95,17 +113,25 @@ __global__ void __launch_bounds__(256) sweep_ref_fwd_kernel(
 }  // namespace
 
 // Launches the sweep on `stream` and returns cudaGetLastError() (0 when the
-// launch was accepted). `L` is (S, 4, A, B), `params` (20,), `out`
-// (4, Hb, Wb): acc, trans, wsum, hit.
-extern "C" int sweep_ref_fwd_launch(const float* L, const float* slice_z,
-                                    const float* v_grid, const float* u_grid,
-                                    const float* seglen, const float* params,
-                                    float* out, int S, int A, int B, int Hb,
-                                    int Wb, int emission, void* stream) {
+// launch was accepted). `L` is (S, 4, A, B), `light` the (S, A, B) light
+// slabs in slice order or null for no light volume (emission only), `params`
+// (20,), `out` (4, Hb, Wb): acc, trans, wsum, hit.
+extern "C" int sweep_ref_fwd_launch(const float* L, const float* light,
+                                    const float* slice_z, const float* v_grid,
+                                    const float* u_grid, const float* seglen,
+                                    const float* params, float* out, int S,
+                                    int A, int B, int Hb, int Wb, int emission,
+                                    void* stream) {
   const dim3 block(32, 8);
   const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
-  sweep_ref_fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      L, slice_z, v_grid, u_grid, seglen, params, out, S, A, B, Hb, Wb,
-      emission);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (light)
+    sweep_ref_fwd_kernel<true><<<grid, block, 0, st>>>(
+        L, light, slice_z, v_grid, u_grid, seglen, params, out, S, A, B, Hb,
+        Wb, emission);
+  else
+    sweep_ref_fwd_kernel<false><<<grid, block, 0, st>>>(
+        L, light, slice_z, v_grid, u_grid, seglen, params, out, S, A, B, Hb,
+        Wb, emission);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,8 @@ K2 (`_bwd_kernel` / `_run_bwd`), and the kernel's plain PyTorch version
 
 Both compute dG, the gradient of the base maps (acc, trans, wsum) with
 respect to the (S, A, B) stack the forward swept, from the maps'
-cotangents: the closed-form replay of K2 with no light volume. The
+cotangents: the closed-form replay of K2. With a light stack they also
+compute dL, the gradient with respect to it (K2's second output). The
 autograd node in kernels/sweep_fwd.py calls one or the other by device: a
 CUDA stack launches the kernel (or raises), a CPU stack runs the plain
 version. Plan arrays and params get no gradient, as in the JAX package;
@@ -20,7 +21,8 @@ import ctypes
 import torch
 
 from ..ops.resample import linear_resample_matrix
-from .build import build_library, check_sweep_inputs
+from ..ops.sampling import clip_unit_grad
+from .build import build_library, check_sweep_inputs, light_sample
 
 __all__ = ["sweep_bwd_reference", "build_kernel", "launch_kernel",
            "launches"]
@@ -34,25 +36,34 @@ build_info = None  # set by the first build: path, seconds, nvcc output
 @torch.no_grad()
 def sweep_bwd_reference(stack, slice_z, v_grid, u_grid, seglen, params,
                         ct_acc, ct_trans, ct_wsum, trans, wsum, *,
-                        emission: bool, flip: bool, address_mode: str):
+                        emission: bool, flip: bool, address_mode: str,
+                        light=None):
     """Plain PyTorch version of the backward kernel, with the same inputs.
 
     stack, slice_z, v_grid, u_grid, seglen, params: the forward's inputs
     (kernels/sweep_fwd.sweep_fwd_reference); ct_acc, ct_trans, ct_wsum:
     the (Hb, Wb) cotangents of the acc, trans and wsum maps; trans, wsum:
     the forward's own maps. Emission reads ct_trans, ct_wsum, trans and
-    wsum, absorption ct_acc; the others may be None.
+    wsum, absorption ct_acc; the others may be None. light: the optional
+    (S, A, B) light stack the forward read (emission only).
 
     It replays the forward per slice with the banded tap matrices and
     scatters dsigma * sample_scale through their transposes:
     dG[k] += Wa^T @ (dsigma * sample_scale * mask) @ Wb. This is the
-    closed form of K2 (sweep_pallas.py:1204-1222 with shade = 1), not
-    autograd of the forward. Returns dG, (S, A, B) float32, in the stack's
-    layer order (slice s feeds layer S-1-s when flip)."""
+    closed form of K2 (sweep_pallas.py:1204-1222), not autograd of the
+    forward. With a light stack the shade enters Wr and dsigma, and
+    dlT = cw * T * alpha * (1 - ambient) * clip'(lT), with K2's hand-written
+    clip' (1 inside (0, 1), 0.5 at 0 and at 1, 0 outside), goes through the
+    same transposes into dL[k]. Returns dG, (S, A, B) float32, in the
+    stack's layer order (slice s feeds layer S-1-s when flip); with a light
+    stack, (dG, dL)."""
+    if light is not None and not emission:
+        raise ValueError("sweep: a light volume needs emission")
     S, A, B = stack.shape
-    e_k, e_a, e_b, sign, density, sscale, thresh = (params[n]
-                                                    for n in range(7))
+    e_k, e_a, e_b, sign, density, sscale, thresh, ambient = (
+        params[n] for n in range(8))
     dG = torch.zeros((S, A, B), dtype=torch.float32, device=stack.device)
+    dLt = torch.zeros_like(dG) if light is not None else None
     if emission:
         cw = ct_wsum
         bct = ct_trans * trans + cw * wsum
@@ -74,14 +85,20 @@ def sweep_bwd_reference(stack, slice_z, v_grid, u_grid, seglen, params,
             live = (T > thresh).to(torch.float32)
             E = torch.exp(-density * sigma * seglen)
             alpha = live * (1.0 - E)
-            Wr = Wr + T * alpha
+            shade = 1.0  # a product with 1.0 is exact: the no-light replay
+            if light is not None:
+                lT = light_sample(light[k], a01, b01, address_mode)
+                shade = ambient + (1.0 - ambient) * torch.clamp(lT, 0.0, 1.0)
+                dlT = cw * T * alpha * (1.0 - ambient) * clip_unit_grad(lT)
+                dLt[k] += Wa.T @ dlT @ Wbm
+            Wr = Wr + T * alpha * shade
             A_til = bct - cw * Wr
-            dsigma = live * density * seglen * (cw * T * E - A_til)
+            dsigma = live * density * seglen * (cw * T * shade * E - A_til)
             T = T * (1.0 - alpha)
         else:
             dsigma = ct_acc * seglen
         dG[k] += Wa.T @ (dsigma * sscale * maskf) @ Wbm
-    return dG
+    return dG if light is None else (dG, dLt)
 
 
 def build_kernel():
@@ -91,7 +108,7 @@ def build_kernel():
     if _lib is None:
         lib, info = build_library("sweep_bwd")
         fn = lib.sweep_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib, build_info = lib, info
@@ -99,32 +116,41 @@ def build_kernel():
 
 
 def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, ct_acc,
-                  ct_trans, ct_wsum, trans, wsum, emission, flip, wrap):
-    """Check the inputs, allocate the zeroed (S, A, B) gradient, launch the
-    kernel on the current stream and count the launch. Arguments as
-    sweep_bwd_reference's; the maps a mode does not read may be None.
-    Returns dG."""
+                  ct_trans, ct_wsum, trans, wsum, emission, flip, wrap,
+                  light=None):
+    """Check the inputs, allocate the zeroed (S, A, B) gradient (and, with
+    a light stack, its zeroed gradient), launch the kernel on the current
+    stream and count the launch. Arguments as sweep_bwd_reference's; the
+    maps a mode does not read may be None. Returns dG, or (dG, dL) with a
+    light stack."""
     global launches
     dev = stack.device
+    if light is not None and not emission:
+        raise ValueError("sweep_bwd kernel: a light volume needs emission")
     maps = (dict(ct_trans=ct_trans, ct_wsum=ct_wsum, trans=trans, wsum=wsum)
             if emission else dict(ct_acc=ct_acc))
     S, A, B, Hb, Wb = check_sweep_inputs("sweep_bwd", stack, slice_z, v_grid,
-                                         u_grid, seglen, params, maps)
+                                         u_grid, seglen, params, maps,
+                                         light=light)
     build_kernel()
 
     def ptr(name):
         return maps[name].data_ptr() if name in maps else None
 
     dstack = torch.zeros((S, A, B), dtype=torch.float32, device=dev)
+    dlight = torch.zeros_like(dstack) if light is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib.sweep_bwd_launch(
-            stack.data_ptr(), slice_z.data_ptr(), v_grid.data_ptr(),
-            u_grid.data_ptr(), seglen.data_ptr(), params.data_ptr(),
-            ptr("ct_acc"), ptr("ct_trans"), ptr("ct_wsum"), ptr("trans"),
-            ptr("wsum"), dstack.data_ptr(), S, A, B, Hb, Wb, int(emission),
-            int(flip), int(wrap), stream)
+            stack.data_ptr(),
+            light.data_ptr() if light is not None else None,
+            slice_z.data_ptr(), v_grid.data_ptr(), u_grid.data_ptr(),
+            seglen.data_ptr(), params.data_ptr(), ptr("ct_acc"),
+            ptr("ct_trans"), ptr("ct_wsum"), ptr("trans"), ptr("wsum"),
+            dstack.data_ptr(),
+            dlight.data_ptr() if light is not None else None, S, A, B, Hb,
+            Wb, int(emission), int(flip), int(wrap), stream)
     if rc != 0:
         raise RuntimeError(f"sweep_bwd kernel launch failed: CUDA error {rc}")
     launches += 1
-    return dstack
+    return dstack if light is None else (dstack, dlight)

@@ -10,6 +10,12 @@ backward kernel of kernels/sweep_bwd.py (the port of sweep_pallas.py's
 versions, sweep_fwd_reference and sweep_bwd.sweep_bwd_reference. There is
 no fallback from one device's path to the other's.
 
+With a light-transmittance volume (ops/lighting.py) in the grid's layout
+the emission sweep shades every sample: shade = ambient + (1 - ambient) *
+clip(lT, 0, 1), lT the light layer's bilinear sample at the grid's own
+taps, wsum += T * alpha * shade. The node then has two differentiable
+inputs, the stack and the light stack.
+
 `launches` counts the kernel launches made by this module.
 """
 from __future__ import annotations
@@ -20,12 +26,12 @@ import torch
 
 from ..config import LightConfig, MediumConfig, RenderConfig
 from ..ops.resample import linear_resample_matrix
-from ..ops.sampling import apply_address_mode
+from ..ops.sampling import apply_address_mode, clip_unit
 from . import sweep_bwd
-from .build import build_library, check_sweep_inputs
+from .build import build_library, check_sweep_inputs, light_sample
 
-__all__ = ["supported", "sweep_inputs", "sweep_base", "sweep_fwd_reference",
-           "build_kernel", "launch_kernel", "launches"]
+__all__ = ["supported", "sweep_inputs", "sweep_light_stack", "sweep_base",
+           "sweep_fwd_reference", "build_kernel", "launch_kernel", "launches"]
 
 launches = 0  # kernel launches since import (or since a caller reset it)
 
@@ -42,17 +48,20 @@ def supported(cfg: RenderConfig, medium: MediumConfig, light_volume,
 
     combine="reference" (kernels/sweep_ref_fwd.py): a 4-D grid, mirror
     addressing (the scaled and scrolled coords leave [0, 1]); a scroll is
-    allowed. combine="single" (this module): a 3-D grid, no scroll."""
+    allowed. combine="single" (this module): a 3-D grid, no scroll. A
+    light volume must be 3-D and needs emission."""
+    light_ok = light_volume is None or (cfg.emission
+                                        and light_volume.dim() == 3)
     if medium.combine == "reference":
         return (cfg.dtype == "float32"
                 and grid_ndim == 4
-                and light_volume is None
+                and light_ok
                 and cfg.address_mode == "mirror")
     return (medium.combine == "single"
             and cfg.dtype == "float32"
             and grid_ndim == 3
             and scroll is None
-            and light_volume is None
+            and light_ok
             and cfg.address_mode in _ADDRESS_MODES)
 
 
@@ -69,30 +78,39 @@ def _params_for(plan, cfg: RenderConfig, medium: MediumConfig,
 def _layer_lerp_stack(gperm, slice_z, address_mode):
     """Lerp the (D, A, B) volume onto the S slice planes: out[s] is the
     volume at normalized sweep coord slice_z[s] (texel-center lerp between
-    the two bracketing layers). Differentiable in gperm."""
+    the two bracketing layers). Differentiable in gperm; the layer fetch is
+    index_select, whose backward is index_add_."""
     depth = gperm.shape[0]
     p = slice_z * depth - 0.5
     i0f = torch.floor(p)
     f = (p - i0f).to(torch.float32)[:, None, None]
     i0 = i0f.to(torch.int64)
-    g0 = gperm[apply_address_mode(i0, depth, address_mode)]
-    g1 = gperm[apply_address_mode(i0 + 1, depth, address_mode)]
+    g0 = torch.index_select(
+        gperm, 0, apply_address_mode(i0, depth, address_mode))
+    g1 = torch.index_select(
+        gperm, 0, apply_address_mode(i0 + 1, depth, address_mode))
     return g0 + f * (g1 - g0)
 
 
 def sweep_fwd_reference(stack, slice_z, v_grid, u_grid, seglen, params, *,
-                        emission: bool, flip: bool, address_mode: str):
+                        emission: bool, flip: bool, address_mode: str,
+                        light=None):
     """Plain PyTorch version of the sweep kernel, with the same inputs.
 
     stack: (S, A, B) float32, slice k = S-1-s feeds slice s when flip;
     slice_z (S,), v_grid (Hb,), u_grid (Wb,), seglen (Hb, Wb), params (8,)
-    as _params_for. Each slice is resampled as Wa @ G_k @ Wb^T with banded
-    tap matrices; out-of-box and behind-the-eye samples are masked.
+    as _params_for; light: optional (S, A, B) light-transmittance stack in
+    the stack's layer order (emission only). Each slice is resampled as
+    Wa @ G_k @ Wb^T with banded tap matrices, the light layer at the same
+    taps (build.light_sample); out-of-box and behind-the-eye samples are
+    masked.
     Returns (acc, trans, wsum, hit), each (Hb, Wb) float32."""
+    if light is not None and not emission:
+        raise ValueError("sweep: a light volume needs emission")
     S, A, B = stack.shape
     Hb, Wb = v_grid.shape[0], u_grid.shape[0]
-    e_k, e_a, e_b, sign, density, sscale, thresh = (params[n]
-                                                    for n in range(7))
+    e_k, e_a, e_b, sign, density, sscale, thresh, ambient = (
+        params[n] for n in range(8))
     kw = dict(dtype=torch.float32, device=stack.device)
     acc = torch.zeros((Hb, Wb), **kw)
     trans = torch.ones((Hb, Wb), **kw)
@@ -108,12 +126,16 @@ def sweep_fwd_reference(stack, slice_z, v_grid, u_grid, seglen, params, *,
         maskf = mask.to(torch.float32)
         Wa = linear_resample_matrix(a01, A, address_mode)
         Wbm = linear_resample_matrix(b01, B, address_mode)
-        g = stack[S - 1 - s if flip else s]
-        sigma = (Wa @ g @ Wbm.T) * sscale * maskf
+        k = S - 1 - s if flip else s
+        sigma = (Wa @ stack[k] @ Wbm.T) * sscale * maskf
         if emission:
             live = (trans > thresh).to(torch.float32)
             alpha = live * (1.0 - torch.exp(-density * sigma * seglen))
-            wsum = wsum + trans * alpha
+            shade = 1.0  # a product with 1.0 is exact: the no-light sum
+            if light is not None:
+                lT = light_sample(light[k], a01, b01, address_mode)
+                shade = ambient + (1.0 - ambient) * clip_unit(lT)
+            wsum = wsum + trans * alpha * shade
             trans = trans * (1.0 - alpha)
         else:
             acc = acc + sigma * seglen
@@ -128,7 +150,7 @@ def build_kernel():
     if _lib is None:
         lib, info = build_library("sweep_fwd")
         fn = lib.sweep_fwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib, build_info = lib, info
@@ -136,23 +158,28 @@ def build_kernel():
 
 
 def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, emission,
-                  flip, wrap):
+                  flip, wrap, light=None):
     """Check the inputs, allocate the (4, Hb, Wb) output, launch the
-    kernel on the current stream and count the launch. Returns the
-    (4, Hb, Wb) tensor of acc, trans, wsum, hit."""
+    kernel on the current stream and count the launch. `light` is the
+    optional (S, A, B) light stack in the stack's layer order (emission
+    only): it selects the kernel's light branch. Returns the (4, Hb, Wb)
+    tensor of acc, trans, wsum, hit."""
     global launches
     dev = stack.device
+    if light is not None and not emission:
+        raise ValueError("sweep_fwd kernel: a light volume needs emission")
     S, A, B, Hb, Wb = check_sweep_inputs("sweep_fwd", stack, slice_z, v_grid,
-                                         u_grid, seglen, params)
+                                         u_grid, seglen, params, light=light)
     build_kernel()
     out = torch.empty((4, Hb, Wb), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib.sweep_fwd_launch(
-            stack.data_ptr(), slice_z.data_ptr(), v_grid.data_ptr(),
-            u_grid.data_ptr(), seglen.data_ptr(), params.data_ptr(),
-            out.data_ptr(), S, A, B, Hb, Wb, int(emission), int(flip),
-            int(wrap), stream)
+            stack.data_ptr(),
+            light.data_ptr() if light is not None else None,
+            slice_z.data_ptr(), v_grid.data_ptr(), u_grid.data_ptr(),
+            seglen.data_ptr(), params.data_ptr(), out.data_ptr(), S, A, B,
+            Hb, Wb, int(emission), int(flip), int(wrap), stream)
     if rc != 0:
         raise RuntimeError(f"sweep_fwd kernel launch failed: CUDA error {rc}")
     launches += 1
@@ -161,49 +188,53 @@ def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, emission,
 
 class _SweepFwd(torch.autograd.Function):
     """The sweep as an autograd node, in place of _fused_vjp's f_fwd and
-    f_bwd: the kernels on a CUDA stack, the plain versions on a CPU stack.
-    Only the stack gets a gradient; `hit` is not differentiable."""
+    f_bwd (and, with a light stack, of its two-input instance): the
+    kernels on a CUDA stack, the plain versions on a CPU stack. The stack
+    and the light stack (or None) get gradients; `hit` is not
+    differentiable."""
 
     @staticmethod
-    def forward(ctx, stack, slice_z, v_grid, u_grid, seglen, params,
+    def forward(ctx, stack, light, slice_z, v_grid, u_grid, seglen, params,
                 emission, flip, address_mode):
         if stack.device.type == "cuda":
             maps = launch_kernel(stack, slice_z, v_grid, u_grid, seglen,
                                  params, emission, flip,
-                                 address_mode == "wrap").unbind(0)
+                                 address_mode == "wrap", light).unbind(0)
         elif stack.device.type == "cpu":
             maps = sweep_fwd_reference(stack, slice_z, v_grid, u_grid,
                                        seglen, params, emission=emission,
-                                       flip=flip, address_mode=address_mode)
+                                       flip=flip, address_mode=address_mode,
+                                       light=light)
         else:
             raise ValueError(f"sweep: no kernel for device {stack.device}")
         ctx.mark_non_differentiable(maps[3])
         ctx.save_for_backward(stack, slice_z, v_grid, u_grid, seglen, params,
-                              maps[1], maps[2])
+                              maps[1], maps[2], light)
         ctx.static = (emission, flip, address_mode)
         return tuple(maps)
 
     @staticmethod
     def backward(ctx, ct_acc, ct_trans, ct_wsum, _ct_hit):
         none = (None,) * 8
-        if not ctx.needs_input_grad[0]:
-            return (None,) + none
-        stack, slice_z, v_grid, u_grid, seglen, params, trans, wsum = \
+        if not any(ctx.needs_input_grad[:2]):
+            return (None, None) + none
+        stack, slice_z, v_grid, u_grid, seglen, params, trans, wsum, light = \
             ctx.saved_tensors
         emission, flip, address_mode = ctx.static
         # Cotangents may arrive broadcast (the gradient of a sum); the
         # kernel reads dense maps.
         cts = [c.contiguous() for c in (ct_acc, ct_trans, ct_wsum)]
         if stack.device.type == "cuda":
-            dstack = sweep_bwd.launch_kernel(
+            grads = sweep_bwd.launch_kernel(
                 stack, slice_z, v_grid, u_grid, seglen, params, *cts, trans,
-                wsum, emission, flip, address_mode == "wrap")
+                wsum, emission, flip, address_mode == "wrap", light=light)
         else:
-            dstack = sweep_bwd.sweep_bwd_reference(
+            grads = sweep_bwd.sweep_bwd_reference(
                 stack, slice_z, v_grid, u_grid, seglen, params, *cts, trans,
                 wsum, emission=emission, flip=flip,
-                address_mode=address_mode)
-        return (dstack,) + none
+                address_mode=address_mode, light=light)
+        dstack, dlight = grads if light is not None else (grads, None)
+        return (dstack, dlight) + none
 
 
 def sweep_inputs(gperm, plan, cfg: RenderConfig, medium: MediumConfig,
@@ -226,18 +257,37 @@ def sweep_inputs(gperm, plan, cfg: RenderConfig, medium: MediumConfig,
             params), flip
 
 
+def sweep_light_stack(lperm, plan, cfg: RenderConfig):
+    """The kernel's light stack for a light volume permuted like the grid
+    (light_volume.permute(plan.perm), the grid's spatial shape): lerped
+    onto the slice planes with the grid when n_slices != depth, else the
+    volume itself, read at the grid's own (mirrored when flip) layer."""
+    if plan.slice_z.shape[0] != lperm.shape[0]:
+        return _layer_lerp_stack(lperm, plan.slice_z, cfg.address_mode)
+    return lperm
+
+
 def sweep_base(gperm, plan, cfg: RenderConfig, medium: MediumConfig,
-               light=None):
+               light=None, lperm=None):
     """(acc, trans, wsum, hit) base maps, each (Hb, Wb) float32, for a
     grid permuted so the sweep axis is dim 0: the kernels for a CUDA grid,
     the plain versions for a CPU grid, differentiable in the grid either
-    way."""
+    way. lperm: optional light-transmittance volume in the same layout
+    (emission only); the maps are differentiable in it too."""
     (stack, *args), flip = sweep_inputs(gperm, plan, cfg, medium, light)
+    lstack = None
+    if lperm is not None:
+        if lperm.shape != gperm.shape:
+            raise ValueError(
+                f"sweep_base: the light volume must have the grid's shape "
+                f"{tuple(gperm.shape)}, got {tuple(lperm.shape)}")
+        lstack = sweep_light_stack(lperm, plan, cfg)
     if stack.device.type == "cuda":
-        # The kernel reads a dense stack; autograd carries dG back through
-        # this copy (and through the permute) to the grid.
+        # The kernel reads dense stacks; autograd carries dG (and dL) back
+        # through these copies (and through the permutes) to the volumes.
         stack = stack.contiguous()
+        lstack = lstack.contiguous() if lstack is not None else None
     elif stack.device.type != "cpu":
         raise ValueError(f"sweep_base: no sweep for device {stack.device}")
-    return _SweepFwd.apply(stack, *args, cfg.emission, flip,
+    return _SweepFwd.apply(stack, lstack, *args, cfg.emission, flip,
                            cfg.address_mode)

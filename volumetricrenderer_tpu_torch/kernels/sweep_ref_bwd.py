@@ -1,15 +1,17 @@
 """Backward slice sweep of the 4-channel reference medium: the binding of
 the hand-written CUDA kernel csrc/sweep_ref_bwd.cu, in place of
 volumetricrenderer_tpu/kernels/sweep_pallas.py's `_bwd_kernel_ref` /
-`_run_bwd_ref` without its light-volume branch, and the kernel's plain
-PyTorch version (sweep_ref_bwd_reference).
+`_run_bwd_ref`, and the kernel's plain PyTorch version
+(sweep_ref_bwd_reference).
 
 Both compute dL, the gradient of the base maps (acc, trans, wsum) with
 respect to the pre-lerped channel slabs L (S, 4, A, B) that the forward
 swept, from the maps' cotangents: the replay of the transmittance, the
 single-channel backward's dsigma, the product rule of
 sigma = (r0*r1)*(r2+r3)*sample_scale, and each channel's share scattered
-through its own scaled, scrolled and mirrored taps. The autograd node in
+through its own scaled, scrolled and mirrored taps. With light slabs they
+also compute the slabs' gradient (the kernel's second output), through the
+unscaled, clipped taps. The autograd node in
 kernels/sweep_ref_fwd.py calls one or the other by device: CUDA slabs
 launch the kernel (or raise), CPU slabs run the plain version. Plan arrays
 and params get no gradient, as in the JAX package.
@@ -22,8 +24,10 @@ import ctypes
 
 import torch
 
+from ..ops.resample import linear_resample_matrix
+from ..ops.sampling import clip_unit_grad
 from .build import (N_PARAMS, NCH, build_library, channel_resample,
-                    check_sweep_inputs)
+                    check_sweep_inputs, light_sample)
 
 __all__ = ["sweep_ref_bwd_reference", "build_kernel", "launch_kernel",
            "launches"]
@@ -37,24 +41,32 @@ build_info = None  # set by the first build: path, seconds, nvcc output
 @torch.no_grad()
 def sweep_ref_bwd_reference(L, slice_z, v_grid, u_grid, seglen, params,
                             ct_acc, ct_trans, ct_wsum, trans, wsum, *,
-                            emission: bool):
+                            emission: bool, light=None):
     """Plain PyTorch version of the backward kernel, with the same inputs.
 
     L, slice_z, v_grid, u_grid, seglen, params: the forward's inputs
     (kernels/sweep_ref_fwd.sweep_ref_fwd_reference); ct_acc, ct_trans,
     ct_wsum: the (Hb, Wb) cotangents of the acc, trans and wsum maps;
     trans, wsum: the forward's own maps. Emission reads ct_trans, ct_wsum,
-    trans and wsum, absorption ct_acc; the others may be None.
+    trans and wsum, absorption ct_acc; the others may be None. light: the
+    optional (S, A, B) light slabs the forward read (emission only).
 
     It replays the forward per slice with the banded tap matrices, forms
-    dsigma in closed form (sweep_pallas.py:2007-2027 with shade = 1, not
-    autograd of the forward), splits it by the product rule and scatters
-    each channel's share through its matrices' transposes:
-    dL[s, c] += Wa_c^T @ dr_c @ Wb_c. Returns dL, (S, 4, A, B) float32."""
+    dsigma in closed form (sweep_pallas.py:2007-2027, not autograd of the
+    forward), splits it by the product rule and scatters each channel's
+    share through its matrices' transposes:
+    dL[s, c] += Wa_c^T @ dr_c @ Wb_c. With light slabs the shade enters Wr
+    and dsigma, and dlT = cw * T * alpha * (1 - ambient) * clip'(lT), with
+    the hand-written clip' of the kernel, goes through the transposes of
+    the unscaled clipped tap matrices into dlight[s]. Returns dL,
+    (S, 4, A, B) float32; with light slabs, (dL, dlight)."""
+    if light is not None and not emission:
+        raise ValueError("sweep: a light volume needs emission")
     S, _, A, B = L.shape
-    e_k, e_a, e_b, sign, density, sscale, thresh = (params[n]
-                                                    for n in range(7))
+    e_k, e_a, e_b, sign, density, sscale, thresh, ambient = (
+        params[n] for n in range(8))
     dL = torch.zeros_like(L)
+    dlight = torch.zeros_like(light) if light is not None else None
     if emission:
         cw = ct_wsum
         bct = ct_trans * trans + cw * wsum
@@ -76,9 +88,16 @@ def sweep_ref_bwd_reference(L, slice_z, v_grid, u_grid, seglen, params,
             live = (T > thresh).to(torch.float32)
             E = torch.exp(-density * sigma * seglen)
             alpha = live * (1.0 - E)
-            Wr = Wr + T * alpha
+            shade = 1.0  # a product with 1.0 is exact: the no-light replay
+            if light is not None:
+                lT = light_sample(light[s], a01, b01, "clamp")
+                shade = ambient + (1.0 - ambient) * torch.clamp(lT, 0.0, 1.0)
+                dlT = cw * T * alpha * (1.0 - ambient) * clip_unit_grad(lT)
+                dlight[s] += (linear_resample_matrix(a01, A, "clamp").T @ dlT
+                              @ linear_resample_matrix(b01, B, "clamp"))
+            Wr = Wr + T * alpha * shade
             A_til = bct - cw * Wr
-            dsigma = live * density * seglen * (cw * T * E - A_til)
+            dsigma = live * density * seglen * (cw * T * shade * E - A_til)
             T = T * (1.0 - alpha)
         else:
             dsigma = ct_acc * seglen
@@ -89,7 +108,7 @@ def sweep_ref_bwd_reference(L, slice_z, v_grid, u_grid, seglen, params,
               dsigma * r01)
         for c, (Wa, Wbm) in enumerate(mats):
             dL[s, c] += Wa.T @ dr[c] @ Wbm
-    return dL
+    return dL if light is None else (dL, dlight)
 
 
 def build_kernel():
@@ -99,7 +118,7 @@ def build_kernel():
     if _lib is None:
         lib, info = build_library("sweep_ref_bwd")
         fn = lib.sweep_ref_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib, build_info = lib, info
@@ -107,34 +126,42 @@ def build_kernel():
 
 
 def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, ct_acc,
-                  ct_trans, ct_wsum, trans, wsum, *, emission: bool):
-    """Check the inputs, allocate the zeroed (S, 4, A, B) gradient, launch
-    the kernel on the current stream and count the launch. Arguments as
+                  ct_trans, ct_wsum, trans, wsum, *, emission: bool,
+                  light=None):
+    """Check the inputs, allocate the zeroed (S, 4, A, B) gradient (and,
+    with light slabs, their zeroed gradient), launch the kernel on the
+    current stream and count the launch. Arguments as
     sweep_ref_bwd_reference's; the maps a mode does not read may be None.
-    Returns dL."""
+    Returns dL, or (dL, dlight) with light slabs."""
     global launches
     dev = L.device
+    if light is not None and not emission:
+        raise ValueError("sweep_ref_bwd kernel: a light volume needs "
+                         "emission")
     maps = (dict(ct_trans=ct_trans, ct_wsum=ct_wsum, trans=trans, wsum=wsum)
             if emission else dict(ct_acc=ct_acc))
     S, A, B, Hb, Wb = check_sweep_inputs(
         "sweep_ref_bwd", L, slice_z, v_grid, u_grid, seglen, params, maps,
-        channels=NCH, n_params=N_PARAMS)
+        channels=NCH, n_params=N_PARAMS, light=light)
     build_kernel()
 
     def ptr(name):
         return maps[name].data_ptr() if name in maps else None
 
     dL = torch.zeros((S, NCH, A, B), dtype=torch.float32, device=dev)
+    dlight = torch.zeros_like(light) if light is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib.sweep_ref_bwd_launch(
-            L.data_ptr(), slice_z.data_ptr(), v_grid.data_ptr(),
-            u_grid.data_ptr(), seglen.data_ptr(), params.data_ptr(),
-            ptr("ct_acc"), ptr("ct_trans"), ptr("ct_wsum"), ptr("trans"),
-            ptr("wsum"), dL.data_ptr(), S, A, B, Hb, Wb, int(emission),
-            stream)
+            L.data_ptr(), light.data_ptr() if light is not None else None,
+            slice_z.data_ptr(), v_grid.data_ptr(), u_grid.data_ptr(),
+            seglen.data_ptr(), params.data_ptr(), ptr("ct_acc"),
+            ptr("ct_trans"), ptr("ct_wsum"), ptr("trans"), ptr("wsum"),
+            dL.data_ptr(),
+            dlight.data_ptr() if light is not None else None, S, A, B, Hb,
+            Wb, int(emission), stream)
     if rc != 0:
         raise RuntimeError(
             f"sweep_ref_bwd kernel launch failed: CUDA error {rc}")
     launches += 1
-    return dL
+    return dL if light is None else (dL, dlight)

@@ -18,6 +18,14 @@ backward kernel of kernels/sweep_ref_bwd.py (the port of `_bwd_kernel_ref`),
 or they raise; on a CPU tensor they run the two plain versions. There is no
 fallback from one device's path to the other's.
 
+With a light-transmittance volume (ops/lighting.py, built from
+ops/media.materialize_sigma for this medium) the emission sweep shades
+every sample as the single-channel sweep does. The light is no scrolled
+noise channel: its stack is pre-lerped onto the slice planes like a
+channel with scale 1 and no offset, and sampled at the unscaled
+coordinates. The node then has two differentiable inputs, L and the light
+slabs.
+
 `launches` counts the kernel launches made by this module.
 """
 from __future__ import annotations
@@ -27,14 +35,15 @@ import ctypes
 import torch
 
 from ..config import LightConfig, MediumConfig, RenderConfig
-from ..ops.sampling import apply_address_mode
+from ..ops.sampling import apply_address_mode, clip_unit
 from . import sweep_ref_bwd
 from .build import (N_PARAMS, NCH, build_library, channel_resample,
-                    check_sweep_inputs)
-from .sweep_fwd import _params_for
+                    check_sweep_inputs, light_sample)
+from .sweep_fwd import _layer_lerp_stack, _params_for
 
-__all__ = ["sweep_ref_inputs", "sweep_base_ref", "sweep_ref_fwd_reference",
-           "build_kernel", "launch_kernel", "launches"]
+__all__ = ["sweep_ref_inputs", "sweep_ref_light_slabs", "sweep_base_ref",
+           "sweep_ref_fwd_reference", "build_kernel", "launch_kernel",
+           "launches"]
 
 launches = 0  # kernel launches since import (or since a caller reset it)
 
@@ -96,7 +105,7 @@ def _params_ref(plan, cfg: RenderConfig, medium: MediumConfig,
 
 
 def sweep_ref_fwd_reference(L, slice_z, v_grid, u_grid, seglen, params, *,
-                            emission: bool):
+                            emission: bool, light=None):
     """Plain PyTorch version of the 4-channel sweep kernel, with the same
     inputs.
 
@@ -105,12 +114,15 @@ def sweep_ref_fwd_reference(L, slice_z, v_grid, u_grid, seglen, params, *,
     (N_PARAMS,) as _params_ref. Each channel of each slice is resampled as
     Wa @ L[s, c] @ Wb^T with banded matrices at its scaled and scrolled
     coords; out-of-box and behind-the-eye samples are masked on the
-    unscaled coords. Returns (acc, trans, wsum, hit), each (Hb, Wb)
-    float32."""
+    unscaled coords. light: optional (S, A, B) light slabs in slice order
+    (emission only), resampled at the unscaled coords with clipped taps.
+    Returns (acc, trans, wsum, hit), each (Hb, Wb) float32."""
+    if light is not None and not emission:
+        raise ValueError("sweep: a light volume needs emission")
     S, _, A, B = L.shape
     Hb, Wb = v_grid.shape[0], u_grid.shape[0]
-    e_k, e_a, e_b, sign, density, sscale, thresh = (params[n]
-                                                    for n in range(7))
+    e_k, e_a, e_b, sign, density, sscale, thresh, ambient = (
+        params[n] for n in range(8))
     kw = dict(dtype=torch.float32, device=L.device)
     acc = torch.zeros((Hb, Wb), **kw)
     trans = torch.ones((Hb, Wb), **kw)
@@ -132,7 +144,11 @@ def sweep_ref_fwd_reference(L, slice_z, v_grid, u_grid, seglen, params, *,
         if emission:
             live = (trans > thresh).to(torch.float32)
             alpha = live * (1.0 - torch.exp(-density * sigma * seglen))
-            wsum = wsum + trans * alpha
+            shade = 1.0  # a product with 1.0 is exact: the no-light sum
+            if light is not None:
+                lT = light_sample(light[s], a01, b01, "clamp")
+                shade = ambient + (1.0 - ambient) * clip_unit(lT)
+            wsum = wsum + trans * alpha * shade
             trans = trans * (1.0 - alpha)
         else:
             acc = acc + sigma * seglen
@@ -147,30 +163,37 @@ def build_kernel():
     if _lib is None:
         lib, info = build_library("sweep_ref_fwd")
         fn = lib.sweep_ref_fwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib, build_info = lib, info
     return build_info
 
 
-def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, emission):
+def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, emission,
+                  light=None):
     """Check the inputs, allocate the (4, Hb, Wb) output, launch the
-    kernel on the current stream and count the launch. Returns the
-    (4, Hb, Wb) tensor of acc, trans, wsum, hit."""
+    kernel on the current stream and count the launch. `light` is the
+    optional (S, A, B) stack of light slabs in slice order (emission only):
+    it selects the kernel's light branch. Returns the (4, Hb, Wb) tensor of
+    acc, trans, wsum, hit."""
     global launches
     dev = L.device
+    if light is not None and not emission:
+        raise ValueError("sweep_ref_fwd kernel: a light volume needs "
+                         "emission")
     S, A, B, Hb, Wb = check_sweep_inputs(
         "sweep_ref_fwd", L, slice_z, v_grid, u_grid, seglen, params,
-        channels=NCH, n_params=N_PARAMS)
+        channels=NCH, n_params=N_PARAMS, light=light)
     build_kernel()
     out = torch.empty((4, Hb, Wb), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib.sweep_ref_fwd_launch(
-            L.data_ptr(), slice_z.data_ptr(), v_grid.data_ptr(),
-            u_grid.data_ptr(), seglen.data_ptr(), params.data_ptr(),
-            out.data_ptr(), S, A, B, Hb, Wb, int(emission), stream)
+            L.data_ptr(), light.data_ptr() if light is not None else None,
+            slice_z.data_ptr(), v_grid.data_ptr(), u_grid.data_ptr(),
+            seglen.data_ptr(), params.data_ptr(), out.data_ptr(), S, A, B,
+            Hb, Wb, int(emission), stream)
     if rc != 0:
         raise RuntimeError(
             f"sweep_ref_fwd kernel launch failed: CUDA error {rc}")
@@ -180,42 +203,45 @@ def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, emission):
 
 class _SweepRef(torch.autograd.Function):
     """The 4-channel sweep as an autograd node, in place of
-    _fused_vjp_ref's no-light f_fwd and f_bwd: the kernels on CUDA slabs,
-    the plain versions on CPU slabs. There are no checkpoint outputs: the
-    backward replays each ray from T = 1. Only L gets a gradient; `hit`
-    is not differentiable."""
+    _fused_vjp_ref's f_fwd and f_bwd, without and with light slabs: the
+    kernels on CUDA slabs, the plain versions on CPU slabs. There are no
+    checkpoint outputs: the backward replays each ray from T = 1. L and
+    the light slabs (or None) get gradients; `hit` is not differentiable."""
 
     @staticmethod
-    def forward(ctx, L, slice_z, v_grid, u_grid, seglen, params, emission):
+    def forward(ctx, L, light, slice_z, v_grid, u_grid, seglen, params,
+                emission):
         if L.device.type == "cuda":
             maps = launch_kernel(L, slice_z, v_grid, u_grid, seglen, params,
-                                 emission).unbind(0)
+                                 emission, light).unbind(0)
         elif L.device.type == "cpu":
             maps = sweep_ref_fwd_reference(L, slice_z, v_grid, u_grid,
-                                           seglen, params, emission=emission)
+                                           seglen, params, emission=emission,
+                                           light=light)
         else:
             raise ValueError(f"sweep: no kernel for device {L.device}")
         ctx.mark_non_differentiable(maps[3])
         ctx.save_for_backward(L, slice_z, v_grid, u_grid, seglen, params,
-                              maps[1], maps[2])
+                              maps[1], maps[2], light)
         ctx.emission = emission
         return tuple(maps)
 
     @staticmethod
     def backward(ctx, ct_acc, ct_trans, ct_wsum, _ct_hit):
         none = (None,) * 6
-        if not ctx.needs_input_grad[0]:
-            return (None,) + none
-        L, slice_z, v_grid, u_grid, seglen, params, trans, wsum = \
+        if not any(ctx.needs_input_grad[:2]):
+            return (None, None) + none
+        L, slice_z, v_grid, u_grid, seglen, params, trans, wsum, light = \
             ctx.saved_tensors
         # Cotangents may arrive broadcast (the gradient of a sum); the
         # kernel reads dense maps.
         cts = [c.contiguous() for c in (ct_acc, ct_trans, ct_wsum)]
         bwd = (sweep_ref_bwd.launch_kernel if L.device.type == "cuda"
                else sweep_ref_bwd.sweep_ref_bwd_reference)
-        dL = bwd(L, slice_z, v_grid, u_grid, seglen, params, *cts, trans,
-                 wsum, emission=ctx.emission)
-        return (dL,) + none
+        grads = bwd(L, slice_z, v_grid, u_grid, seglen, params, *cts, trans,
+                    wsum, emission=ctx.emission, light=light)
+        dL, dlight = grads if light is not None else (grads, None)
+        return (dL, dlight) + none
 
 
 def sweep_ref_inputs(gperm4, plan, cfg: RenderConfig, medium: MediumConfig,
@@ -232,14 +258,31 @@ def sweep_ref_inputs(gperm4, plan, cfg: RenderConfig, medium: MediumConfig,
             _params_ref(plan, cfg, medium, lt, offs))
 
 
+def sweep_ref_light_slabs(lperm, plan, cfg: RenderConfig):
+    """The kernel's (S, A, B) light slabs for a light volume permuted like
+    the grid's first three dims (light_volume.permute(plan.perm)): always
+    lerped onto the slice planes, so they are in slice order and there is
+    no flip. Differentiable in lperm."""
+    return _layer_lerp_stack(lperm, plan.slice_z, cfg.address_mode)
+
+
 def sweep_base_ref(gperm4, plan, cfg: RenderConfig, medium: MediumConfig,
-                   light=None, scroll=None):
+                   light=None, scroll=None, lperm=None):
     """(acc, trans, wsum, hit) base maps, each (Hb, Wb) float32, of the
     reference medium for a (D, A, B, 4) grid permuted so the sweep axis is
     dim 0: the kernels for a CUDA grid, the plain versions for a CPU grid,
-    differentiable in the grid either way."""
+    differentiable in the grid either way. lperm: optional (D, A, B)
+    light-transmittance volume in the same layout (emission only); the
+    maps are differentiable in it too."""
     if gperm4.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sweep_base_ref: no sweep for device "
                          f"{gperm4.device}")
-    inputs = sweep_ref_inputs(gperm4, plan, cfg, medium, light, scroll)
-    return _SweepRef.apply(*inputs, cfg.emission)
+    L, *args = sweep_ref_inputs(gperm4, plan, cfg, medium, light, scroll)
+    slabs = None
+    if lperm is not None:
+        if lperm.shape != gperm4.shape[:3]:
+            raise ValueError(
+                f"sweep_base_ref: the light volume must have the grid's "
+                f"shape {tuple(gperm4.shape[:3])}, got {tuple(lperm.shape)}")
+        slabs = sweep_ref_light_slabs(lperm, plan, cfg)
+    return _SweepRef.apply(L, slabs, *args, cfg.emission)

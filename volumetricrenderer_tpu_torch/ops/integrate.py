@@ -14,9 +14,11 @@ Both are differentiable by ordinary autograd. The JAX versions wrap their
 step in jax.checkpoint; here the oracle runs at small sizes only, so the
 step intermediates are kept. sample_sigma covers both combines: channel 0
 ("single") and the reference medium's four channels at per-channel scaled
-and scrolled coordinates. Not ported yet, and raising NotImplementedError:
-scene_sigma, the shadow march (_light_transmittance) and the light volume
-of render_rays_sliced.
+and scrolled coordinates. Shadows: render_rays marches a secondary ray
+toward the light from every sample (_light_transmittance, with
+light.shadow_steps > 0), and render_rays_sliced samples a precomputed
+light-transmittance volume (ops/lighting.py), as the slice sweep does. Not
+ported yet, and raising NotImplementedError: scene_sigma.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 
 from ..config import LightConfig, MediumConfig, RenderConfig
 from .aabb import intersect_aabb
-from .sampling import sample_trilinear
+from .sampling import clip_unit, sample_trilinear
 
 __all__ = [
     "reference_media_scroll",
@@ -98,9 +100,24 @@ def scene_sigma(volumes, pos01, cfg: RenderConfig, medium: MediumConfig,
 
 def _light_transmittance(grid, pos01, medium, scroll, cfg: RenderConfig,
                          light: LightConfig, sigma_fn=None):
-    """The secondary shadow march: not ported yet."""
-    raise NotImplementedError(
-        "the shadow march (light.shadow_steps > 0) is not ported yet")
+    """The secondary shadow march: from pos01 toward the light in
+    light.shadow_steps steps of light.shadow_step_size, summing the
+    extinction inside the box; returns exp(-density * integral)."""
+    dev = pos01.device
+    ldir = _f32(light.direction, dev)
+    ldir = ldir / torch.linalg.norm(ldir)
+    box_range = _f32(cfg.box_max, dev) - _f32(cfg.box_min, dev)
+    step01 = light.shadow_step_size * ldir / box_range
+    acc = torch.zeros(pos01.shape[:-1], dtype=torch.float32, device=dev)
+    for i in range(light.shadow_steps):
+        p = pos01 + step01 * (i + 1.0)
+        inside = torch.all((p >= 0.0) & (p <= 1.0), dim=-1)
+        if sigma_fn is not None:
+            sigma = sigma_fn(p)
+        else:
+            sigma = sample_sigma(grid, p, medium, scroll, cfg.address_mode)
+        acc = acc + torch.where(inside, sigma, torch.zeros_like(sigma))
+    return torch.exp(-medium.density * acc * light.shadow_step_size)
 
 
 def render_rays(
@@ -119,7 +136,8 @@ def render_rays(
     grid: (D, H, W) or (D, H, W, C) float grid in [0, 1];
     origins/directions: (..., 3) world-space rays on the grid's device.
     sigma_fn: optional pos01 -> extinction override replacing the single
-    grid sample (grid may then be None)."""
+    grid sample (grid may then be None); the shadow march uses the same
+    field."""
     if world_to_local is not None:
         origins, directions = transform_rays(origins, directions,
                                              world_to_local)
@@ -145,10 +163,7 @@ def render_rays(
 
     emission = cfg.emission
     lt = light if light is not None else LightConfig()
-    if emission and lt.shadow_steps > 0:
-        raise NotImplementedError(
-            "the shadow march (light.shadow_steps > 0) is not ported yet")
-    lT = 1.0  # no shadow march
+    use_shadow = emission and lt.shadow_steps > 0
     lcol = _f32(lt.color, dev)
 
     batch_shape = origins.shape[:-1]
@@ -168,6 +183,11 @@ def render_rays(
         sigma = torch.where(active, sigma, zero)
         if emission:
             alpha = 1.0 - torch.exp(-medium.density * sigma * step)
+            if use_shadow:
+                lT = _light_transmittance(grid, pos, medium, scroll, cfg, lt,
+                                          sigma_fn=sigma_fn)
+            else:
+                lT = 1.0
             shade = lt.ambient + (1.0 - lt.ambient) * lT
             contrib = (trans * alpha * shade)[..., None] * lcol
             color = color + torch.where(active[..., None], contrib, zero)
@@ -205,10 +225,9 @@ def render_rays_sliced(
 
     Marches each ray by sampling at the sweep plan's slice-plane crossings
     with per-ray segment lengths: the integral the slice sweep computes,
-    expressed per ray (slow; for tests and gradient checks)."""
-    if light_volume is not None:
-        raise NotImplementedError(
-            "light volumes are not ported yet (render_rays_sliced)")
+    expressed per ray (slow; for tests and gradient checks). light_volume:
+    optional (D, H, W) light-transmittance grid (ops/lighting.py), sampled
+    trilinearly at every sample and clipped to [0, 1] for the shade."""
     dev = origins.device
     box_min = _f32(cfg.box_min, dev)
     box_range = _f32(cfg.box_max, dev) - box_min
@@ -253,7 +272,12 @@ def render_rays_sliced(
         if emission:
             live = (trans > cfg.early_stop_transmittance).to(torch.float32)
             alpha = live * (1.0 - torch.exp(-medium.density * sigma * seglen))
-            wgt = trans * alpha
+            if light_volume is not None:
+                lT = sample_trilinear(light_volume, pos, cfg.address_mode)
+                shade = lt.ambient + (1.0 - lt.ambient) * clip_unit(lT)
+            else:
+                shade = 1.0
+            wgt = trans * alpha * shade
             color = color + wgt[..., None] * lcol
             trans = trans * (1.0 - alpha)
         else:

@@ -11,27 +11,45 @@ import torch
 
 from .sampling import apply_address_mode
 
-__all__ = ["linear_resample_matrix"]
+__all__ = ["linear_taps", "linear_resample_matrix"]
+
+
+def linear_taps(u01: torch.Tensor, n_in: int, address_mode: str = "mirror",
+                dtype: torch.dtype = torch.float32):
+    """The two taps of 1-D linear resampling at normalized positions:
+    (i0, i1, w0, w1), texel indices (int64) and their weights 1 - f and f,
+    each (n_out,). The sampler's modes fold into the indices; address_mode
+    "zero" is vacuum outside the texel support: a tap beyond [0, n_in)
+    weighs nothing (the light sweep's boundary, ops/lighting.py; not a
+    sampler mode)."""
+    p = u01.to(torch.float32) * n_in - 0.5
+    i0f = torch.floor(p)
+    f = (p - i0f).to(dtype)
+    i0 = i0f.to(torch.int64)
+    w0, w1 = 1.0 - f, f
+    if address_mode == "zero":
+        a0 = torch.clamp(i0, 0, n_in - 1)
+        a1 = torch.clamp(i0 + 1, 0, n_in - 1)
+        w0 = w0 * ((i0 >= 0) & (i0 < n_in)).to(dtype)
+        w1 = w1 * ((i0 + 1 >= 0) & (i0 + 1 < n_in)).to(dtype)
+    else:
+        a0 = apply_address_mode(i0, n_in, address_mode)
+        a1 = apply_address_mode(i0 + 1, n_in, address_mode)
+    return a0, a1, w0, w1
 
 
 def linear_resample_matrix(u01: torch.Tensor, n_in: int,
                            address_mode: str = "mirror",
                            dtype: torch.dtype = torch.float32,
                            zero_outside: bool = False) -> torch.Tensor:
-    """(n_out, n_in) matrix with at most two non-zeros per row;
-    zero_outside=True zeroes rows whose position leaves [0, 1]. (The JAX
-    version's "zero" address mode serves only the light sweep, which is not
-    ported yet.)"""
-    p = u01.to(torch.float32) * n_in - 0.5
-    i0f = torch.floor(p)
-    f = (p - i0f).to(dtype)
-    i0 = i0f.to(torch.int64)
-    a0 = apply_address_mode(i0, n_in, address_mode)
-    a1 = apply_address_mode(i0 + 1, n_in, address_mode)
+    """(n_out, n_in) matrix with at most two non-zeros per row, the taps
+    of linear_taps (address modes as there); zero_outside=True zeroes rows
+    whose position leaves [0, 1]."""
+    a0, a1, w0, w1 = linear_taps(u01, n_in, address_mode, dtype)
     cols = torch.arange(n_in, device=u01.device)[None, :]
     zero = torch.zeros((), dtype=dtype, device=u01.device)
-    w0 = torch.where(cols == a0[:, None], (1.0 - f)[:, None], zero)
-    w1 = torch.where(cols == a1[:, None], f[:, None], zero)
+    w0 = torch.where(cols == a0[:, None], w0[:, None], zero)
+    w1 = torch.where(cols == a1[:, None], w1[:, None], zero)
     W = (w0 + w1).to(dtype)
     if zero_outside:
         inr = ((u01 >= 0.0) & (u01 <= 1.0)).to(dtype)

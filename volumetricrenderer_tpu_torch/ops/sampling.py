@@ -3,12 +3,14 @@ apply_address_mode and sample_trilinear from
 volumetricrenderer_tpu/ops/sampling.py): mirror (Vulkan MIRRORED_REPEAT),
 clamp-to-edge and wrap, applied to integer texel indices, and the
 texel-center linear filter (texel i covers [i/N, (i+1)/N), so a normalized
-position x samples at x*N - 0.5)."""
+position x samples at x*N - 0.5). Also clip_unit, the clip to [0, 1] with
+jnp.clip's subgradient, which shades the light-transmittance sample."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["apply_address_mode", "sample_trilinear"]
+__all__ = ["apply_address_mode", "sample_trilinear", "clip_unit",
+           "clip_unit_grad"]
 
 
 def apply_address_mode(idx: torch.Tensor, size: int, mode: str) -> torch.Tensor:
@@ -75,3 +77,32 @@ def sample_trilinear(grid, coords, address_mode="mirror"):
     c1 = c01 + fy * (c11 - c01)
     out = c0 + fz * (c1 - c0)
     return out[..., 0] if squeeze else out
+
+
+def clip_unit_grad(x):
+    """d clip(x, 0, 1) / dx as jnp.clip defines it, minimum(maximum(x, 0),
+    1): 1 inside (0, 1), 0.5 at x == 0 and x == 1 (the tie of a min or a
+    max splits the gradient), 0 outside. torch.clamp passes the full
+    gradient at both bounds."""
+    inside = ((x > 0.0) & (x < 1.0)).to(x.dtype)
+    tie = ((x == 0.0) | (x == 1.0)).to(x.dtype)
+    return inside + 0.5 * tie
+
+
+class _ClipUnit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, 0.0, 1.0)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, = ctx.saved_tensors
+        return ct * clip_unit_grad(x)
+
+
+def clip_unit(x):
+    """clip(x, 0, 1) whose autograd gradient is clip_unit_grad: a light
+    transmittance sample is exactly 1.0 in every fully lit voxel, so the
+    value at the bound matters."""
+    return _ClipUnit.apply(x)

@@ -394,32 +394,40 @@ def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
     per-channel scroll. A CUDA grid goes through the hand-written sweep
     kernels, a CPU grid through their plain PyTorch versions
     (kernels/sweep_fwd.sweep_base, kernels/sweep_ref_fwd.sweep_base_ref).
+    light_volume: optional (D, H, W) light-transmittance grid of the
+    grid's spatial shape (ops/lighting.py): with emission every sample is
+    shaded by its clipped trilinear sample, and the frame is
+    differentiable in it too.
     Configurations the kernels do not cover raise NotImplementedError: the
-    light-volume branch of the kernels and the bfloat16 stream mode wait
-    for later slices of the port, and the JAX package's general jnp sweep
-    (a scroll or a 4-D grid with combine="single", clamp or wrap
-    addressing with "reference") is not ported."""
-    if light_volume is not None:
-        raise NotImplementedError(
-            "light volumes wait for the light-volume slice of the port "
-            "(the shade branch of the four sweep kernels)")
+    bfloat16 stream mode waits for a later slice of the port, and the JAX
+    package's general jnp sweep (a scroll or a 4-D grid with
+    combine="single", clamp or wrap addressing with "reference", a light
+    volume with absorption or of another shape) is not ported."""
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype={cfg.dtype!r}: the bfloat16 stream mode of the sweep "
             "kernels waits for a later slice of the port; use 'float32'")
-    if not sweep_fwd.supported(cfg, medium, light_volume, scroll,
-                               grid.dim()):
+    ok = (sweep_fwd.supported(cfg, medium, light_volume, scroll, grid.dim())
+          and (light_volume is None
+               or light_volume.shape == grid.shape[:3]))
+    if not ok:
         raise NotImplementedError(
             "the torch sweep covers combine='single' with a 3-D grid, no "
             "scroll and mirror/clamp/wrap addressing, and "
-            "combine='reference' with a 4-D grid and mirror addressing; "
-            f"got combine={medium.combine!r}, grid.dim()={grid.dim()}, "
-            f"scroll={scroll is not None}, "
-            f"address_mode={cfg.address_mode!r}")
+            "combine='reference' with a 4-D grid and mirror addressing, "
+            "either with emission and a 3-D light volume of the grid's "
+            f"spatial shape; got combine={medium.combine!r}, "
+            f"grid.shape={tuple(grid.shape)}, scroll={scroll is not None}, "
+            f"address_mode={cfg.address_mode!r}, emission={cfg.emission}, "
+            "light_volume="
+            f"{None if light_volume is None else tuple(light_volume.shape)}")
+    lperm = (light_volume.permute(plan.perm) if light_volume is not None
+             else None)
     if medium.combine == "reference":
         base_maps = sweep_ref_fwd.sweep_base_ref(
-            grid.permute(plan.perm + (3,)), plan, cfg, medium, light, scroll)
+            grid.permute(plan.perm + (3,)), plan, cfg, medium, light, scroll,
+            lperm=lperm)
     else:
         base_maps = sweep_fwd.sweep_base(grid.permute(plan.perm), plan, cfg,
-                                         medium, light)
+                                         medium, light, lperm=lperm)
     return finish_image(base_maps, plan, cfg, medium, light=light)

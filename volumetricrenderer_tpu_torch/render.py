@@ -9,9 +9,12 @@ combine="single" goes through the single-channel kernels, a (D, H, W, 4)
 grid with combine="reference" (and an optional per-channel scroll) through
 the 4-channel reference-combine kernels. backend="reference" renders the
 same sliced integral per ray with ops/integrate.render_rays_sliced, the
-sweep's oracle. The JAX package's other paths through render_image
-(quadrature "fixed", the per-ray fallback for cameras with no sweep axis,
-and the shadow light volume) are not ported yet: asking for one raises
+sweep's oracle. With emission and light.shadow_steps > 0 (BASELINE config
+4) the frame is shadowed: one light-propagation sweep per frame
+(ops/lighting.light_transmittance_volume) builds the light volume that
+both backends then sample. The JAX package's other paths through
+render_image (quadrature "fixed" and the per-ray fallback for cameras with
+no sweep axis) are not ported yet: asking for one raises
 NotImplementedError.
 """
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Optional
 from .config import LightConfig, MediumConfig, RenderConfig
 from .ops.camera import Camera, camera_rays
 from .ops.integrate import render_rays_sliced
+from .ops.lighting import light_transmittance_volume
 from .ops.sweep import SweepPlan, plan_sweep, sweep_render
 
 __all__ = ["render", "render_image", "plan_for"]
@@ -56,7 +60,11 @@ def render_image(
     "reference"; scroll: optional (4, 3) per-channel scroll of the
     reference medium (ops/integrate.reference_media_scroll). backend "auto"
     and "sweep" (alias "pallas") run the slice sweep, "reference" the
-    per-ray oracle of the same sliced quadrature."""
+    per-ray oracle of the same sliced quadrature. light_volume: a
+    precomputed (D, H, W) light-transmittance grid; when it is None,
+    cfg.emission is set and light.shadow_steps > 0, it is built from the
+    grid here, once per frame, and the frame's gradient reaches the grid
+    through it too."""
     if backend == "pallas":
         backend = "sweep"  # alias: the sweep kernel implements "sweep"
     if backend not in ("auto", "sweep", "reference"):
@@ -71,8 +79,10 @@ def render_image(
             "ported yet; use quadrature='sliced'")
     if (light is not None and light.shadow_steps > 0 and light_volume is None
             and cfg.emission):
-        raise NotImplementedError(
-            "shadow light volumes (light.shadow_steps > 0) are not ported yet")
+        # Config-4 shadows: one light-propagation sweep per frame instead
+        # of a nested march per sample.
+        light_volume = light_transmittance_volume(grid, light, cfg, medium,
+                                                  scroll=scroll)
     if plan is None:
         try:
             plan = plan_for(camera, grid.shape, cfg, world_to_local,
