@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one CUDA GPU: the forward render
 (serving) and the forward+backward render and fit (training), for the
 single-channel medium and for the 4-channel reference medium, without and
-with shadows (BASELINE config 4's light volume).
+with shadows (BASELINE config 4's light volume), in float32 and in the
+bfloat16 stream mode, and the preset front end (`cli render`, `cli info`).
 
     python3 chip_smoke.py [--out DIR]    (| tee DIR/log.txt to keep the output)
 
@@ -89,10 +90,42 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    with shadows per frame (plan reused, light volume rebuilt) and the
    shadowed forward+backward step, with a torch.profiler table of that
    step;
-16. prints a JSON line of kernel results (each kernel's launches on the
+16. (the results are printed last, step 21);
+17. the bfloat16 stream mode (RenderConfig(dtype="bfloat16"): texels and
+   tap weights rounded to bfloat16, everything else float32) at small
+   shapes: torch's rounding against the device's on seeded weights and
+   exact ties; the bfloat16 instantiations of the four kernels against
+   the plain versions in the mode, without and with a light volume, in
+   emission and absorption, on three axes, mirror/clamp/wrap, sub-voxel
+   slicing and the density-500 early-stop case (maps within 1e-6,
+   gradients within 1e-5 of their maximum), each plain backward also
+   against autograd of the plain forward; the gradient check in the mode
+   against the float32 oracle on the bfloat16-rounded grid;
+18. the main paths in the mode at full width, the counts set to 0 before
+   each and read after: the four flagship serving frames and the flagship
+   forward+backward step; eight reference-preset frames and one step per
+   mode; four config-4 orbit frames and one shadowed step; the reference
+   medium with shadows at density 8, two frames and one step. Each frame
+   is held to the plain version in the mode and to the float32 frame of
+   the same view (max below 3e-2, mean below 3e-3), each step's gradients
+   to the plain backward on the same bfloat16 stacks;
+19. timing of the four kernels in bfloat16 beside float32 on the same
+   plans, without and with a light volume; render_image and the step in
+   the mode with a float32 grid (the cast included) and a bfloat16 grid;
+20. the preset front end: `cli render --preset` for config1..config4 and
+   `reference` at their own sizes (config1..4 must launch the forward
+   kernel once, `reference` marches per ray and launches none), each PNG
+   against render_image on the same grid, config2 also in bfloat16
+   through render_preset, wall times with the volume and plan build;
+   each of these frames (config2's bfloat16 one too) held to the plain
+   version at the preset's own shapes: the forward kernel's base maps on
+   grid[..., 0] (or the baked grid) and its light volume, and the frame
+   against finish_image of the plain maps; `cli info`;
+21. prints a JSON line of kernel results (each kernel's launches on the
    main paths, error, time, plain version's time, and the least time the
-   card could take for the same work, each also for the light variant),
-   then the last line {"ok": true, "device": {...}}.
+   card could take for the same work, each also for the light variant and
+   for the bfloat16 mode), then the last line {"ok": true, "device":
+   {...}}.
 
 Any failure raises, so the exit code is non-zero and no result is printed.
 One frame of each medium, one shadowed frame and the profile tables are
@@ -128,6 +161,8 @@ from volumetricrenderer_tpu_torch.fit import fit_grid
 from volumetricrenderer_tpu_torch.kernels import (sweep_bwd, sweep_fwd,
                                                   sweep_ref_bwd,
                                                   sweep_ref_fwd)
+from volumetricrenderer_tpu_torch.kernels.round_probe import \
+    round_weights_on_device
 from volumetricrenderer_tpu_torch.models.scene import bake_scene, \
     config3_scene
 from volumetricrenderer_tpu_torch.ops.integrate import render_rays_sliced
@@ -1285,6 +1320,756 @@ def light_timings(grid, cam, plan, grid4, cam4, plan4, dev, gpu_line,
     return out
 
 
+# --- the bfloat16 stream mode --------------------------------------------
+#
+# RenderConfig(dtype="bfloat16"): texels and tap weights rounded to bfloat16,
+# everything else float32 (kernels/sweep_fwd.py). Kernel and plain version
+# read the same bfloat16 stacks and round the weights alike, so they are held
+# to the float32 phases' tolerances, and beyond them to BF16_MAP_LIMIT and
+# BF16_GRAD_LIMIT (of max|gradient|; the early-stop cases keep BWD_TOL_GATE).
+# A bfloat16 frame is held to the float32 frame as tests/test_bf16.py holds
+# the JAX package's: max below 3e-2, mean below 3e-3.
+BF16 = torch.bfloat16
+BF16_MAP_LIMIT, BF16_GRAD_LIMIT = 1e-6, 1e-5
+BF16_IMG_MAX, BF16_IMG_MEAN = 3e-2, 3e-3
+# The oracle of the gradient check has no stream mode: it runs in float32 on
+# the bfloat16-rounded grid, with unrounded tap weights. A weight rounds by
+# up to 2^-9 = 2e-3 of itself, so the two gradients agree to that share of
+# the scale and no closer. That the adjoint scatters with the rounded
+# weights is held elsewhere: every small case holds the plain backward to
+# autograd of the plain forward in the mode, and the kernel to the plain
+# backward, within 1e-5.
+BF16_ORACLE_TOL = 3e-3
+
+
+def low_cfg(cfg):
+    return dataclasses.replace(cfg, dtype="bfloat16")
+
+
+def bf16_both(grid, lvol, plan, cfg, medium, light, scroll, cts,
+              autograd=True):
+    """The kernels' bfloat16 instantiations and the plain versions in the
+    same mode on the same bfloat16 stacks, for either medium, with or
+    without a light volume: the forward maps, and the gradients on the
+    forward kernel's trans and wsum maps and the cotangents `cts`. With
+    `autograd`, also the plain backward against autograd of the plain
+    forward (_low=True on float32 copies of the bfloat16 stacks: autograd
+    through a bfloat16 tensor would round the gradient). Comparison
+    launches, not the main path. Returns (maps, plain maps, grads, plain
+    grads, own, auto), the gradients as tuples (dG,) or (dG, dL)."""
+    em = cfg.emission
+    if medium.combine == "reference":
+        stack, *args = sweep_ref_fwd.sweep_ref_inputs(
+            grid.permute(plan.perm + (3,)), plan, cfg, medium, light, scroll)
+        lstack = None if lvol is None else \
+            sweep_ref_fwd.sweep_ref_light_slabs(lvol.permute(plan.perm),
+                                                plan, cfg)
+        kw = dict(emission=em)
+        fwd, bwd = sweep_ref_fwd.sweep_ref_fwd_reference, \
+            sweep_ref_bwd.sweep_ref_bwd_reference
+    else:
+        (stack, *args), flip = sweep_fwd.sweep_inputs(
+            grid.permute(plan.perm), plan, cfg, medium, light)
+        lstack = None if lvol is None else sweep_fwd.sweep_light_stack(
+            lvol.permute(plan.perm), plan, cfg)
+        kw = dict(emission=em, flip=flip, address_mode=cfg.address_mode)
+        fwd, bwd = sweep_fwd.sweep_fwd_reference, \
+            sweep_bwd.sweep_bwd_reference
+    stack = stack.contiguous().to(BF16)
+    lstack = None if lstack is None else lstack.contiguous().to(BF16)
+    if medium.combine == "reference":
+        maps = sweep_ref_fwd.launch_kernel(stack, *args, em, lstack)
+        got = sweep_ref_bwd.launch_kernel(stack, *args, *cts, maps[1],
+                                          maps[2], emission=em, light=lstack)
+    else:
+        wrap = cfg.address_mode == "wrap"
+        maps = sweep_fwd.launch_kernel(stack, *args, em, flip, wrap, lstack)
+        got = sweep_bwd.launch_kernel(stack, *args, *cts, maps[1], maps[2],
+                                      em, flip, wrap, light=lstack)
+    torch.cuda.synchronize()
+    want_maps = fwd(stack, *args, light=lstack, **kw)
+    want = bwd(stack, *args, *cts, maps[1], maps[2], light=lstack, **kw)
+    if lstack is None:
+        got, want = (got,), (want,)
+    own = auto = None
+    if autograd:
+        st = stack.to(torch.float32).requires_grad_()
+        lt = None if lstack is None else \
+            lstack.to(torch.float32).requires_grad_()
+        fmaps = fwd(st, *args, light=lt, _low=True, **kw)
+        loss = sum((m * c).sum() for m, c in zip(fmaps[:3], cts))
+        auto = torch.autograd.grad(loss, (st,) if lt is None else (st, lt))
+        own = bwd(stack, *args, *cts, fmaps[1].detach(), fmaps[2].detach(),
+                  light=lstack, **kw)
+        own = (own,) if lstack is None else own
+    return maps.unbind(0), want_maps, got, want, own, auto
+
+
+def check_bf16_case(what, result, gate=False):
+    """Holds one bf16_both result to the float32 phases' tolerances and to
+    the bfloat16 limits; returns the maps' and the gradients' max abs
+    errors."""
+    maps, want_maps, got, want, own, auto = result
+    tol = BWD_TOL_GATE if gate else BWD_TOL
+    e = max(check_close(g, w, f"{what} {name}")
+            for g, w, name in zip(maps, want_maps,
+                                  ("acc", "trans", "wsum", "hit")))
+    if not e <= BF16_MAP_LIMIT:
+        fail(f"{what}: maps max abs err {e:.3e} above {BF16_MAP_LIMIT}")
+    msg, e_bwd = f"{what}: maps max abs err {e:.3e}", 0.0
+    for k, name in enumerate(("dG", "dL")[:len(got)]):
+        e_k, s_k = check_grad(got[k], want[k], f"{what} {name}", tol)
+        if not gate and not e_k <= BF16_GRAD_LIMIT * s_k:
+            fail(f"{what} {name}: max abs err {e_k:.3e} above "
+                 f"{BF16_GRAD_LIMIT} of max {s_k:.3e}")
+        e_bwd = max(e_bwd, e_k)
+        msg += f", {name} {e_k:.3e} (max {s_k:.3e})"
+        if own is not None:
+            a_k, _ = check_grad(own[k], auto[k],
+                                f"{what} {name} (plain vs autograd)", tol)
+            msg += f" plain vs autograd {a_k:.3e}"
+    log(msg)
+    return e, e_bwd
+
+
+def check_weight_rounding(dev):
+    """torch's float32 -> bfloat16 rounding against the device's
+    __float2bfloat16_rn (the kernels' round_weight) on seeded weights,
+    their complements and exact ties: both round to nearest even."""
+    from volumetricrenderer_tpu_torch.kernels.build import bf16_round
+    w = np.random.default_rng(0).uniform(0.0, 1.0, 8192).astype(np.float32)
+    ties = ((w[:2048].view(np.uint32) & np.uint32(0xFFFF0000))
+            | np.uint32(0x8000)).view(np.float32)
+    x = torch.tensor(np.concatenate([w, 1.0 - w, ties, [0.0, 1.0]]),
+                     dtype=torch.float32, device=dev)
+    got = round_weights_on_device(x)
+    torch.cuda.synchronize()
+    bad = int((got != bf16_round(x)).sum())
+    log(f"bf16 weight rounding: {bad} mismatches between torch's "
+        f".to(bfloat16) and __float2bfloat16_rn on {x.numel()} values "
+        f"({ties.size} exact ties)")
+    if bad:
+        fail("torch and the device round a weight to bfloat16 differently")
+
+
+def bf16_small_checks(dev):
+    """Step 17: the bfloat16 instantiations of the four kernels at small
+    shapes, and the gradient check in the mode. Returns {kernel: [errors]}."""
+    errs = {name: [] for name in KERNELS}
+    check_weight_rounding(dev)
+    light = LightConfig(ambient=0.2, shadow_steps=32)
+    rng = np.random.default_rng(0)
+    small = torch.tensor(rng.uniform(0.2, 1.0, (16, 16, 16)),
+                         dtype=torch.float32, device=dev)
+    small4 = torch.tensor(rng.uniform(0.1, 1.0, (16, 16, 16, 4)),
+                          dtype=torch.float32, device=dev)
+    scroll = seeded_scroll(REF_SCROLL_SEEDS[0], dev)
+    eye0 = SMALL_EYES[0]
+    # (combine, (eye, axis, sign), emission, address mode, light kind,
+    #  n_slices, density)
+    cases = [("single", eye, em, mode, None, None, 8.0)
+             for eye in SMALL_EYES for em in (True, False)
+             for mode in ("mirror", "clamp", "wrap")]
+    cases += [("single", eye, True, mode, kind, None, 8.0)
+              for eye in SMALL_EYES for mode in ("mirror", "wrap")
+              for kind in ("ones", "stretched")]
+    cases += [("single", eye0, em, "mirror", kind, 24, 8.0)
+              for em, kind in ((True, None), (False, None), (True, "ones"),
+                               (True, "stretched"))]
+    cases += [("single", eye0, True, "mirror", kind, None, 500.0)
+              for kind in (None, "ones")]
+    cases += [("reference", eye, em, "mirror", None, None, 1.0)
+              for eye in SMALL_EYES for em in (True, False)]
+    cases += [("reference", eye, True, "mirror", kind, None, 8.0)
+              for eye in SMALL_EYES for kind in ("ones", "stretched")]
+    cases += [("reference", eye0, em, "mirror", kind, 24, 8.0)
+              for em, kind in ((True, None), (False, None),
+                               (True, "stretched"))]
+    cases += [("reference", eye0, True, "mirror", kind, None, 500.0)
+              for kind in (None, "ones")]
+    brng = np.random.default_rng(9)
+    for combine, (eye, axis, sign), em, mode, kind, n_slices, density \
+            in cases:
+        ref = combine == "reference"
+        grid, sc = (small4, scroll) if ref else (small, None)
+        cfg = RenderConfig(emission=em, quadrature="sliced",
+                           address_mode=mode)
+        medium = MediumConfig(combine=combine, density=density)
+        cam = make_camera(CameraConfig(eye=eye, width=96, height=64))
+        plan = plan_for(cam, grid.shape, cfg, n_slices=n_slices, device=dev)
+        if (plan.axis, plan.sign) != (axis, sign):
+            fail(f"eye {eye}: plan sweeps axis {plan.axis} sign {plan.sign},"
+                 f" expected {axis} {sign}")
+        lvol = None
+        if kind:
+            lvol = light_transmittance_volume(grid, light, cfg, medium,
+                                              scroll=sc)
+            if kind == "stretched":
+                lvol = stretched(lvol)
+        cts = [torch.tensor(brng.normal(size=plan.base_shape),
+                            dtype=torch.float32, device=dev)
+               for _ in range(3)]
+        what = (f"bf16 small {combine} eye={eye} axis={axis} "
+                f"sign={sign:+d} emission={em} {mode} light={kind} "
+                f"n_slices={n_slices} density={density}")
+        result = bf16_both(grid, lvol, plan, cfg, medium,
+                           light if kind else None, sc, cts)
+        gate = density > 100.0
+        if gate and not float(result[0][1].min()) < 1e-3:
+            fail(f"{what}: no ray reached the early-stop gate")
+        e, e_bwd = check_bf16_case(what, result, gate)
+        errs["sweep_ref_fwd" if ref else "sweep_fwd"].append(e)
+        errs["sweep_ref_bwd" if ref else "sweep_bwd"].append(e_bwd)
+    log(f"bf16 small cases: {len(cases)} passed")
+
+    # bench.py's gradient check in the mode: the kernels' grid gradient on
+    # an identity-warp plan (bfloat16 texels and weights) against the
+    # per-ray oracle in float32 on the bfloat16-rounded grid.
+    from volumetricrenderer_tpu_torch.kernels.build import bf16_round
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    medium = MediumConfig(combine="single", density=8.0)
+    cam = make_camera(CameraConfig(width=48, height=32))
+    g24 = bf16_round(cloud_volume(24, 7, device=dev))
+    plan = plan_for(cam, g24.shape, cfg, device=dev)
+    ident = dataclasses.replace(plan, identity_warp=True)
+    o, d = base_rays(plan)
+    g2 = g24.clone().requires_grad_()
+    (render_rays_sliced(g2, o, d, plan, cfg, medium)[..., :3] ** 2).sum() \
+        .backward()
+    scale = float(g2.grad.abs().max())
+    found = {}
+    for name, c in (("float32", cfg), ("bfloat16", low_cfg(cfg))):
+        g1 = g24.clone().requires_grad_()
+        (sweep_render(g1, ident, c, medium)[..., :3] ** 2).sum().backward()
+        if g1.grad.dtype != torch.float32:
+            fail(f"grad check {name}: the grid gradient is {g1.grad.dtype}")
+        found[name] = max_err(g1.grad, g2.grad)
+    tol = BF16_ORACLE_TOL
+    ok = scale > 0.0 and found["float32"] <= 1e-3 * scale \
+        and found["bfloat16"] <= tol * scale
+    log(f"bf16 grad check against the float32 oracle on the rounded grid: "
+        f"ok={ok} max_abs_err={found['bfloat16']:.3e} (tolerance {tol} of "
+        f"the scale) beside float32's {found['float32']:.3e}, "
+        f"scale={scale:.3e}")
+    if not ok:
+        fail("bf16 gradient check: the kernels' grid gradient disagrees "
+             "with the per-ray oracle's")
+    return errs
+
+
+def check_low_image(name, img, f32):
+    """A bfloat16 frame against the float32 frame of the same view."""
+    if img.dtype != torch.float32 or img.shape != f32.shape \
+            or not bool(torch.isfinite(img).all()):
+        fail(f"{name}: dtype {img.dtype}, shape {tuple(img.shape)} or "
+             "non-finite pixels")
+    d = (img - f32).abs()
+    d_max, d_mean = float(d.max()), float(d.mean())
+    if not (0.0 < d_max < BF16_IMG_MAX and d_mean < BF16_IMG_MEAN):
+        fail(f"{name}: bf16 frame differs from float32 by max {d_max:.3e} "
+             f"(limit {BF16_IMG_MAX}, and above 0), mean {d_mean:.3e} "
+             f"(limit {BF16_IMG_MEAN})")
+    return d_max, d_mean
+
+
+def low_plain_maps(grid, lvol, plan, cfg, medium, light, scroll):
+    """(kernel maps, plain maps) in the mode at full width: comparison
+    launches, not the main path."""
+    maps, want_maps, *_ = bf16_both(
+        grid, lvol, plan, cfg, medium, light, scroll,
+        [torch.zeros(plan.base_shape, device=grid.device)] * 3,
+        autograd=False)
+    return maps, want_maps
+
+
+def check_low_frame(name, img, f32, grid, lvol, plan, cfg, medium, light,
+                    scroll, held=True):
+    """One bfloat16 frame of a main path: against the float32 frame, and
+    (when held) its base maps and image against the plain version in the
+    mode. Returns the errors."""
+    d_max, d_mean = check_low_image(name, img, f32)
+    msg = (f"{name}: against float32 max {d_max:.3e}, mean {d_mean:.3e}")
+    out = []
+    if held:
+        maps, want_maps = low_plain_maps(grid, lvol, plan, cfg, medium,
+                                         light, scroll)
+        e = max(check_close(g, w, f"{name} {n}")
+                for g, w, n in zip(maps, want_maps,
+                                   ("acc", "trans", "wsum", "hit")))
+        e_img = check_close(img, finish_image(want_maps, plan, cfg, medium,
+                                              light), f"{name} image")
+        if not max(e, e_img) <= BF16_MAP_LIMIT:
+            fail(f"{name}: maps {e:.3e} or image {e_img:.3e} above "
+                 f"{BF16_MAP_LIMIT}")
+        msg += f"; maps max abs err {e:.3e}, image {e_img:.3e}"
+        out = [e, e_img]
+    log(msg)
+    return out
+
+
+def low_step(name, grid, cam, plan, cfg, medium, light, scroll, bwd_mod,
+             expect):
+    """One forward+backward step in the mode (sum of rgb^2, gradient to the
+    float32 grid), counted, its gradients held to the plain backward on
+    the same bfloat16 stacks and cotangents. Returns (errors, launches)."""
+    reset_counts()
+    g = grid.clone().requires_grad_()
+    with BackwardSpy(bwd_mod) as spy:
+        img = render_image(g, cam, low_cfg(cfg), medium, light,
+                           scroll=scroll, plan=plan)
+        loss = (img[..., :3] ** 2).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+    launches = counts()
+    if launches != expect or len(spy.seen) != 1:
+        fail(f"{name} launched {launches}, expected {expect}")
+    if g.grad.dtype != torch.float32 \
+            or not bool(torch.isfinite(g.grad).all()) \
+            or not float(g.grad.abs().max()) > 0.0:
+        fail(f"{name}: the grid gradient is {g.grad.dtype}, or not finite "
+             "and nonzero")
+    a, kw, got = spy.seen[0]
+    if a[0].dtype != BF16:
+        fail(f"{name}: the backward kernel read a {a[0].dtype} stack")
+    if bwd_mod is sweep_bwd:
+        want = sweep_bwd.sweep_bwd_reference(
+            *a[:11], emission=a[11], flip=a[12],
+            address_mode=cfg.address_mode, **kw)
+    else:
+        want = sweep_ref_bwd.sweep_ref_bwd_reference(*a, **kw)
+    if kw.get("light") is None:
+        got, want = (got,), (want,)
+    errs, msg = [], ""
+    for k, (gk, wk) in enumerate(zip(got, want)):
+        if gk.dtype != torch.float32:
+            fail(f"{name}: a kernel gradient is {gk.dtype}")
+        e, s = check_grad(gk, wk, f"{name} gradient {k}")
+        if not e <= BF16_GRAD_LIMIT * s:
+            fail(f"{name} gradient {k}: {e:.3e} above {BF16_GRAD_LIMIT} of "
+                 f"max {s:.3e}")
+        errs.append(e)
+        msg += f" {('dG', 'dL')[k]} max abs err {e:.3e} at max {s:.3e},"
+    log(f"{name}: loss {loss.item():.6e}, launches {launches},{msg} grid "
+        f"gradient max {float(g.grad.abs().max()):.3e}")
+    return errs, launches
+
+
+def bf16_full_width(dev, grid, flag_frames, flag_cams, grid4, cam4, plan4):
+    """Step 18: the main paths in the bfloat16 stream mode at full width,
+    each counted from 0. Returns ({kernel: [errors]}, [launch tuples])."""
+    errs = {name: [] for name in KERNELS}
+    paths = []
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    low = low_cfg(cfg)
+    medium = MediumConfig(combine="single", density=8.0)
+
+    # The flagship serving frames and the forward+backward step.
+    reset_counts()
+    imgs = []
+    for (name, plan, _), (_, cam) in zip(flag_frames, flag_cams):
+        imgs.append(render_image(grid, cam, low, medium, plan=plan))
+        torch.cuda.synchronize()
+    paths.append(counts())
+    if paths[-1] != (len(imgs), 0, 0, 0):
+        fail(f"bf16 serving path launched {paths[-1]}, expected "
+             f"({len(imgs)}, 0, 0, 0)")
+    for (name, plan, f32), img in zip(flag_frames, imgs):
+        errs["sweep_fwd"] += check_low_frame(
+            f"bf16 flagship {name}", img, f32, grid, None, plan, cfg, medium,
+            None, None)
+    e, launches = low_step("bf16 flagship fwd+bwd", grid, flag_cams[0][1],
+                           flag_frames[0][1], cfg, medium, None, None,
+                           sweep_bwd, (1, 1, 0, 0))
+    errs["sweep_bwd"] += e
+    paths.append(launches)
+
+    # The reference preset: eight frames and one step per mode.
+    rmed = MediumConfig()
+    scrolls = [reference_media_scroll(t, device=dev) for t in REF_TIMES]
+    scrolls += [seeded_scroll(seed, dev) for seed in REF_SCROLL_SEEDS]
+    cfgs = [RenderConfig(emission=em, quadrature="sliced")
+            for em in (False, True)]
+    reset_counts()
+    frames = []
+    for c in cfgs:
+        for sc in scrolls:
+            frames.append((c, sc, render_image(grid4, cam4, low_cfg(c), rmed,
+                                               scroll=sc, plan=plan4)))
+            torch.cuda.synchronize()
+    paths.append(counts())
+    if paths[-1] != (0, 0, len(frames), 0):
+        fail(f"bf16 reference serving path launched {paths[-1]}, expected "
+             f"(0, 0, {len(frames)}, 0)")
+    for k, (c, sc, img) in enumerate(frames):
+        f32 = render_image(grid4, cam4, c, rmed, scroll=sc, plan=plan4)
+        errs["sweep_ref_fwd"] += check_low_frame(
+            f"bf16 reference emission={c.emission} scroll {k % 4}", img, f32,
+            grid4, None, plan4, c, rmed, None, sc)
+    for c in cfgs:
+        e, launches = low_step(
+            f"bf16 reference fwd+bwd emission={c.emission}", grid4, cam4,
+            plan4, c, rmed, None, scrolls[2], sweep_ref_bwd, (0, 0, 1, 1))
+        errs["sweep_ref_bwd"] += e
+        paths.append(launches)
+
+    # Config 4: four shadowed orbit frames (the light volume is built in
+    # float32 and cast inside the node) and one shadowed step.
+    light = CONFIG4_LIGHT
+    cams = [orbit_camera(2.0 * math.pi * i / 4, width=WIDTH, height=HEIGHT)
+            for i in range(4)]
+    plans = [plan_for(cam, grid.shape, cfg, device=dev) for cam in cams]
+    reset_counts()
+    imgs = []
+    for cam, plan in zip(cams, plans):
+        imgs.append(render_image(grid, cam, low, medium, light, plan=plan))
+        torch.cuda.synchronize()
+    paths.append(counts())
+    if paths[-1] != (len(imgs), 0, 0, 0):
+        fail(f"bf16 config 4 serving path launched {paths[-1]}, expected "
+             f"({len(imgs)}, 0, 0, 0)")
+    lvol = light_transmittance_volume(grid, light, cfg, medium)
+    held = {}
+    for i, plan in enumerate(plans):
+        held.setdefault(plan.sign, i)
+    for i, (cam, plan, img) in enumerate(zip(cams, plans, imgs)):
+        f32 = render_image(grid, cam, cfg, medium, light, plan=plan,
+                           light_volume=lvol)
+        errs["sweep_fwd"] += check_low_frame(
+            f"bf16 config 4 frame {i} (axis {plan.axis}, sign "
+            f"{plan.sign:+d})", img, f32, grid, lvol, plan, cfg, medium,
+            light, None, held=i in held.values())
+    e, launches = low_step("bf16 config 4 fwd+bwd", grid, cams[0], plans[0],
+                           cfg, medium, light, None, sweep_bwd, (1, 1, 0, 0))
+    errs["sweep_bwd"] += e
+    paths.append(launches)
+
+    # The reference medium with shadows, density 8: two frames, one step.
+    smed = REF_SHADOW_MEDIUM
+    reset_counts()
+    frames = []
+    for sc in scrolls[2:]:
+        frames.append((sc, render_image(grid4, cam4, low, smed, light,
+                                        scroll=sc, plan=plan4)))
+        torch.cuda.synchronize()
+    paths.append(counts())
+    if paths[-1] != (0, 0, len(frames), 0):
+        fail(f"bf16 reference shadowed serving launched {paths[-1]}, "
+             f"expected (0, 0, {len(frames)}, 0)")
+    for k, (sc, img) in enumerate(frames):
+        lv4 = light_transmittance_volume(grid4, light, cfg, smed, scroll=sc)
+        f32 = render_image(grid4, cam4, cfg, smed, light, scroll=sc,
+                           plan=plan4, light_volume=lv4)
+        errs["sweep_ref_fwd"] += check_low_frame(
+            f"bf16 reference shadowed frame {k}", img, f32, grid4, lv4,
+            plan4, cfg, smed, light, sc)
+    e, launches = low_step("bf16 reference shadowed fwd+bwd", grid4, cam4,
+                           plan4, cfg, smed, light, scrolls[2],
+                           sweep_ref_bwd, (0, 0, 1, 1))
+    errs["sweep_ref_bwd"] += e
+    paths.append(launches)
+    log(f"bf16 main paths: launches (fwd, bwd, ref_fwd, ref_bwd) per path "
+        f"{paths}")
+    return errs, paths
+
+
+def bf16_timings(grid, cam, plan, cam_c4, plan_c4, grid4, cam4, plan4, dev,
+                 gpu_line):
+    """Step 19: CUDA-event timings of the four kernels in bfloat16 beside
+    float32 on the same plans, without and with a light volume, and of
+    render_image and the forward+backward step in the mode with a float32
+    grid (the cast included) and with a bfloat16 grid. Returns {kernel:
+    {"ms", "plain_ms", "ms_light", "f32", "f32_light", work, work_light}},
+    the work as (samples, lines, tensors) for the bounds."""
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    light = CONFIG4_LIGHT
+    out = {name: {} for name in KERNELS}
+
+    def single(plan, lvol, tag):
+        medium = MediumConfig(combine="single", density=8.0)
+        (stack, *args), flip = sweep_fwd.sweep_inputs(
+            grid.permute(plan.perm), plan, cfg, medium,
+            light if lvol is not None else None)
+        stack = stack.contiguous()
+        lstack = None if lvol is None else sweep_fwd.sweep_light_stack(
+            lvol.permute(plan.perm), plan, cfg).contiguous()
+        cts = [torch.randn(plan.base_shape, device=dev) for _ in range(3)]
+        samples, lines = inbox_samples(plan)
+        t = {}
+        for name, st, ls in (("f32", stack, lstack),
+                             ("bf16", stack.to(BF16),
+                              None if lstack is None else lstack.to(BF16))):
+            maps = sweep_fwd.launch_kernel(st, *args, True, flip, False, ls)
+            t[name] = (
+                cuda_ms(lambda: sweep_fwd.launch_kernel(
+                    st, *args, True, flip, False, ls)),
+                cuda_ms(lambda: sweep_bwd.launch_kernel(
+                    st, *args, *cts, maps[1], maps[2], True, flip, False,
+                    light=ls)))
+            if name == "bf16":
+                work = ((samples, lines, (st, *args, ls, maps)),
+                        (samples, lines, (st, *args, ls, *cts[1:], maps[1],
+                                          maps[2], stack, lstack)))
+                if lvol is None:
+                    kw = dict(emission=True, flip=flip,
+                              address_mode=cfg.address_mode)
+                    t["plain"] = (
+                        cuda_ms(lambda: sweep_fwd.sweep_fwd_reference(
+                            st, *args, **kw), runs=3, warmup=1),
+                        cuda_ms(lambda: sweep_bwd.sweep_bwd_reference(
+                            st, *args, *cts, maps[1], maps[2], **kw),
+                            runs=3, warmup=1))
+        for k, kname in enumerate(("sweep_fwd", "sweep_bwd")):
+            log(f"  {kname}{tag}: bfloat16 {t['bf16'][k]:.3f} ms, float32 "
+                f"{t['f32'][k]:.3f} ms"
+                + (f", plain version in bfloat16 {t['plain'][k]:.3f} ms"
+                   if "plain" in t else ""))
+        return t, work
+
+    def reference(medium, lit, tag):
+        scroll = seeded_scroll(REF_SCROLL_SEEDS[0], dev)
+        L, *args = sweep_ref_fwd.sweep_ref_inputs(
+            grid4.permute(plan4.perm + (3,)), plan4, cfg, medium,
+            light if lit else None, scroll)
+        slabs = None
+        if lit:
+            lv4 = light_transmittance_volume(grid4, light, cfg, medium,
+                                             scroll=scroll)
+            slabs = sweep_ref_fwd.sweep_ref_light_slabs(
+                lv4.permute(plan4.perm), plan4, cfg)
+        cts = [torch.randn(plan4.base_shape, device=dev) for _ in range(3)]
+        samples, lines = inbox_samples(plan4)
+        t = {}
+        for name, st, ls in (("f32", L, slabs),
+                             ("bf16", L.to(BF16),
+                              None if slabs is None else slabs.to(BF16))):
+            maps = sweep_ref_fwd.launch_kernel(st, *args, True, ls)
+            t[name] = (
+                cuda_ms(lambda: sweep_ref_fwd.launch_kernel(st, *args, True,
+                                                            ls)),
+                cuda_ms(lambda: sweep_ref_bwd.launch_kernel(
+                    st, *args, *cts, maps[1], maps[2], emission=True,
+                    light=ls)))
+            if name == "bf16":
+                work = ((samples, lines, (st, *args, ls, maps)),
+                        (samples, lines, (st, *args, ls, *cts[1:], maps[1],
+                                          maps[2], L, slabs)))
+                if not lit:
+                    t["plain"] = (
+                        cuda_ms(lambda: sweep_ref_fwd.sweep_ref_fwd_reference(
+                            st, *args, emission=True), runs=3, warmup=1),
+                        cuda_ms(lambda: sweep_ref_bwd.sweep_ref_bwd_reference(
+                            st, *args, *cts, maps[1], maps[2],
+                            emission=True), runs=3, warmup=1))
+        for k, kname in enumerate(("sweep_ref_fwd", "sweep_ref_bwd")):
+            log(f"  {kname}{tag}: bfloat16 {t['bf16'][k]:.3f} ms, float32 "
+                f"{t['f32'][k]:.3f} ms"
+                + (f", plain version in bfloat16 {t['plain'][k]:.3f} ms"
+                   if "plain" in t else ""))
+        return t, work
+
+    log(f"[{gpu_line}] the bfloat16 stream mode beside float32, same plans "
+        "(flagship; config 4 orbit frame 0 with light; the reference preset, "
+        "with light at density 8):")
+    lvol = light_transmittance_volume(
+        grid, light, cfg, MediumConfig(combine="single", density=8.0))
+    t0, w0 = single(plan, None, "")
+    t1, w1 = single(plan_c4, lvol, " with light")
+    r0, rw0 = reference(MediumConfig(), False, "")
+    r1, rw1 = reference(REF_SHADOW_MEDIUM, True, " with light")
+    for names, t, w, tl, wl in ((("sweep_fwd", "sweep_bwd"), t0, w0, t1, w1),
+                                (("sweep_ref_fwd", "sweep_ref_bwd"), r0, rw0,
+                                 r1, rw1)):
+        for k, name in enumerate(names):
+            out[name] = dict(ms=t["bf16"][k], plain_ms=t["plain"][k],
+                             f32=t["f32"][k], ms_light=tl["bf16"][k],
+                             f32_light=tl["f32"][k], work=w[k],
+                             work_light=wl[k])
+
+    # Frames and steps: float32; bfloat16 from a float32 grid (the node
+    # casts: a separate pass over the volume); bfloat16 from a bfloat16 grid
+    # (a viewer with a static grid casts once). The frames of a view are
+    # timed in turns, float32 first and last (these frames are bound by the
+    # host's launches, whose time drifts within a run), then the steps.
+    def frames_and_steps(view, variants, c, medium, lt, scroll, pl,
+                         runs=TIMED_RUNS):
+        rays = c.width * c.height
+
+        def render_ms(g, rc):
+            return cuda_ms(lambda: render_image(g, c, rc, medium, lt,
+                                                scroll=scroll, plan=pl),
+                           runs=runs)
+        for name, g, rc in variants + variants[:1]:
+            ms = render_ms(g, rc)
+            log(f"  {view} {name}: render_image {ms:.3f} ms = "
+                f"{rays / (ms * 1e-3):.4g} rays/s")
+        for name, g, rc in variants:
+            leaf = g.clone().requires_grad_()
+
+            def fwdbwd():
+                leaf.grad = None
+                (render_image(leaf, c, rc, medium, lt, scroll=scroll,
+                              plan=pl)[..., :3] ** 2).sum().backward()
+            fb = cuda_ms(fwdbwd, runs=runs)
+            log(f"  {view} {name}: forward+backward step {fb:.3f} ms = "
+                f"{rays / (fb * 1e-3):.4g} rays/s")
+
+    medium = MediumConfig(combine="single", density=8.0)
+    low = low_cfg(cfg)
+    cast_ms = cuda_ms(lambda: grid.to(BF16))
+    log(f"  cast of the {tuple(grid.shape)} grid to bfloat16: {cast_ms:.3f} "
+        "ms")
+
+    def variants(g):
+        return [("float32", g, cfg),
+                ("bfloat16, float32 grid (cast included)", g, low),
+                ("bfloat16, bfloat16 grid", g.to(BF16), low)]
+    frames_and_steps("flagship", variants(grid), cam, medium, None, None,
+                     plan)
+    frames_and_steps("reference preset", variants(grid4), cam4,
+                     MediumConfig(), None,
+                     seeded_scroll(REF_SCROLL_SEEDS[0], dev), plan4)
+    frames_and_steps("config 4 shadowed", variants(grid)[:2], cam_c4, medium,
+                     light, None, plan_c4, runs=4)
+    return out
+
+
+PRESET_NAMES = ("config1", "config2", "config3", "config4", "reference")
+
+
+def preset_held(name, img, grid, lvol, plan, cfg, medium, light):
+    """A float32 preset frame `img` against the plain version at the
+    preset's own shapes: the forward kernel's base maps on the (D, H, W)
+    grid (and light volume) held to sweep_fwd_reference on the same stacks,
+    and the frame held to finish_image of the plain maps. Comparison
+    launches, not the main path. Returns (maps error, image error)."""
+    (stack, *args), flip = sweep_fwd.sweep_inputs(
+        grid.permute(plan.perm), plan, cfg, medium, light)
+    stack = stack.contiguous()
+    lstack = None if lvol is None else sweep_fwd.sweep_light_stack(
+        lvol.permute(plan.perm), plan, cfg).contiguous()
+    wrap = cfg.address_mode == "wrap"
+    with torch.no_grad():
+        got = sweep_fwd.launch_kernel(stack, *args, cfg.emission, flip, wrap,
+                                      lstack).unbind(0)
+        torch.cuda.synchronize()
+        want = sweep_fwd.sweep_fwd_reference(
+            stack, *args, emission=cfg.emission, flip=flip,
+            address_mode=cfg.address_mode, light=lstack)
+        e = max(check_close(g, w, f"{name} {n}")
+                for g, w, n in zip(got, want, ("acc", "trans", "wsum", "hit")))
+        e_img = check_close(img, finish_image(want, plan, cfg, medium, light),
+                            f"{name} image")
+    log(f"{name}: stack {tuple(stack.shape)}, base {plan.base_shape}, "
+        f"light volume {lvol is not None}; kernel against plain version: "
+        f"maps max abs err {e:.3e}, image {e_img:.3e}")
+    return e, e_img
+
+
+def preset_front_end(dev, out_dir):
+    """Step 20: the preset front end on the card: `cli render --preset` for
+    each preset at its own full size (launches counted from 0 around each
+    command, wall time with the volume and plan build), the PNG against
+    render_image on the same grid, config2 also in bfloat16 through
+    render_preset, and `cli info`. Each sliced preset's frame is also held
+    to the plain version at the shapes the preset gives the kernel (its own
+    volume and image size; grid[..., 0] of the (D, H, W, 1) grid, or the
+    baked grid): the base maps, and the frame against finish_image of the
+    plain maps. Returns ([launch tuples] of the presets that reach a
+    kernel, {kernel: [errors]})."""
+    from volumetricrenderer_tpu_torch import (PRESETS, cli, render_preset,
+                                              render_scene)
+    from volumetricrenderer_tpu_torch.models import scene as scene_mod
+    from volumetricrenderer_tpu_torch.utils.image import encode_png
+    paths, errs = [], {name: [] for name in KERNELS}
+    for name in PRESET_NAMES:
+        p = PRESETS[name]
+        out = os.path.join(out_dir, f"chip_smoke_preset_{name}.png")
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["render", "--preset", name, "--out", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        if rc != 0:
+            fail(f"cli render --preset {name} returned {rc}")
+        sliced = p.render.quadrature == "sliced"
+        if launches != ((1, 0, 0, 0) if sliced else (0, 0, 0, 0)):
+            fail(f"cli render --preset {name} launched {launches}")
+        # The same frame through render_image on the same grid.
+        cam = make_camera(p.camera)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if p.scene:
+                vols = getattr(scene_mod, p.scene)(p.volume.size, device=dev)
+                grid = bake_scene(vols, p.volume.size, p.render)
+                scroll = None
+            else:
+                grid = build_volume(p.volume, device=dev)
+                scroll = reference_media_scroll(
+                    0.0, n_channels=grid.shape[-1], device=dev)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = render_image(grid, cam, p.render, p.medium, p.light,
+                                scroll=scroll)
+            torch.cuda.synchronize()
+            render_s = time.perf_counter() - t0
+            again = render_preset(p, grid=None if p.scene else grid,
+                                  device=dev)
+        if tuple(want.shape) != (p.camera.height, p.camera.width, 4) \
+                or not bool(torch.isfinite(want).all()) \
+                or not float(want[..., 3].max()) > 0.0:
+            fail(f"preset {name}: shape {tuple(want.shape)}, non-finite or "
+                 "empty frame")
+        if not torch.equal(again, want):
+            fail(f"preset {name}: render_preset and render_image on the "
+                 f"same grid differ by {max_err(again, want):.3e}")
+        with open(out, "rb") as f:
+            if f.read() != encode_png(want):
+                fail(f"preset {name}: the PNG of cli render is not "
+                     "render_image's frame")
+        log(f"cli render --preset {name}: volume {p.volume.size}^3, "
+            f"{p.camera.width}x{p.camera.height}, wall {wall:.3f} s with the "
+            f"volume, plan and kernel set-up (volume build alone "
+            f"{build_s:.3f} s, render_image with its plan {render_s:.3f} s), "
+            f"launches (fwd, bwd, ref_fwd, ref_bwd) {launches}"
+            + ("" if sliced else ": quadrature \"fixed\" marches per ray and "
+               "launches no kernel")
+            + f"; PNG equals render_image on the same grid, alpha mean "
+            f"{float(want[..., 3].mean()):.4f}")
+        if sliced:
+            paths.append(launches)
+            # The kernel against its plain version at this preset's shapes
+            # (comparison launches, after the counted command).
+            g3 = grid[..., 0] if grid.dim() == 4 else grid
+            plan = plan_for(cam, g3.shape, p.render, device=dev)
+            shadowed = p.render.emission and p.light.shadow_steps > 0
+            with torch.no_grad():
+                lvol = light_transmittance_volume(
+                    g3, p.light, p.render, p.medium) if shadowed else None
+            e, e_img = preset_held(f"preset {name}", want, g3, lvol, plan,
+                                   p.render, p.medium, p.light)
+            errs["sweep_fwd"] += [e, e_img]
+        if name == "config2":
+            lowp = dataclasses.replace(p, render=low_cfg(p.render))
+            reset_counts()
+            with torch.no_grad():
+                img = render_preset(lowp, grid=grid, device=dev)
+            torch.cuda.synchronize()
+            if counts() != (1, 0, 0, 0):
+                fail(f"render_preset(config2, bfloat16) launched {counts()}")
+            paths.append(counts())
+            log(f"render_preset(config2, dtype=bfloat16): launches "
+                f"{counts()}")
+            errs["sweep_fwd"] += check_low_frame(
+                "preset config2 bfloat16", img, want, g3, None, plan,
+                p.render, p.medium, p.light, None)
+        del grid, want, again
+    if cli.main(["info"]) != 0:
+        fail("cli info failed")
+    return paths, errs
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None,
@@ -1623,7 +2408,24 @@ def main(argv=None):
     light_t = light_timings(grid, cam_c4, plan_c4, grid4, cam4, plan4, dev,
                             gpu_line, out_dir)
 
-    # 16. Results. No single PyTorch call marches a carried, gated slice
+    # 17. The bfloat16 stream mode at small shapes: the rounding probe,
+    # kernel against plain version, the gradient check in the mode.
+    low_errs = [bf16_small_checks(dev)]
+
+    # 18. The main paths in the mode at full width, each counted from 0.
+    e_low, low_paths = bf16_full_width(dev, grid, frames, cams, grid4, cam4,
+                                       plan4)
+    low_errs.append(e_low)
+
+    # 19. Timing of the mode beside float32 on the same plans.
+    low_t = bf16_timings(grid, cam, plan, cam_c4, plan_c4, grid4, cam4,
+                         plan4, dev, gpu_line)
+
+    # 20. The preset front end on the card.
+    preset_paths, e_preset = preset_front_end(dev, out_dir)
+    low_errs.append(e_preset)
+
+    # 21. Results. No single PyTorch call marches a carried, gated slice
     # sweep (grid_sample does one slice's taps only), so library_ms is null.
     times = {"sweep_fwd": (kernel_ms, plain_ms),
              "sweep_bwd": (bwd_ms, bwd_plain_ms),
@@ -1636,10 +2438,15 @@ def main(argv=None):
     results = []
     for k, (name, (_, source, line)) in enumerate(KERNELS.items()):
         launches_light = sum(path[k] for path in light_paths)
-        launches = sum(path[k] for path in main_paths) + launches_light
-        if launches - launches_light < 1 or launches_light < 1:
+        launches_low = sum(path[k] for path in low_paths)
+        launches_preset = sum(path[k] for path in preset_paths)
+        launches_f32 = sum(path[k] for path in main_paths) + launches_light
+        launches = launches_f32 + launches_low + launches_preset
+        if launches_f32 - launches_light < 1 or launches_light < 1 \
+                or launches_low < 1:
             fail(f"{name}: no launch on a main path ({launches} in all, "
-                 f"{launches_light} with a light volume)")
+                 f"{launches_light} with a light volume, {launches_low} in "
+                 "bfloat16)")
         bound_ms, bound_by, flops, nbytes = bound(name, *work[name])
         ms, plain = times[name]
         log(f"[{gpu_line}] {name}: {ms:.3f} ms against a bound of "
@@ -1652,7 +2459,19 @@ def main(argv=None):
             f"against a bound of {bound_l:.4f} ms ({by_l}: {flops:.4g} "
             f"float operations, {nbytes:.4g} bytes), {launches_light} of "
             "those launches")
-        kernel_errs[name] += [e for errs_ in light_errs
+        lt = low_t[name]
+        bound_low, by_low, flops, nbytes = bound(name, *lt["work"])
+        bound_low_l, by_low_l, flops_l, nbytes_l = bound(name + "+light",
+                                                         *lt["work_light"])
+        log(f"[{gpu_line}] {name} in bfloat16: {lt['ms']:.3f} ms (float32 "
+            f"on the same plan {lt['f32']:.3f} ms) against a bound of "
+            f"{bound_low:.4f} ms ({by_low}: {flops:.4g} float operations, "
+            f"{nbytes:.4g} bytes); with a light volume {lt['ms_light']:.3f} "
+            f"ms (float32 {lt['f32_light']:.3f} ms) against "
+            f"{bound_low_l:.4f} ms ({by_low_l}: {flops_l:.4g} float "
+            f"operations, {nbytes_l:.4g} bytes); {launches_low} launches on "
+            f"the bfloat16 main paths, {launches_preset} on the presets'")
+        kernel_errs[name] += [e for errs_ in light_errs + low_errs
                               for e in errs_[name]]
         results.append({
             "name": name,
@@ -1672,6 +2491,13 @@ def main(argv=None):
             "plain_ms_light": plain_l,
             "bound_ms_light": bound_l,
             "bound_by_light": by_l,
+            "launches_bf16": launches_low,
+            "ms_bf16": lt["ms"],
+            "ms_bf16_light": lt["ms_light"],
+            "plain_ms_bf16": lt["plain_ms"],
+            "bound_ms_bf16": bound_low,
+            "bound_by_bf16": by_low,
+            "bound_ms_bf16_light": bound_low_l,
         })
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

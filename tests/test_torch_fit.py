@@ -227,7 +227,7 @@ def test_cpu_fit_launches_no_kernel(problem):
 def test_cli_fit_writes_artifacts_and_resumes(tmp_path):
     out = str(tmp_path / "run")
     args = ["fit", "--size", "8", "--image-size", "16", "--steps", "4",
-            "--out-dir", out]
+            "--out-dir", out, "--device", "cpu"]
     assert cli.main(args) == 0
     for name in ("target.png", "fitted.png", "metrics.jsonl"):
         assert os.path.getsize(os.path.join(out, name)) > 0
@@ -244,7 +244,8 @@ def test_cli_fit_writes_artifacts_and_resumes(tmp_path):
 def test_cli_fit_fixed_quadrature(tmp_path):
     out = str(tmp_path / "run")
     assert cli.main(["fit", "--size", "6", "--image-size", "8", "--steps",
-                     "2", "--out-dir", out, "--quadrature", "fixed"]) == 0
+                     "2", "--out-dir", out, "--quadrature", "fixed",
+                     "--device", "cpu"]) == 0
     assert os.path.exists(os.path.join(out, "fitted.png"))
     _, _, _, extra = tckpt.restore_checkpoint(os.path.join(out, "ckpt"))
     assert extra == {"quadrature": "fixed"}

@@ -1,7 +1,8 @@
 """The hand-written CUDA sweep kernels (forward and backward, of the
 single-channel medium and of the 4-channel reference medium, without and
-with a light volume) against their plain PyTorch versions on the card. Every test here needs a CUDA GPU and
-skips without one (a CUDA kernel has no CPU mode). The file imports no
+with a light volume, in float32 and in the bfloat16 stream mode) against
+their plain PyTorch versions on the card. Every test here needs a CUDA GPU
+and skips without one (a CUDA kernel has no CPU mode). The file imports no
 JAX, so it runs on a GPU machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -20,6 +21,8 @@ from volumetricrenderer_tpu_torch import CameraConfig, LightConfig, \
     plan_for
 from volumetricrenderer_tpu_torch.kernels import sweep_bwd, sweep_fwd, \
     sweep_ref_bwd, sweep_ref_fwd
+from volumetricrenderer_tpu_torch.kernels.round_probe import \
+    round_weights_on_device
 from volumetricrenderer_tpu_torch.ops.integrate import reference_media_scroll
 
 RTOL, ATOL = 2e-4, 2e-5
@@ -641,3 +644,285 @@ def test_light_launches_validate_inputs(cuda):
         sweep_ref_bwd.launch_kernel(*inputs, *maps, maps[1], maps[2],
                                     emission=False, light=slabs)
     assert [m.launches for m in mods] == before
+
+
+# --- the bfloat16 stream mode of the four kernels --------------------------
+#
+# The kernels' bfloat16 instantiations against the plain versions in the same
+# mode (texels and tap weights rounded to bfloat16, everything else float32):
+# both read the same bfloat16 stacks and round the weights alike, so the
+# float32 tolerances above hold unchanged.
+
+BF16 = torch.bfloat16
+
+
+def _low(t):
+    return None if t is None else t.to(BF16)
+
+
+@pytest.mark.gpu
+def test_device_weight_rounding_matches_torch(cuda):
+    """round_weight<__nv_bfloat16> (__float2bfloat16_rn) against
+    torch's .to(bfloat16) on seeded weights in [0, 1], exact ties
+    included: both round to nearest even, bit for bit."""
+    from volumetricrenderer_tpu_torch.kernels.build import bf16_round
+    rng = np.random.default_rng(0)
+    w = rng.uniform(0.0, 1.0, 8192).astype(np.float32)
+    ties = ((w[:2048].view(np.uint32) & np.uint32(0xFFFF0000))
+            | np.uint32(0x8000)).view(np.float32)
+    x = torch.tensor(np.concatenate([w, 1.0 - w, ties, [0.0, 1.0]]),
+                     dtype=torch.float32, device=cuda)
+    got = round_weights_on_device(x)
+    torch.cuda.synchronize()
+    assert int((got != bf16_round(x)).sum()) == 0
+
+
+def _bf16_case(dev, eye, emission=True, mode="mirror", n_slices=None,
+               density=8.0, kind=None):
+    """K1 and K2 on bfloat16 stacks (with a light stack when `kind`) and
+    their plain versions on the same inputs."""
+    grid, cfg, plan, _ = _setup(dev, eye, emission, mode, n_slices)
+    medium = MediumConfig(combine="single", density=density)
+    (stack, *args), flip = sweep_fwd.sweep_inputs(
+        grid.permute(plan.perm), plan, cfg, medium, LIGHT if kind else None)
+    stack = _low(stack.contiguous())
+    light = None
+    if kind:
+        lvol = _light_volume(grid, cfg, medium, kind)
+        light = _low(sweep_fwd.sweep_light_stack(
+            lvol.permute(plan.perm), plan, cfg).contiguous())
+    wrap = mode == "wrap"
+    before = (sweep_fwd.launches, sweep_bwd.launches)
+    maps = sweep_fwd.launch_kernel(stack, *args, emission, flip, wrap, light)
+    rng = np.random.default_rng(9)
+    cts = [torch.tensor(rng.normal(size=plan.base_shape), dtype=torch.float32,
+                        device=dev) for _ in range(3)]
+    got = sweep_bwd.launch_kernel(stack, *args, *cts, maps[1], maps[2],
+                                  emission, flip, wrap, light=light)
+    torch.cuda.synchronize()
+    assert (sweep_fwd.launches, sweep_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    kw = dict(emission=emission, flip=flip, address_mode=mode, light=light)
+    want_maps = sweep_fwd.sweep_fwd_reference(stack, *args, **kw)
+    want = sweep_bwd.sweep_bwd_reference(stack, *args, *cts, maps[1],
+                                         maps[2], **kw)
+    if light is None:
+        got, want = (got,), (want,)
+    assert all(g.dtype == torch.float32 for g in (*maps, *got))
+    return maps, want_maps, got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eye,axis,sign", EYES)
+@pytest.mark.parametrize("emission", [True, False])
+@pytest.mark.parametrize("mode", ["mirror", "clamp", "wrap"])
+def test_bf16_kernels_match_plain_versions(cuda, eye, axis, sign, emission,
+                                           mode):
+    _assert_light_case(*_bf16_case(cuda, eye, emission, mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eye,axis,sign", EYES)
+@pytest.mark.parametrize("mode", ["mirror", "wrap"])
+@pytest.mark.parametrize("kind", ["ones", "pushed"])
+def test_bf16_light_kernels_match_plain_versions(cuda, eye, axis, sign, mode,
+                                                 kind):
+    """With rounded weights a fully lit neighbourhood samples just above
+    or just below 1: kernel and plain version must decide each such sample
+    on the same float, or dL differs by whole shares."""
+    _assert_light_case(*_bf16_case(cuda, eye, mode=mode, kind=kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", [None, "ones", "pushed"])
+def test_bf16_kernels_sub_voxel(cuda, kind):
+    _assert_light_case(*_bf16_case(cuda, EYES[0][0], n_slices=24, kind=kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", [None, "ones"])
+def test_bf16_backward_kernel_early_stop_gate(cuda, kind):
+    """Density 500: the replay reads the very bfloat16 texels and rounds
+    the weights as the forward did, so it stops where the forward did."""
+    maps, want_maps, got, want = _bf16_case(cuda, EYES[0][0], density=500.0,
+                                            kind=kind)
+    assert float(maps[1].min()) < 1e-3
+    _assert_light_case(maps, want_maps, got, want, tol=5e-4)
+
+
+def _bf16_ref_case(dev, eye, emission=True, kind=None, n_slices=None,
+                   density=None):
+    density = density or (8.0 if kind else 1.0)
+    grid, cfg, plan, _, _ = _ref_setup(dev, eye, emission, n_slices=n_slices)
+    medium = MediumConfig(combine="reference", density=density)
+    scroll = _scroll("random", dev)
+    L, *args = sweep_ref_fwd.sweep_ref_inputs(
+        grid.permute(plan.perm + (3,)), plan, cfg, medium,
+        LIGHT if kind else None, scroll)
+    L, light = _low(L), None
+    if kind:
+        lvol = _light_volume(grid, cfg, medium, kind, scroll)
+        light = _low(sweep_ref_fwd.sweep_ref_light_slabs(
+            lvol.permute(plan.perm), plan, cfg))
+    before = (sweep_ref_fwd.launches, sweep_ref_bwd.launches)
+    maps = sweep_ref_fwd.launch_kernel(L, *args, emission, light)
+    rng = np.random.default_rng(9)
+    cts = [torch.tensor(rng.normal(size=plan.base_shape), dtype=torch.float32,
+                        device=dev) for _ in range(3)]
+    got = sweep_ref_bwd.launch_kernel(L, *args, *cts, maps[1], maps[2],
+                                      emission=emission, light=light)
+    torch.cuda.synchronize()
+    assert (sweep_ref_fwd.launches, sweep_ref_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_maps = sweep_ref_fwd.sweep_ref_fwd_reference(
+        L, *args, emission=emission, light=light)
+    want = sweep_ref_bwd.sweep_ref_bwd_reference(
+        L, *args, *cts, maps[1], maps[2], emission=emission, light=light)
+    if light is None:
+        got, want = (got,), (want,)
+    assert all(g.dtype == torch.float32 for g in (*maps, *got))
+    return maps, want_maps, got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eye,axis,sign", EYES)
+@pytest.mark.parametrize("emission", [True, False])
+def test_bf16_ref_kernels_match_plain_versions(cuda, eye, axis, sign,
+                                               emission):
+    _assert_light_case(*_bf16_ref_case(cuda, eye, emission))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eye,axis,sign", EYES)
+@pytest.mark.parametrize("kind", ["ones", "pushed"])
+def test_bf16_ref_light_kernels_match_plain_versions(cuda, eye, axis, sign,
+                                                     kind):
+    _assert_light_case(*_bf16_ref_case(cuda, eye, kind=kind))
+
+
+@pytest.mark.gpu
+def test_bf16_ref_kernels_sub_voxel_and_gate(cuda):
+    _assert_light_case(*_bf16_ref_case(cuda, EYES[0][0], kind="pushed",
+                                       n_slices=24))
+    for kind in (None, "ones"):
+        maps, want_maps, got, want = _bf16_ref_case(cuda, EYES[0][0],
+                                                    kind=kind, density=500.0)
+        assert float(maps[1].min()) < 1e-3
+        _assert_light_case(maps, want_maps, got, want, tol=5e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combine", ["single", "reference"])
+@pytest.mark.parametrize("shadows", [False, True],
+                         ids=["unshadowed", "shadowed"])
+def test_bf16_gpu_render_and_gradient_match_cpu(cuda, combine, shadows):
+    """render_image with dtype="bfloat16" on the card (the cast inside the
+    node, the kernels' bfloat16 instantiations forward and backward)
+    against the same on the CPU (the plain versions): the image, and
+    d/dgrid of sum(rgb^2) in float32. Within 3e-2 max / 3e-3 mean of the
+    float32 frame."""
+    from volumetricrenderer_tpu_torch import cloud_volume, render_image
+    if combine == "single":
+        grid_c = cloud_volume(32, 7)
+        medium, scroll = MediumConfig(combine="single", density=8.0), "none"
+    else:
+        grid_c = torch.tensor(
+            np.random.default_rng(1).uniform(0.1, 1.0, (24, 24, 24, 4)),
+            dtype=torch.float32)
+        medium, scroll = MediumConfig(combine="reference", density=6.0), \
+            "random"
+    cam = make_camera(CameraConfig(width=96, height=64))
+    cfg = RenderConfig(emission=True, quadrature="sliced", dtype="bfloat16")
+    light = LightConfig(shadow_steps=32) if shadows else None
+    imgs, grads = [], []
+    for g in (grid_c.to(cuda), grid_c.clone()):
+        g.requires_grad_()
+        img = render_image(g, cam, cfg, medium, light,
+                           scroll=_scroll(scroll, g.device))
+        (img[..., :3] ** 2).sum().backward()
+        assert g.grad.dtype == torch.float32
+        imgs.append(img.detach().cpu())
+        grads.append(g.grad.cpu())
+    torch.testing.assert_close(imgs[0], imgs[1], rtol=RTOL, atol=1e-4)
+    _assert_grad_close(*grads)
+    f32 = render_image(grid_c.to(cuda), cam, RenderConfig(
+        emission=True, quadrature="sliced"), medium, light,
+        scroll=_scroll(scroll, cuda)).cpu()
+    d = (imgs[0] - f32).abs()
+    assert 0.0 < float(d.max()) < 3e-2 and float(d.mean()) < 3e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combine", ["single", "reference"])
+def test_bf16_cuda_path_never_runs_plain_versions(cuda, monkeypatch,
+                                                  combine):
+    """In the bfloat16 mode on a CUDA grid, forward and backward launch
+    the kernels, once each, and never reach a plain version; a float32 grid
+    gets a float32 gradient, a bfloat16 grid a bfloat16 one and the same
+    maps."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called on the CUDA path")
+    monkeypatch.setattr(sweep_fwd, "sweep_fwd_reference", refuse)
+    monkeypatch.setattr(sweep_bwd, "sweep_bwd_reference", refuse)
+    monkeypatch.setattr(sweep_ref_fwd, "sweep_ref_fwd_reference", refuse)
+    monkeypatch.setattr(sweep_ref_bwd, "sweep_ref_bwd_reference", refuse)
+    if combine == "single":
+        grid, cfg, plan, medium = _setup(cuda, EYES[3][0], True)
+        mods = (sweep_fwd, sweep_bwd)
+    else:
+        grid, cfg, plan, medium, _ = _ref_setup(cuda, EYES[3][0], True)
+        mods = (sweep_ref_fwd, sweep_ref_bwd)
+    cfg = RenderConfig(emission=True, quadrature="sliced", dtype="bfloat16")
+    lv = _light_volume(grid, cfg, medium, "pushed")
+    out = []
+    for dt in (torch.float32, BF16):
+        g = grid.to(BF16).to(dt).requires_grad_()
+        before = [m.launches for m in mods]
+        if combine == "single":
+            maps = sweep_fwd.sweep_base(g.permute(plan.perm), plan, cfg,
+                                        medium, LIGHT,
+                                        lperm=lv.permute(plan.perm))
+        else:
+            maps = sweep_ref_fwd.sweep_base_ref(
+                g.permute(plan.perm + (3,)), plan, cfg, medium, LIGHT,
+                lperm=lv.permute(plan.perm))
+        (maps[1].sum() + (maps[2] ** 2).sum()).backward()
+        torch.cuda.synchronize()
+        assert [m.launches for m in mods] == [b + 1 for b in before]
+        assert g.grad.dtype == dt and bool(torch.isfinite(g.grad).all())
+        assert float(g.grad.abs().max()) > 0
+        assert all(m.dtype == torch.float32 for m in maps)
+        out.append(maps)
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bf16_launches_validate_inputs(cuda):
+    """The stack and the light stack must share one stream type; every
+    other input stays float32."""
+    grid, cfg, plan, medium = _setup(cuda, EYES[0][0], True)
+    (stack, *args), flip = sweep_fwd.sweep_inputs(grid.permute(plan.perm),
+                                                  plan, cfg, medium)
+    stack = stack.contiguous()
+    light = torch.ones_like(stack)
+    maps = torch.zeros((3,) + plan.base_shape, device=cuda)
+    before = (sweep_fwd.launches, sweep_bwd.launches)
+    for s, l in ((_low(stack), light), (stack, _low(light))):
+        with pytest.raises(ValueError, match="light must be"):
+            sweep_fwd.launch_kernel(s, *args, True, flip, False, l)
+        with pytest.raises(ValueError, match="light must be"):
+            sweep_bwd.launch_kernel(s, *args, *maps, maps[1], maps[2], True,
+                                    flip, False, light=l)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sweep_fwd.launch_kernel(stack.half(), *args, True, flip, False)
+    with pytest.raises(ValueError, match="seglen"):
+        sweep_fwd.launch_kernel(_low(stack), *args[:3], _low(args[3]),
+                                args[4], True, flip, False)
+    with pytest.raises(ValueError, match="ct_wsum"):
+        sweep_bwd.launch_kernel(_low(stack), *args, maps[0], maps[1],
+                                _low(maps[2]), maps[1], maps[2], True, flip,
+                                False)
+    with pytest.raises(ValueError, match="CUDA"):
+        round_weights_on_device(torch.ones(4))
+    assert (sweep_fwd.launches, sweep_bwd.launches) == before

@@ -426,8 +426,10 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="reference combine"):
         tint.render_rays(g, o, d, tcfg, T.MediumConfig(),
                          T.LightConfig(shadow_steps=4))
-    with pytest.raises(NotImplementedError, match="scene_sigma"):
-        tint.scene_sigma([], o, tcfg, tmed)
+    # a scene's volumes sample the same medium
+    with pytest.raises(ValueError, match="reference combine"):
+        tint.scene_sigma([T.models.scene.Volume(g)], o, tcfg,
+                         T.MediumConfig())
     with pytest.raises(ValueError, match="unknown combine"):
         tint._light_transmittance(
             g, o, dataclasses.replace(tmed, combine="other"), None, tcfg,

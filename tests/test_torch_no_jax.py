@@ -23,6 +23,8 @@ def test_sources_import_no_jax():
     names = {str(p.relative_to(ROOT)) for p in _port_sources()}
     assert {"volumetricrenderer_tpu_torch/ops/lighting.py",
             "volumetricrenderer_tpu_torch/ops/media.py",
+            "volumetricrenderer_tpu_torch/utils/clock.py",
+            "volumetricrenderer_tpu_torch/utils/sanitize.py",
             "chip_smoke.py"} <= names
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -72,14 +74,37 @@ def test_port_imports_and_renders_without_jax():
             img = T.render_image(g, cam, cfg, med, shadows)
             assert img.shape == (32, 48, 4)
             assert bool(torch.isfinite(img).all())
+        # the bfloat16 stream mode and the preset front end
+        low = T.RenderConfig(emission=True, quadrature="sliced",
+                             dtype="bfloat16")
+        g = grid.clone().requires_grad_()
+        img = T.render_image(g, cam, low,
+                             T.MediumConfig(combine="single", density=8.0))
+        (img[..., :3] ** 2).sum().backward()
+        assert g.grad.dtype == torch.float32
+        assert bool(torch.isfinite(g.grad).all())
+        import dataclasses
+        for name in ("config1", "config3", "reference"):
+            p = T.get_preset(name)
+            p = dataclasses.replace(
+                p, volume=dataclasses.replace(p.volume, size=8),
+                camera=dataclasses.replace(p.camera, width=12, height=8))
+            img = T.render_preset(p, t=0.5, device="cpu")
+            assert img.shape == (8, 12, 4)
+            assert bool(torch.isfinite(img).all())
         import tempfile
         from volumetricrenderer_tpu_torch import cli
         from volumetricrenderer_tpu_torch.utils import checkpoint
         out = tempfile.mkdtemp()
         args = ["fit", "--size", "8", "--image-size", "16", "--steps", "2",
-                "--out-dir", out]
+                "--out-dir", out, "--device", "cpu"]
         assert cli.main(args) == 0 and cli.main(args + ["--resume"]) == 0
         assert checkpoint.latest_step(out + "/ckpt") == 2
+        assert cli.main(["render", "--preset", "config4", "--volume-size",
+                         "8", "--width", "12", "--height", "8", "--out",
+                         out + "/frame.png", "--device", "cpu",
+                         "--check-nan"]) == 0
+        assert cli.main(["info", "--device", "cpu"]) == 0
         assert not any(k in ("jax", "optax")
                        or k.startswith(("jax.", "jaxlib", "optax."))
                        for k, v in sys.modules.items() if v is not None)

@@ -89,23 +89,23 @@ def test_render_backends_and_errors(cloud):
         T.render(grid, tcam, tcfg, tmed, backend="pallas", plan=plan), auto)
     with pytest.raises(ValueError, match="unknown backend"):
         T.render_image(grid, tcam, tcfg, tmed, backend="swep")
-    with pytest.raises(NotImplementedError, match="fixed"):
-        T.render_image(grid, tcam, dataclasses.replace(tcfg,
-                                                       quadrature="fixed"),
-                       tmed, backend="reference")
-    with pytest.raises(NotImplementedError):
-        T.render_image(grid, tcam, dataclasses.replace(tcfg,
-                                                       quadrature="fixed"),
-                       tmed)
+    # the "fixed" quadrature is the per-ray march, whatever the backend but
+    # "sweep" (test_torch_preset.py holds it to the JAX package)
+    fixed = dataclasses.replace(tcfg, quadrature="fixed")
+    small = T.make_camera(T.CameraConfig(width=12, height=8))
+    marched = T.render_image(grid, small, fixed, tmed, backend="reference")
+    assert marched.shape == (8, 12, 4)
+    torch.testing.assert_close(T.render_image(grid, small, fixed, tmed),
+                               marched, rtol=0, atol=0)
     with pytest.raises(ValueError, match="sliced"):
-        T.render_image(grid, tcam, dataclasses.replace(tcfg,
-                                                       quadrature="fixed"),
-                       tmed, backend="sweep")
-    # the reference combine needs a 4-D grid, the single combine a 3-D one
+        T.render_image(grid, tcam, fixed, tmed, backend="sweep")
+    # the reference combine needs a 4-D grid; the single combine takes
+    # channel 0 of a (D, H, W, C) grid
     with pytest.raises(NotImplementedError):
         T.render_image(grid, tcam, tcfg, T.MediumConfig(), plan=plan)
-    with pytest.raises(NotImplementedError):
-        T.render_image(grid[..., None], tcam, tcfg, tmed, plan=plan)
+    torch.testing.assert_close(
+        T.render_image(grid[..., None], tcam, tcfg, tmed, plan=plan), auto,
+        rtol=0, atol=0)
     grid4 = grid[..., None].expand(-1, -1, -1, 4)
     # a light volume must have the grid's spatial shape, and needs emission
     with pytest.raises(NotImplementedError, match="light volume"):
@@ -114,16 +114,22 @@ def test_render_backends_and_errors(cloud):
     with pytest.raises(NotImplementedError, match="light volume"):
         T.render_image(grid, tcam, dataclasses.replace(tcfg, emission=False),
                        tmed, plan=plan, light_volume=grid)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
+    # bfloat16 is a stream mode of the sweep now; no other type is
+    with pytest.raises(NotImplementedError, match="float16"):
         T.render_image(grid4, tcam,
-                       dataclasses.replace(tcfg, dtype="bfloat16"),
+                       dataclasses.replace(tcfg, dtype="float16"),
                        T.MediumConfig(), plan=plan)
-    # shadows with the "fixed" quadrature (the nested march) stay unported
-    # in render_image
-    with pytest.raises(NotImplementedError, match="fixed"):
-        T.render_image(grid, tcam,
-                       dataclasses.replace(tcfg, quadrature="fixed"), tmed,
-                       light=T.LightConfig(shadow_steps=32))
+    low = T.render_image(grid, tcam, dataclasses.replace(tcfg,
+                                                         dtype="bfloat16"),
+                         tmed, plan=plan)
+    assert low.dtype == torch.float32
+    assert 0.0 < float((low - auto).abs().max()) < 3e-2
+    # shadows with the "fixed" quadrature: the march casts its own shadow
+    # rays and builds no light volume
+    shadowed = T.render_image(grid, small, fixed, tmed,
+                              light=T.LightConfig(shadow_steps=4))
+    assert bool((shadowed[..., :3] <= marched[..., :3] + 1e-6).all())
+    assert float((marched[..., :3] - shadowed[..., :3]).max()) > 1e-3
 
 
 def _grid4(seed=0, d=16):

@@ -184,8 +184,11 @@ def test_supported_gate():
     med = MediumConfig(combine="single", density=8.0)
     assert sweep_fwd.supported(cfg, med, None, None, 3)
     assert not sweep_fwd.supported(cfg, MediumConfig(), None, None, 3)
-    assert not sweep_fwd.supported(
+    # both stream types, as the TPU gate (sweep_pallas.supported)
+    assert sweep_fwd.supported(
         dataclasses.replace(cfg, dtype="bfloat16"), med, None, None, 3)
+    assert not sweep_fwd.supported(
+        dataclasses.replace(cfg, dtype="float16"), med, None, None, 3)
     assert not sweep_fwd.supported(cfg, med, None, None, 4)
     assert not sweep_fwd.supported(cfg, med, None, object(), 3)
     # a light volume is taken with emission when it is 3-D

@@ -340,7 +340,9 @@ def test_supported_gate():
     assert not sweep_fwd.supported(
         dataclasses.replace(cfg, emission=False),
         MediumConfig(combine="reference"), lvol, None, 4)
-    assert not sweep_fwd.supported(dataclasses.replace(cfg, dtype="bfloat16"),
+    assert sweep_fwd.supported(dataclasses.replace(cfg, dtype="bfloat16"),
+                               med, lvol, None, 3)
+    assert not sweep_fwd.supported(dataclasses.replace(cfg, dtype="float16"),
                                    med, lvol, None, 3)
 
 

@@ -287,8 +287,10 @@ def test_supported_gate_reference():
     # a single-channel grid with the reference combine is invalid
     assert not sweep_fwd.supported(cfg, med, None, None, 3)
     assert not sweep_fwd.supported(cfg, med, object(), None, 4)
-    assert not sweep_fwd.supported(
+    assert sweep_fwd.supported(
         dataclasses.replace(cfg, dtype="bfloat16"), med, None, None, 4)
+    assert not sweep_fwd.supported(
+        dataclasses.replace(cfg, dtype="float16"), med, None, None, 4)
 
 
 def test_unported_reference_options_raise():
@@ -302,8 +304,8 @@ def test_unported_reference_options_raise():
         sweep_render(g, tplan, tcfg, tmed, light_volume=g[:-1, :, :, 0])
     with pytest.raises(NotImplementedError, match="light volume"):
         sweep_render(g, tplan, tcfg, tmed, light_volume=g)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        sweep_render(g, tplan, dataclasses.replace(tcfg, dtype="bfloat16"),
+    with pytest.raises(NotImplementedError, match="float16"):
+        sweep_render(g, tplan, dataclasses.replace(tcfg, dtype="float16"),
                      tmed)
     with pytest.raises(NotImplementedError, match="mirror"):
         sweep_render(g, tplan, dataclasses.replace(tcfg,

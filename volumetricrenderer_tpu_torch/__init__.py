@@ -10,8 +10,10 @@ PNG output), the training path (fit_grid, the per-ray oracle), the
 slice sweep as four hand-written CUDA kernels, each with its plain PyTorch
 version: forward and backward of the single-channel medium and of the
 4-channel reference medium, and the shadows of BASELINE config 4 (the
-light-transmittance volume and the kernels' light branch). This package
-never imports jax.
+light-transmittance volume and the kernels' light branch), the bfloat16
+stream mode of all four kernels (RenderConfig(dtype="bfloat16")), and the
+preset front end (render_preset, render_scene, `cli render` and `info`).
+This package never imports jax.
 """
 
 from .config import (  # noqa: F401
@@ -36,6 +38,13 @@ from .ops.camera import (  # noqa: F401
 from .ops.integrate import reference_media_scroll  # noqa: F401
 from .ops.lighting import light_transmittance_volume  # noqa: F401
 from .ops.media import materialize_sigma  # noqa: F401
-from .render import plan_for, render, render_image  # noqa: F401
+from .render import (  # noqa: F401
+    plan_for,
+    prepare_baked_scene,
+    render,
+    render_image,
+    render_preset,
+    render_scene,
+)
 
 __version__ = "0.1.0"

@@ -1,21 +1,149 @@
-"""Command-line entry point of the PyTorch port (port of the `fit`
-subcommand of volumetricrenderer_tpu/cli.py).
+"""Command-line entry point of the PyTorch port (port of the `render`,
+`fit` and `info` subcommands of volumetricrenderer_tpu/cli.py).
 
 Usage:
+  python -m volumetricrenderer_tpu_torch render --preset config2 \
+      --out frame.png
   python -m volumetricrenderer_tpu_torch fit --size 32 --steps 100 \
       --out-dir fit_run/
+  python -m volumetricrenderer_tpu_torch info
 
-The fit runs on the GPU when torch sees one (the sweep kernels forward and
-backward), else on the CPU (their plain versions).
+Every subcommand takes --device, "cuda" by default: the sweep kernels
+forward and backward. Without a GPU the command fails with torch's own
+error; only --device cpu runs the kernels' plain versions on the CPU.
 
-The JAX package's other subcommands (render, animate, serve, info) are not
-ported yet.
+The JAX package's other subcommands (animate, serve) are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help='torch device to run on (default "cuda": fails '
+                        'without a GPU); "cpu" runs the plain PyTorch '
+                        "versions of the kernels")
+
+
+def _add_common(p):
+    p.add_argument("--preset", default="config1",
+                   help="named BASELINE preset (config1..config5, reference)")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "sweep", "reference"],
+                   help='"sweep" = the slice sweep (the CUDA sweep kernels '
+                        'on a GPU), "reference" = per-ray oracle, auto = '
+                        "sweep when supported")
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--height", type=int, default=None)
+    p.add_argument("--volume-size", type=int, default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the render "
+                        "(Chrome trace JSON) to this directory")
+    p.add_argument("--check-nan", action="store_true",
+                   help="check the frame with torch.isfinite: abort naming "
+                        "the non-finite output on any NaN/Inf")
+    _add_device(p)
+
+
+class _MaybeProfile:
+    """torch.profiler around the block when a directory is given (the trace
+    is written to <dir>/trace.json on exit), no-op else."""
+
+    def __init__(self, profile_dir, device):
+        self.dir, self.device = profile_dir, device
+        self._prof = None
+
+    def __enter__(self):
+        if self.dir:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            os.makedirs(self.dir, exist_ok=True)
+            self._prof = profile(activities=acts)
+            self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            self._prof.__exit__(*exc)
+            self._prof.export_chrome_trace(os.path.join(self.dir,
+                                                        "trace.json"))
+        return False
+
+
+def _resolve_preset(args):
+    from .config import get_preset
+    try:
+        p = get_preset(args.preset)
+    except KeyError as e:
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        raise SystemExit(2)
+    if args.width or args.height:
+        cam = dataclasses.replace(
+            p.camera,
+            width=args.width or p.camera.width,
+            height=args.height or p.camera.height)
+        p = dataclasses.replace(p, camera=cam)
+    if args.volume_size:
+        p = dataclasses.replace(
+            p, volume=dataclasses.replace(p.volume, size=args.volume_size))
+    return p
+
+
+def cmd_render(args):
+    import torch
+
+    from .render import render_preset
+    from .utils.clock import Clock, sync
+    from .utils.image import write_png
+    from .utils.metrics import get_logger
+
+    dev = torch.device(args.device)
+    preset = _resolve_preset(args)
+    clock = Clock()
+
+    def do_render(t):
+        with torch.no_grad():
+            return render_preset(preset, t=t, backend=args.backend,
+                                 device=dev)
+    if args.check_nan:
+        from .utils.sanitize import checked
+        do_render = checked(do_render)
+    with _MaybeProfile(args.profile_dir, dev):
+        img = sync(do_render(args.time))
+    dt = clock.stamp()
+    write_png(args.out, img)
+    rays = preset.camera.width * preset.camera.height
+    get_logger().info("rendered %s %dx%d in %.3fs (%.2f Mrays/s) on %s -> %s",
+                      preset.name, preset.camera.width, preset.camera.height,
+                      dt, rays / dt / 1e6, dev, args.out)
+    return 0
+
+
+def cmd_info(args):
+    import torch
+
+    from .config import PRESETS
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        # Raises torch's own error without a GPU.
+        print("device:", dev, torch.cuda.get_device_name(dev))
+        print("devices:", torch.cuda.device_count())
+    else:
+        print("device:", dev)
+    print("torch:", torch.__version__, "cuda", torch.version.cuda)
+    for name, p in PRESETS.items():
+        print(f"  preset {name}: volume {p.volume.size}^3, "
+              f"{p.camera.width}x{p.camera.height}, "
+              f"emission={p.render.emission}, "
+              f"shadow_steps={p.light.shadow_steps}")
+    return 0
 
 
 def cmd_fit(args):
@@ -32,7 +160,7 @@ def cmd_fit(args):
     from .utils.image import write_png
     from .utils.metrics import MetricsWriter, get_logger
 
-    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dev = torch.device(args.device)
     os.makedirs(args.out_dir, exist_ok=True)
     # Default: the slice sweep, differentiated through the sweep kernels
     # on a GPU; --quadrature fixed is the per-ray march of ops/integrate.
@@ -107,6 +235,13 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="volumetricrenderer_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    pr = sub.add_parser("render", help="render one frame to PNG")
+    _add_common(pr)
+    pr.add_argument("--time", type=float, default=0.0,
+                    help="animation time (drives the media scroll)")
+    pr.add_argument("--out", default="frame.png")
+    pr.set_defaults(fn=cmd_render)
+
     pf = sub.add_parser("fit", help="inverse-render fit demo (config 3)")
     pf.add_argument("--size", type=int, default=32)
     pf.add_argument("--image-size", type=int, default=64)
@@ -121,7 +256,12 @@ def main(argv=None):
     pf.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint in "
                          "<out-dir>/ckpt")
+    _add_device(pf)
     pf.set_defaults(fn=cmd_fit)
+
+    pi = sub.add_parser("info", help="device + presets")
+    _add_device(pi)
+    pi.set_defaults(fn=cmd_info)
 
     args = parser.parse_args(argv)
     from .utils.metrics import init_logs

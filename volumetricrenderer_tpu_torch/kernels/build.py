@@ -10,7 +10,9 @@ import time, and a machine without nvcc raises instead of falling back.
 check_sweep_inputs is the sweep wrappers' check of their arguments before
 the pointers are passed to a kernel. NCH, N_PARAMS and channel_resample are
 what the two 4-channel sweep modules (sweep_ref_fwd, sweep_ref_bwd) share;
-light_sample is what the four plain versions share.
+light_sample is what the four plain versions share. bf16_round, stream_cast
+and the ELEM_* codes belong to the bfloat16 stream mode, which
+kernels/sweep_fwd.py defines.
 """
 from __future__ import annotations
 
@@ -28,10 +30,16 @@ from ..ops.resample import linear_resample_matrix, linear_taps
 
 __all__ = ["NVCC_FLAGS", "build_library", "source_key",
            "check_sweep_inputs", "NCH", "N_PARAMS", "channel_resample",
-           "light_sample"]
+           "light_sample", "bf16_round", "stream_cast", "ELEM_F32",
+           "ELEM_BF16"]
 
 NCH = 4        # channels of the reference medium
 N_PARAMS = 20  # sweep_fwd._params_for's 8, 4 coord scales, 4 b and 4 a offsets
+
+# The C launchers' element type codes (csrc/sweep_common.cuh kElemF32,
+# kElemBF16): the texel type of the stack and the light stack.
+ELEM_F32, ELEM_BF16 = 0, 1
+_ELEM = {torch.float32: ELEM_F32, torch.bfloat16: ELEM_BF16}
 
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
@@ -115,15 +123,32 @@ def build_library(name: str):
     return ctypes.CDLL(lib_path), info
 
 
+def bf16_round(x):
+    """x rounded to the nearest bfloat16 (ties to even) and widened back to
+    float32: the value a bfloat16 stream holds."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def stream_cast(x, low: bool):
+    """x in the sweep's stream type: bfloat16 when `low` (the bfloat16
+    stream mode), else float32. A tensor already in that type is returned
+    as it is, without a copy."""
+    if x is None:
+        return None
+    return x.to(torch.bfloat16 if low else torch.float32)
+
+
 def check_sweep_inputs(kernel: str, stack, slice_z, v_grid, u_grid, seglen,
                        params, maps=None, channels=None, n_params=8,
                        light=None):
     """Check the arguments the sweep kernels share, plus `maps` (name ->
     (Hb, Wb) tensor) and the optional (S, A, B) `light` stack, before
     their pointers go to a kernel: CUDA, the shapes the kernel assumes,
-    contiguous float32. `stack` is (S, A, B), or (S, channels, A, B) for
-    the 4-channel kernels; `params` is (n_params,). Returns
-    (S, A, B, Hb, Wb)."""
+    contiguous; `stack` and `light` float32 or bfloat16 (both of one type:
+    the stream mode), everything else float32. `stack` is (S, A, B), or
+    (S, channels, A, B) for the 4-channel kernels; `params` is
+    (n_params,). Returns (S, A, B, Hb, Wb, elem), elem the launchers' code
+    of the stack's type (ELEM_F32 or ELEM_BF16)."""
     dev = stack.device
     if dev.type != "cuda":
         raise ValueError(f"{kernel} kernel: needs CUDA tensors, got {dev}")
@@ -143,36 +168,41 @@ def check_sweep_inputs(kernel: str, stack, slice_z, v_grid, u_grid, seglen,
     named += [(k, t, (Hb, Wb)) for k, t in (maps or {}).items()]
     if light is not None:
         named.append(("light", light, (S, A, B)))
+    if stack.dtype not in _ELEM:
+        raise ValueError(f"{kernel} kernel: stack must be float32 or "
+                         f"bfloat16, got {stack.dtype}")
     for name, t, shape in named:
         if t is None:
             raise ValueError(f"{kernel} kernel: {name} is required")
-        if t.device != dev or t.dtype != torch.float32 \
-                or not t.is_contiguous():
+        want = stack.dtype if name in ("stack", "light") else torch.float32
+        if t.device != dev or t.dtype != want or not t.is_contiguous():
             raise ValueError(
-                f"{kernel} kernel: {name} must be a contiguous float32 "
+                f"{kernel} kernel: {name} must be a contiguous {want} "
                 f"tensor on {dev}; got {t.dtype} on {t.device}, "
                 f"contiguous={t.is_contiguous()}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{kernel} kernel: {name} must be {shape}, got "
                              f"{tuple(t.shape)}")
-    return S, A, B, Hb, Wb
+    return S, A, B, Hb, Wb, _ELEM[stack.dtype]
 
 
-def channel_resample(a01, b01, params, c, A, B):
+def channel_resample(a01, b01, params, c, A, B, low=False):
     """Channel c's banded tap matrices on one slice of the 4-channel
     sweep: (Wa (Hb, A), Wb (Wb, B)) at the scaled and scrolled coords
     a01 * sc + offa and b01 * sc + offb with mirror addressing. Wa's rows
     are zeroed where the unscaled a01 leaves [0, 1]: the box test comes from
-    the ray, the mirror applies to the texture coordinate only."""
+    the ray, the mirror applies to the texture coordinate only. low: the
+    bfloat16 stream mode, each tap weight rounded to bfloat16."""
     sc = params[8 + c]
     inr = ((a01 >= 0.0) & (a01 <= 1.0)).to(torch.float32)
-    Wa = linear_resample_matrix(a01 * sc + params[16 + c], A, "mirror") \
-        * inr[:, None]
-    Wbm = linear_resample_matrix(b01 * sc + params[12 + c], B, "mirror")
+    Wa = linear_resample_matrix(a01 * sc + params[16 + c], A, "mirror",
+                                round_bf16=low) * inr[:, None]
+    Wbm = linear_resample_matrix(b01 * sc + params[12 + c], B, "mirror",
+                                 round_bf16=low)
     return Wa, Wbm
 
 
-def light_sample(layer, a01, b01, address_mode):
+def light_sample(layer, a01, b01, address_mode, low=None):
     """The plain versions' bilinear sample lT of an (A, B) light layer at
     rows a01 (Hb,) and columns b01 (Wb,): (Hb, Wb), differentiable in the
     layer.
@@ -184,10 +214,21 @@ def light_sample(layer, a01, b01, address_mode):
     within an ulp. A sample that rounds to 1.0 in one summation order and
     to 1 - 2^-24 in another would halve that sample's share of dL; summed
     in one order, kernel and plain version decide every tie on the same
-    float."""
+    float.
+
+    A bfloat16 layer is the bfloat16 stream mode: its texels are widened
+    and the four weights are each rounded to bfloat16, as the kernels round
+    them. They then sum to 1 only to within 2^-8, so a fully lit
+    neighbourhood samples just above or just below 1, sample by sample,
+    and only the same weights in the same order decide each alike. low=True
+    forces that mode's weights on a float32 layer (the plain forwards'
+    private `_low`)."""
     A, B = layer.shape
-    a0, a1, wa0, wa1 = linear_taps(a01, A, address_mode)
-    b0, b1, wb0, wb1 = linear_taps(b01, B, address_mode)
+    if low is None:
+        low = layer.dtype == torch.bfloat16
+    layer = layer.to(torch.float32)
+    a0, a1, wa0, wa1 = linear_taps(a01, A, address_mode, round_bf16=low)
+    b0, b1, wb0, wb1 = linear_taps(b01, B, address_mode, round_bf16=low)
     r0, r1 = layer.index_select(0, a0), layer.index_select(0, a1)
     wa0, wa1, wb0, wb1 = wa0[:, None], wa1[:, None], wb0[None, :], wb1[None, :]
     return (wa0 * (wb0 * r0.index_select(1, b0) + wb1 * r0.index_select(1, b1))

@@ -48,14 +48,21 @@
 //
 // Numerics: dG sums in another order on every run (atomics), so it agrees
 // with the plain version to a tolerance, not bit for bit.
+//
+// Stream modes: the texel type T of `stack` and `light` is a template
+// parameter, float or __nv_bfloat16, as in the forward. The replay reads
+// the very bfloat16 stacks the forward read and rounds the weights through
+// the same sweep::round_weight<T>, so T is still the forward's bit for bit;
+// the adjoint scatters with those rounded weights. The cotangents, dsigma
+// and both gradients are float32 in either mode.
 
 #include "sweep_common.cuh"
 
 namespace {
 
-template <bool kLight>
+template <bool kLight, typename T>
 __global__ void __launch_bounds__(256) sweep_bwd_kernel(
-    const float* __restrict__ stack, const float* __restrict__ light,
+    const T* __restrict__ stack, const T* __restrict__ light,
     const float* __restrict__ slice_z,
     const float* __restrict__ v_grid, const float* __restrict__ u_grid,
     const float* __restrict__ seglen, const float* __restrict__ params,
@@ -86,28 +93,28 @@ __global__ void __launch_bounds__(256) sweep_bwd_kernel(
       sweep::Taps t;
       if (!sweep::sample_taps(P, delta, v, u, A, B, wrap, t)) continue;
       const int k = flip ? S - 1 - s : s;
-      const float sigma = sweep::sigma_at(stack + (size_t)k * layer, B, t,
-                                          P.sscale);
+      const float sigma = sweep::sigma_at<T>(stack + (size_t)k * layer, B,
+                                             t, P.sscale);
       const float e = sweep::extinction(P, sigma, seg);
       const float alpha = 1.f - e;
       float dsigma;
       if constexpr (kLight) {
         float lT;
-        const float shade = sweep::light_shade(light + (size_t)k * layer, B,
-                                               t, P.ambient, lT);
+        const float shade = sweep::light_shade<T>(
+            light + (size_t)k * layer, B, t, P.ambient, lT);
         wr += (trans * alpha) * shade;
         const float a_til = bct - cw * wr;
         dsigma = P.density * seg * (cw * trans * shade * e - a_til);
-        sweep::light_shade_adjoint(dlight + (size_t)k * layer, B, t,
-                                   P.ambient, lT, cw, trans, alpha);
+        sweep::light_shade_adjoint<T>(dlight + (size_t)k * layer, B, t,
+                                      P.ambient, lT, cw, trans, alpha);
       } else {
         wr += trans * alpha;
         const float a_til = bct - cw * wr;
         dsigma = P.density * seg * (cw * trans * e - a_til);
       }
       trans *= 1.f - alpha;
-      sweep::bilinear_adjoint(dstack + (size_t)k * layer, B, t,
-                              dsigma * P.sscale);
+      sweep::bilinear_adjoint<T>(dstack + (size_t)k * layer, B, t,
+                                 dsigma * P.sscale);
     }
   } else {
     const float du = ct_acc[pix] * seg * P.sscale;
@@ -117,21 +124,48 @@ __global__ void __launch_bounds__(256) sweep_bwd_kernel(
       sweep::Taps t;
       if (!sweep::sample_taps(P, delta, v, u, A, B, wrap, t)) continue;
       const int k = flip ? S - 1 - s : s;
-      sweep::bilinear_adjoint(dstack + (size_t)k * layer, B, t, du);
+      sweep::bilinear_adjoint<T>(dstack + (size_t)k * layer, B, t, du);
     }
   }
+}
+
+template <typename T>
+int launch(const void* stack_v, const void* light_v, const float* slice_z,
+           const float* v_grid, const float* u_grid, const float* seglen,
+           const float* params, const float* ct_acc, const float* ct_trans,
+           const float* ct_wsum, const float* trans_out,
+           const float* wsum_out, float* dstack, float* dlight, int S, int A,
+           int B, int Hb, int Wb, int emission, int flip, int wrap,
+           cudaStream_t st) {
+  const T* stack = static_cast<const T*>(stack_v);
+  const T* light = static_cast<const T*>(light_v);
+  const dim3 block(32, 8);
+  const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
+  if (light)
+    sweep_bwd_kernel<true, T><<<grid, block, 0, st>>>(
+        stack, light, slice_z, v_grid, u_grid, seglen, params, ct_acc,
+        ct_trans, ct_wsum, trans_out, wsum_out, dstack, dlight, S, A, B, Hb,
+        Wb, emission, flip, wrap);
+  else
+    sweep_bwd_kernel<false, T><<<grid, block, 0, st>>>(
+        stack, light, slice_z, v_grid, u_grid, seglen, params, ct_acc,
+        ct_trans, ct_wsum, trans_out, wsum_out, dstack, dlight, S, A, B, Hb,
+        Wb, emission, flip, wrap);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches the backward sweep on `stream` and returns cudaGetLastError()
-// (0 when the launch was accepted). Emission reads ct_trans, ct_wsum and
-// the forward's trans and wsum maps; absorption reads ct_acc. The maps are
-// (Hb, Wb); the pointers a mode does not read may be null. `dstack` is the
-// zeroed (S, A, B) gradient. `light` is the (S, A, B) light stack the
-// forward read and `dlight` its zeroed gradient, or both null for no light
-// volume (emission only).
-extern "C" int sweep_bwd_launch(const float* stack, const float* light,
+// (0 when the launch was accepted). `elem` is the texel type of `stack` and
+// `light`: sweep::kElemF32 or sweep::kElemBF16 (anything else is refused
+// with cudaErrorInvalidValue). Emission reads ct_trans, ct_wsum and the
+// forward's trans and wsum maps; absorption reads ct_acc. The maps are
+// (Hb, Wb) float32; the pointers a mode does not read may be null. `dstack`
+// is the zeroed (S, A, B) float32 gradient. `light` is the (S, A, B) light
+// stack the forward read and `dlight` its zeroed float32 gradient, or both
+// null for no light volume (emission only).
+extern "C" int sweep_bwd_launch(const void* stack, const void* light,
                                 const float* slice_z, const float* v_grid,
                                 const float* u_grid, const float* seglen,
                                 const float* params, const float* ct_acc,
@@ -139,19 +173,17 @@ extern "C" int sweep_bwd_launch(const float* stack, const float* light,
                                 const float* trans_out, const float* wsum_out,
                                 float* dstack, float* dlight, int S, int A,
                                 int B, int Hb, int Wb, int emission, int flip,
-                                int wrap, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
+                                int wrap, int elem, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (light)
-    sweep_bwd_kernel<true><<<grid, block, 0, st>>>(
-        stack, light, slice_z, v_grid, u_grid, seglen, params, ct_acc,
-        ct_trans, ct_wsum, trans_out, wsum_out, dstack, dlight, S, A, B, Hb,
-        Wb, emission, flip, wrap);
-  else
-    sweep_bwd_kernel<false><<<grid, block, 0, st>>>(
-        stack, light, slice_z, v_grid, u_grid, seglen, params, ct_acc,
-        ct_trans, ct_wsum, trans_out, wsum_out, dstack, dlight, S, A, B, Hb,
-        Wb, emission, flip, wrap);
-  return static_cast<int>(cudaGetLastError());
+  if (elem == sweep::kElemF32)
+    return launch<float>(stack, light, slice_z, v_grid, u_grid, seglen,
+                         params, ct_acc, ct_trans, ct_wsum, trans_out,
+                         wsum_out, dstack, dlight, S, A, B, Hb, Wb, emission,
+                         flip, wrap, st);
+  if (elem == sweep::kElemBF16)
+    return launch<__nv_bfloat16>(stack, light, slice_z, v_grid, u_grid,
+                                 seglen, params, ct_acc, ct_trans, ct_wsum,
+                                 trans_out, wsum_out, dstack, dlight, S, A, B,
+                                 Hb, Wb, emission, flip, wrap, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

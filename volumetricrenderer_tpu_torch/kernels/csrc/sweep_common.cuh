@@ -10,12 +10,51 @@
 // indices, the bilinear sum, sigma and the extinction factor from these
 // functions, with the same evaluation order, and the build passes
 // --fmad=false (kernels/build.py) so no product is fused into an add.
+//
+// The texel type T is a template parameter of everything that reads a
+// volume: float, or __nv_bfloat16 for the bfloat16 stream mode. In that mode
+// the stacks hold bfloat16 texels (2-byte reads, widened exactly) and each
+// of the four bilinear weights 1 - fa, fa, 1 - fb, fb is rounded to bfloat16
+// on its own (round_weight); products, sums, the carries, expf, the gate and
+// every gradient stay float32. The adjoints scatter with the rounded
+// weights the forward sampled with. With T = float round_weight is the
+// identity and the functions are the float32 kernels' as they were.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace sweep {
+
+// Element type codes of the C launchers' `elem` argument.
+constexpr int kElemF32 = 0;
+constexpr int kElemBF16 = 1;
+
+// One texel, widened to float. A bfloat16 is the upper 16 bits of the
+// float32 of the same value, so the widening is a shift.
+__device__ __forceinline__ float load_texel(const float* __restrict__ p) {
+  return __ldg(p);
+}
+
+__device__ __forceinline__ float load_texel(
+    const __nv_bfloat16* __restrict__ p) {
+  const unsigned short bits =
+      __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned int>(bits) << 16);
+}
+
+// A bilinear weight as the stream mode of texel type T holds it: unchanged
+// for float, rounded to the nearest bfloat16 (ties to even) for bfloat16.
+template <typename T>
+__device__ __forceinline__ float round_weight(float w) {
+  return w;
+}
+
+template <>
+__device__ __forceinline__ float round_weight<__nv_bfloat16>(float w) {
+  return __bfloat162float(__float2bfloat16_rn(w));
+}
 
 // params (8,) float32: e_k, e_a, e_b, sign, density, sample_scale,
 // early-stop transmittance, ambient (read only by the light branch).
@@ -81,21 +120,28 @@ __device__ __forceinline__ bool in_front(const Params& P, float delta) {
   return delta * P.sign > 0.f;
 }
 
-// The bilinear sample of an (A, B) layer at the taps.
-__device__ __forceinline__ float bilinear_at(const float* __restrict__ layer,
+// The bilinear sample of an (A, B) layer of texel type T at the taps: the
+// four-tap sum in float32, with the weights as round_weight<T> holds them.
+template <typename T>
+__device__ __forceinline__ float bilinear_at(const T* __restrict__ layer,
                                              int B, const Taps& t) {
-  const float g00 = __ldg(layer + (size_t)t.a0 * B + t.b0);
-  const float g01 = __ldg(layer + (size_t)t.a0 * B + t.b1);
-  const float g10 = __ldg(layer + (size_t)t.a1 * B + t.b0);
-  const float g11 = __ldg(layer + (size_t)t.a1 * B + t.b1);
-  return (1.f - t.fa) * ((1.f - t.fb) * g00 + t.fb * g01)
-       + t.fa * ((1.f - t.fb) * g10 + t.fb * g11);
+  const float g00 = load_texel(layer + (size_t)t.a0 * B + t.b0);
+  const float g01 = load_texel(layer + (size_t)t.a0 * B + t.b1);
+  const float g10 = load_texel(layer + (size_t)t.a1 * B + t.b0);
+  const float g11 = load_texel(layer + (size_t)t.a1 * B + t.b1);
+  return round_weight<T>(1.f - t.fa)
+             * (round_weight<T>(1.f - t.fb) * g00
+                + round_weight<T>(t.fb) * g01)
+       + round_weight<T>(t.fa)
+             * (round_weight<T>(1.f - t.fb) * g10
+                + round_weight<T>(t.fb) * g11);
 }
 
 // sigma = sample_scale * bilinear(layer) at the taps.
-__device__ __forceinline__ float sigma_at(const float* __restrict__ layer,
-                                          int B, const Taps& t, float sscale) {
-  return sscale * bilinear_at(layer, B, t);
+template <typename T>
+__device__ __forceinline__ float sigma_at(const T* __restrict__ layer, int B,
+                                          const Taps& t, float sscale) {
+  return sscale * bilinear_at<T>(layer, B, t);
 }
 
 // E = exp(-density * sigma * seg); the slice's opacity is alpha = 1 - E.
@@ -105,18 +151,22 @@ __device__ __forceinline__ float extinction(const Params& P, float sigma,
   return expf(-P.density * sigma * seg);
 }
 
-// The adjoint of sigma_at without its sample_scale: adds w * du to each of
-// the four texels, w its bilinear weight. When clipping puts both taps of
-// an axis on one edge texel, both weights land there.
+// The adjoint of sigma_at<T> without its sample_scale: adds w * du to each
+// of the four texels of the float32 gradient layer, w the bilinear weight
+// bilinear_at<T> sampled with (so rounded like it). When clipping puts both
+// taps of an axis on one edge texel, both weights land there.
+template <typename T>
 __device__ __forceinline__ void bilinear_adjoint(float* __restrict__ layer,
                                                  int B, const Taps& t,
                                                  float du) {
-  const float ra = du * (1.f - t.fa);
-  const float rb = du * t.fa;
-  atomicAdd(layer + (size_t)t.a0 * B + t.b0, ra * (1.f - t.fb));
-  atomicAdd(layer + (size_t)t.a0 * B + t.b1, ra * t.fb);
-  atomicAdd(layer + (size_t)t.a1 * B + t.b0, rb * (1.f - t.fb));
-  atomicAdd(layer + (size_t)t.a1 * B + t.b1, rb * t.fb);
+  const float ra = du * round_weight<T>(1.f - t.fa);
+  const float rb = du * round_weight<T>(t.fa);
+  const float wb0 = round_weight<T>(1.f - t.fb);
+  const float wb1 = round_weight<T>(t.fb);
+  atomicAdd(layer + (size_t)t.a0 * B + t.b0, ra * wb0);
+  atomicAdd(layer + (size_t)t.a0 * B + t.b1, ra * wb1);
+  atomicAdd(layer + (size_t)t.a1 * B + t.b0, rb * wb0);
+  atomicAdd(layer + (size_t)t.a1 * B + t.b1, rb * wb1);
 }
 
 // The light branch of all four sweep kernels. `light_layer` is the (A, B)
@@ -125,10 +175,11 @@ __device__ __forceinline__ void bilinear_adjoint(float* __restrict__ layer,
 // clip(lT, 0, 1) and keeps lT, the bilinear sample, for the adjoint. The
 // forward kernels add (T * alpha) * shade to wsum and the backward kernels
 // replay exactly that product, so both take the shade from here.
+template <typename T>
 __device__ __forceinline__ float light_shade(
-    const float* __restrict__ light_layer, int B, const Taps& t,
-    float ambient, float& lT) {
-  lT = bilinear_at(light_layer, B, t);
+    const T* __restrict__ light_layer, int B, const Taps& t, float ambient,
+    float& lT) {
+  lT = bilinear_at<T>(light_layer, B, t);
   return ambient + (1.f - ambient) * fminf(fmaxf(lT, 0.f), 1.f);
 }
 
@@ -136,7 +187,12 @@ __device__ __forceinline__ float light_shade(
 // added to the four taps of `dlight_layer`. clip' is the subgradient of
 // minimum(maximum(x, 0), 1): 1 inside (0, 1), 0.5 at lT == 0 and lT == 1
 // (a fully lit voxel has lT == 1 exactly, so ties are common), 0 outside.
-// It is decided on the lT that light_shade clipped.
+// It is decided on the lT that light_shade clipped. With bfloat16 weights
+// the four weights of a sample sum to 1 only to within 2^-8, so a fully lit
+// neighbourhood samples lT just above or just below 1, sample by sample:
+// that is the function in that mode, and forward and backward decide it on
+// the same float. T is the light stack's texel type.
+template <typename T>
 __device__ __forceinline__ void light_shade_adjoint(
     float* __restrict__ dlight_layer, int B, const Taps& t, float ambient,
     float lT, float cw, float trans, float alpha) {
@@ -144,7 +200,7 @@ __device__ __forceinline__ void light_shade_adjoint(
                            ? 1.f
                            : ((lT == 0.f || lT == 1.f) ? 0.5f : 0.f);
   const float dlT = cw * trans * alpha * (1.f - ambient) * clip_g;
-  bilinear_adjoint(dlight_layer, B, t, dlT);
+  bilinear_adjoint<T>(dlight_layer, B, t, dlT);
 }
 
 }  // namespace sweep

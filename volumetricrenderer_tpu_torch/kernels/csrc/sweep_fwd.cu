@@ -37,9 +37,16 @@
 // `flip` and the lerped sub-voxel stack (n_slices != depth) are decided by
 // the wrapper: it passes the stack already in slice order with flip = 0.
 //
-// Grid layout: `stack` is a contiguous (S, A, B) float32 tensor, the grid
-// permuted so the sweep axis is dim 0 (the wrapper makes the copy when the
+// Grid layout: `stack` is a contiguous (S, A, B) tensor, the grid permuted
+// so the sweep axis is dim 0 (the wrapper makes the copy when the
 // permutation is not the identity).
+//
+// Stream modes: the texel type T of `stack` and `light` is a template
+// parameter, float or __nv_bfloat16 (the TPU kernels' `low` mode: G, the
+// light stack and the tap weights in bfloat16, everything else float32; see
+// sweep_common.cuh). The float instantiations are the float32 kernels as
+// they were. In bfloat16 the flagship's 256^3 stack is 34 MB and fits the
+// 50 MB L2.
 //
 // Bound: about 4 * S * Hb * Wb scattered 4-byte tap reads per frame (2.4 G
 // at 256 slices on a 1536^2 base grid) from a 67 MB volume, which exceeds
@@ -57,9 +64,9 @@
 
 namespace {
 
-template <bool kLight>
+template <bool kLight, typename T>
 __global__ void __launch_bounds__(256) sweep_fwd_kernel(
-    const float* __restrict__ stack, const float* __restrict__ light,
+    const T* __restrict__ stack, const T* __restrict__ light,
     const float* __restrict__ slice_z,
     const float* __restrict__ v_grid, const float* __restrict__ u_grid,
     const float* __restrict__ seglen, const float* __restrict__ params,
@@ -84,14 +91,14 @@ __global__ void __launch_bounds__(256) sweep_fwd_kernel(
     sweep::Taps t;
     if (!sweep::sample_taps(P, delta, v, u, A, B, wrap, t)) continue;
     const int k = flip ? S - 1 - s : s;
-    const float sigma = sweep::sigma_at(stack + (size_t)k * layer, B, t,
-                                        P.sscale);
+    const float sigma = sweep::sigma_at<T>(stack + (size_t)k * layer, B, t,
+                                           P.sscale);
     if (emission) {
       const float alpha = 1.f - sweep::extinction(P, sigma, seg);
       if constexpr (kLight) {
         float lT;
-        const float shade = sweep::light_shade(light + (size_t)k * layer, B,
-                                               t, P.ambient, lT);
+        const float shade = sweep::light_shade<T>(
+            light + (size_t)k * layer, B, t, P.ambient, lT);
         wsum += (trans * alpha) * shade;
       } else {
         wsum += trans * alpha;
@@ -109,28 +116,48 @@ __global__ void __launch_bounds__(256) sweep_fwd_kernel(
   out[3 * plane + pix] = hit;
 }
 
+template <typename T>
+int launch(const void* stack_v, const void* light_v, const float* slice_z,
+           const float* v_grid, const float* u_grid, const float* seglen,
+           const float* params, float* out, int S, int A, int B, int Hb,
+           int Wb, int emission, int flip, int wrap, cudaStream_t st) {
+  const T* stack = static_cast<const T*>(stack_v);
+  const T* light = static_cast<const T*>(light_v);
+  const dim3 block(32, 8);
+  const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
+  if (light)
+    sweep_fwd_kernel<true, T><<<grid, block, 0, st>>>(
+        stack, light, slice_z, v_grid, u_grid, seglen, params, out, S, A, B,
+        Hb, Wb, emission, flip, wrap);
+  else
+    sweep_fwd_kernel<false, T><<<grid, block, 0, st>>>(
+        stack, light, slice_z, v_grid, u_grid, seglen, params, out, S, A, B,
+        Hb, Wb, emission, flip, wrap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches the sweep on `stream` and returns cudaGetLastError() (0 when the
-// launch was accepted). `light` is the (S, A, B) light-transmittance stack
-// in the stack's layer order, or null for no light volume (emission only).
-// `out` is (4, Hb, Wb): acc, trans, wsum, hit.
-extern "C" int sweep_fwd_launch(const float* stack, const float* light,
+// launch was accepted). `elem` is the texel type of `stack` and `light`:
+// sweep::kElemF32 or sweep::kElemBF16 (anything else is refused with
+// cudaErrorInvalidValue). `light` is the (S, A, B) light-transmittance
+// stack in the stack's layer order and type, or null for no light volume
+// (emission only). `out` is (4, Hb, Wb) float32: acc, trans, wsum, hit.
+extern "C" int sweep_fwd_launch(const void* stack, const void* light,
                                 const float* slice_z, const float* v_grid,
                                 const float* u_grid, const float* seglen,
                                 const float* params, float* out, int S, int A,
                                 int B, int Hb, int Wb, int emission, int flip,
-                                int wrap, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
+                                int wrap, int elem, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (light)
-    sweep_fwd_kernel<true><<<grid, block, 0, st>>>(
-        stack, light, slice_z, v_grid, u_grid, seglen, params, out, S, A, B,
-        Hb, Wb, emission, flip, wrap);
-  else
-    sweep_fwd_kernel<false><<<grid, block, 0, st>>>(
-        stack, light, slice_z, v_grid, u_grid, seglen, params, out, S, A, B,
-        Hb, Wb, emission, flip, wrap);
-  return static_cast<int>(cudaGetLastError());
+  if (elem == sweep::kElemF32)
+    return launch<float>(stack, light, slice_z, v_grid, u_grid, seglen,
+                         params, out, S, A, B, Hb, Wb, emission, flip, wrap,
+                         st);
+  if (elem == sweep::kElemBF16)
+    return launch<__nv_bfloat16>(stack, light, slice_z, v_grid, u_grid,
+                                 seglen, params, out, S, A, B, Hb, Wb,
+                                 emission, flip, wrap, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -47,12 +47,21 @@
 //
 // Numerics: dL sums in another order on every run (atomics), so it agrees
 // with the plain version to a tolerance, not bit for bit.
+//
+// Stream modes: the texel type T of `L` and of the light slabs is a
+// template parameter, float or __nv_bfloat16, as in the forward. The replay
+// reads the very bfloat16 slabs the forward read and every channel's
+// weights go through the same sweep::round_weight<T>, forward, replay and
+// scatter alike. The cotangents, dsigma, dL and dlight are float32 in
+// either mode (the TPU kernel's wrapper rounds dL to bfloat16; this port
+// does not).
 
 #include "sweep_ref_common.cuh"
 
 namespace {
 
 // Adds the four channels' shares of d = dsigma * sample_scale to dL[s].
+template <typename T>
 __device__ __forceinline__ void scatter_channels(float* __restrict__ dslab,
                                                  int A, int B,
                                                  const sweep::RefSample& smp,
@@ -65,12 +74,12 @@ __device__ __forceinline__ void scatter_channels(float* __restrict__ dslab,
   const size_t layer = (size_t)A * B;
 #pragma unroll
   for (int c = 0; c < sweep::NCH; ++c)
-    sweep::bilinear_adjoint(dslab + c * layer, B, smp.t[c], dr[c]);
+    sweep::bilinear_adjoint<T>(dslab + c * layer, B, smp.t[c], dr[c]);
 }
 
-template <bool kLight>
+template <bool kLight, typename T>
 __global__ void __launch_bounds__(256) sweep_ref_bwd_kernel(
-    const float* __restrict__ L, const float* __restrict__ light,
+    const T* __restrict__ L, const T* __restrict__ light,
     const float* __restrict__ slice_z,
     const float* __restrict__ v_grid, const float* __restrict__ u_grid,
     const float* __restrict__ seglen, const float* __restrict__ params,
@@ -100,8 +109,8 @@ __global__ void __launch_bounds__(256) sweep_ref_bwd_kernel(
       const float delta = slice_z[s] - P.e_k;
       if (!sweep::in_front(P, delta)) continue;
       sweep::RefSample smp;
-      if (!sweep::ref_sample(P, R, delta, v, u, L + (size_t)s * slab, A, B,
-                             smp))
+      if (!sweep::ref_sample<T>(P, R, delta, v, u, L + (size_t)s * slab, A,
+                                B, smp))
         continue;
       const float sigma = sweep::ref_sigma(smp.r, P.sscale);
       const float e = sweep::extinction(P, sigma, seg);
@@ -112,20 +121,21 @@ __global__ void __launch_bounds__(256) sweep_ref_bwd_kernel(
         sweep::sample_taps(P, delta, v, u, A, B, 0, tl);
         const size_t lslab = (size_t)s * A * B;
         float lT;
-        const float shade = sweep::light_shade(light + lslab, B, tl,
-                                               P.ambient, lT);
+        const float shade = sweep::light_shade<T>(light + lslab, B, tl,
+                                                  P.ambient, lT);
         wr += (trans * alpha) * shade;
         const float a_til = bct - cw * wr;
         dsigma = P.density * seg * (cw * trans * shade * e - a_til);
-        sweep::light_shade_adjoint(dlight + lslab, B, tl, P.ambient, lT, cw,
-                                   trans, alpha);
+        sweep::light_shade_adjoint<T>(dlight + lslab, B, tl, P.ambient, lT,
+                                      cw, trans, alpha);
       } else {
         wr += trans * alpha;
         const float a_til = bct - cw * wr;
         dsigma = P.density * seg * (cw * trans * e - a_til);
       }
       trans *= 1.f - alpha;
-      scatter_channels(dL + (size_t)s * slab, A, B, smp, dsigma * P.sscale);
+      scatter_channels<T>(dL + (size_t)s * slab, A, B, smp,
+                          dsigma * P.sscale);
     }
   } else {
     const float d = ct_acc[pix] * seg * P.sscale;
@@ -133,40 +143,63 @@ __global__ void __launch_bounds__(256) sweep_ref_bwd_kernel(
       const float delta = slice_z[s] - P.e_k;
       if (!sweep::in_front(P, delta)) continue;
       sweep::RefSample smp;
-      if (!sweep::ref_sample(P, R, delta, v, u, L + (size_t)s * slab, A, B,
-                             smp))
+      if (!sweep::ref_sample<T>(P, R, delta, v, u, L + (size_t)s * slab, A,
+                                B, smp))
         continue;
-      scatter_channels(dL + (size_t)s * slab, A, B, smp, d);
+      scatter_channels<T>(dL + (size_t)s * slab, A, B, smp, d);
     }
   }
+}
+
+template <typename T>
+int launch(const void* L_v, const void* light_v, const float* slice_z,
+           const float* v_grid, const float* u_grid, const float* seglen,
+           const float* params, const float* ct_acc, const float* ct_trans,
+           const float* ct_wsum, const float* trans_out,
+           const float* wsum_out, float* dL, float* dlight, int S, int A,
+           int B, int Hb, int Wb, int emission, cudaStream_t st) {
+  const T* L = static_cast<const T*>(L_v);
+  const T* light = static_cast<const T*>(light_v);
+  const dim3 block(32, 8);
+  const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
+  if (light)
+    sweep_ref_bwd_kernel<true, T><<<grid, block, 0, st>>>(
+        L, light, slice_z, v_grid, u_grid, seglen, params, ct_acc, ct_trans,
+        ct_wsum, trans_out, wsum_out, dL, dlight, S, A, B, Hb, Wb, emission);
+  else
+    sweep_ref_bwd_kernel<false, T><<<grid, block, 0, st>>>(
+        L, light, slice_z, v_grid, u_grid, seglen, params, ct_acc, ct_trans,
+        ct_wsum, trans_out, wsum_out, dL, dlight, S, A, B, Hb, Wb, emission);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches the backward sweep on `stream` and returns cudaGetLastError()
-// (0 when the launch was accepted). Emission reads ct_trans, ct_wsum and
-// the forward's trans and wsum maps; absorption reads ct_acc. The maps are
-// (Hb, Wb); the pointers a mode does not read may be null. `dL` is the
-// zeroed (S, 4, A, B) gradient. `light` is the (S, A, B) light slabs the
-// forward read and `dlight` their zeroed gradient, or both null for no
-// light volume (emission only).
+// (0 when the launch was accepted). `elem` is the texel type of `L` and
+// `light`: sweep::kElemF32 or sweep::kElemBF16 (anything else is refused
+// with cudaErrorInvalidValue). Emission reads ct_trans, ct_wsum and the
+// forward's trans and wsum maps; absorption reads ct_acc. The maps are
+// (Hb, Wb) float32; the pointers a mode does not read may be null. `dL` is
+// the zeroed (S, 4, A, B) float32 gradient. `light` is the (S, A, B) light
+// slabs the forward read and `dlight` their zeroed float32 gradient, or
+// both null for no light volume (emission only).
 extern "C" int sweep_ref_bwd_launch(
-    const float* L, const float* light, const float* slice_z,
+    const void* L, const void* light, const float* slice_z,
     const float* v_grid, const float* u_grid, const float* seglen,
     const float* params, const float* ct_acc, const float* ct_trans,
     const float* ct_wsum, const float* trans_out, const float* wsum_out,
     float* dL, float* dlight, int S, int A, int B, int Hb, int Wb,
-    int emission, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
+    int emission, int elem, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (light)
-    sweep_ref_bwd_kernel<true><<<grid, block, 0, st>>>(
-        L, light, slice_z, v_grid, u_grid, seglen, params, ct_acc, ct_trans,
-        ct_wsum, trans_out, wsum_out, dL, dlight, S, A, B, Hb, Wb, emission);
-  else
-    sweep_ref_bwd_kernel<false><<<grid, block, 0, st>>>(
-        L, light, slice_z, v_grid, u_grid, seglen, params, ct_acc, ct_trans,
-        ct_wsum, trans_out, wsum_out, dL, dlight, S, A, B, Hb, Wb, emission);
-  return static_cast<int>(cudaGetLastError());
+  if (elem == sweep::kElemF32)
+    return launch<float>(L, light, slice_z, v_grid, u_grid, seglen, params,
+                         ct_acc, ct_trans, ct_wsum, trans_out, wsum_out, dL,
+                         dlight, S, A, B, Hb, Wb, emission, st);
+  if (elem == sweep::kElemBF16)
+    return launch<__nv_bfloat16>(L, light, slice_z, v_grid, u_grid, seglen,
+                                 params, ct_acc, ct_trans, ct_wsum, trans_out,
+                                 wsum_out, dL, dlight, S, A, B, Hb, Wb,
+                                 emission, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

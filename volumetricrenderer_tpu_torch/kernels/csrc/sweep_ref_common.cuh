@@ -59,7 +59,8 @@ __device__ __forceinline__ void mirror_taps(float x01, float sc, float off,
 }
 
 // One in-box sample of the four channels: each channel's taps and its
-// bilinear value r[c].
+// bilinear value r[c] (bilinear_at<T>: in the bfloat16 stream mode each
+// channel's four weights are rounded on their own, like its texels).
 struct RefSample {
   Taps t[NCH];
   float r[NCH];
@@ -70,10 +71,11 @@ struct RefSample {
 // test is on the unscaled a01, b01 (it comes from the ray; the mirror
 // applies to the texture coordinate only). Returns false outside the box,
 // where sigma is 0 and every carry keeps its value.
+template <typename T>
 __device__ __forceinline__ bool ref_sample(const Params& P, const RefParams& R,
                                            float delta, float v, float u,
-                                           const float* __restrict__ slab,
-                                           int A, int B, RefSample& out) {
+                                           const T* __restrict__ slab, int A,
+                                           int B, RefSample& out) {
   const float a01 = P.e_a + delta * v;
   const float b01 = P.e_b + delta * u;
   if (!(a01 >= 0.f && a01 <= 1.f && b01 >= 0.f && b01 <= 1.f)) return false;
@@ -83,7 +85,7 @@ __device__ __forceinline__ bool ref_sample(const Params& P, const RefParams& R,
     Taps& t = out.t[c];
     mirror_taps(a01, R.sc[c], R.offa[c], A, t.a0, t.a1, t.fa);
     mirror_taps(b01, R.sc[c], R.offb[c], B, t.b0, t.b1, t.fb);
-    out.r[c] = bilinear_at(slab + c * layer, B, t);
+    out.r[c] = bilinear_at<T>(slab + c * layer, B, t);
   }
   return true;
 }

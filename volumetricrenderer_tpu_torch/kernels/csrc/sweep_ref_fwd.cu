@@ -37,7 +37,13 @@
 // L is built by the wrapper in slice_z order (the sweep-axis lerp of each
 // channel at its own scaled and scrolled depth), so there is no flip here.
 //
-// Layout: `L` is a contiguous (S, 4, A, B) float32 tensor.
+// Layout: `L` is a contiguous (S, 4, A, B) tensor.
+//
+// Stream modes: the texel type T of `L` and of the light slabs is a
+// template parameter, float or __nv_bfloat16 (the TPU kernel's bfloat16
+// streams: the slabs and every channel's tap weights in bfloat16, everything
+// else float32; see sweep_common.cuh). The float instantiations are the
+// float32 kernels as they were.
 //
 // Bound: 16 scattered 4-byte tap reads and about 116 float operations per
 // in-box sample, against 4 and 30 in the single-channel kernel; the four
@@ -55,9 +61,9 @@
 
 namespace {
 
-template <bool kLight>
+template <bool kLight, typename T>
 __global__ void __launch_bounds__(256) sweep_ref_fwd_kernel(
-    const float* __restrict__ L, const float* __restrict__ light,
+    const T* __restrict__ L, const T* __restrict__ light,
     const float* __restrict__ slice_z,
     const float* __restrict__ v_grid, const float* __restrict__ u_grid,
     const float* __restrict__ seglen, const float* __restrict__ params,
@@ -81,8 +87,8 @@ __global__ void __launch_bounds__(256) sweep_ref_fwd_kernel(
     const float delta = slice_z[s] - P.e_k;
     if (!sweep::in_front(P, delta)) continue;
     sweep::RefSample smp;
-    if (!sweep::ref_sample(P, R, delta, v, u, L + (size_t)s * slab, A, B,
-                           smp))
+    if (!sweep::ref_sample<T>(P, R, delta, v, u, L + (size_t)s * slab, A, B,
+                              smp))
       continue;
     const float sigma = sweep::ref_sigma(smp.r, P.sscale);
     if (emission) {
@@ -91,7 +97,7 @@ __global__ void __launch_bounds__(256) sweep_ref_fwd_kernel(
         sweep::Taps tl;
         sweep::sample_taps(P, delta, v, u, A, B, 0, tl);
         float lT;
-        const float shade = sweep::light_shade(
+        const float shade = sweep::light_shade<T>(
             light + (size_t)s * A * B, B, tl, P.ambient, lT);
         wsum += (trans * alpha) * shade;
       } else {
@@ -110,28 +116,46 @@ __global__ void __launch_bounds__(256) sweep_ref_fwd_kernel(
   out[3 * plane + pix] = hit;
 }
 
+template <typename T>
+int launch(const void* L_v, const void* light_v, const float* slice_z,
+           const float* v_grid, const float* u_grid, const float* seglen,
+           const float* params, float* out, int S, int A, int B, int Hb,
+           int Wb, int emission, cudaStream_t st) {
+  const T* L = static_cast<const T*>(L_v);
+  const T* light = static_cast<const T*>(light_v);
+  const dim3 block(32, 8);
+  const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
+  if (light)
+    sweep_ref_fwd_kernel<true, T><<<grid, block, 0, st>>>(
+        L, light, slice_z, v_grid, u_grid, seglen, params, out, S, A, B, Hb,
+        Wb, emission);
+  else
+    sweep_ref_fwd_kernel<false, T><<<grid, block, 0, st>>>(
+        L, light, slice_z, v_grid, u_grid, seglen, params, out, S, A, B, Hb,
+        Wb, emission);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches the sweep on `stream` and returns cudaGetLastError() (0 when the
-// launch was accepted). `L` is (S, 4, A, B), `light` the (S, A, B) light
+// launch was accepted). `elem` is the texel type of `L` and `light`:
+// sweep::kElemF32 or sweep::kElemBF16 (anything else is refused with
+// cudaErrorInvalidValue). `L` is (S, 4, A, B), `light` the (S, A, B) light
 // slabs in slice order or null for no light volume (emission only), `params`
-// (20,), `out` (4, Hb, Wb): acc, trans, wsum, hit.
-extern "C" int sweep_ref_fwd_launch(const float* L, const float* light,
+// (20,), `out` (4, Hb, Wb) float32: acc, trans, wsum, hit.
+extern "C" int sweep_ref_fwd_launch(const void* L, const void* light,
                                     const float* slice_z, const float* v_grid,
                                     const float* u_grid, const float* seglen,
                                     const float* params, float* out, int S,
                                     int A, int B, int Hb, int Wb, int emission,
-                                    void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((Wb + block.x - 1) / block.x, (Hb + block.y - 1) / block.y);
+                                    int elem, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (light)
-    sweep_ref_fwd_kernel<true><<<grid, block, 0, st>>>(
-        L, light, slice_z, v_grid, u_grid, seglen, params, out, S, A, B, Hb,
-        Wb, emission);
-  else
-    sweep_ref_fwd_kernel<false><<<grid, block, 0, st>>>(
-        L, light, slice_z, v_grid, u_grid, seglen, params, out, S, A, B, Hb,
-        Wb, emission);
-  return static_cast<int>(cudaGetLastError());
+  if (elem == sweep::kElemF32)
+    return launch<float>(L, light, slice_z, v_grid, u_grid, seglen, params,
+                         out, S, A, B, Hb, Wb, emission, st);
+  if (elem == sweep::kElemBF16)
+    return launch<__nv_bfloat16>(L, light, slice_z, v_grid, u_grid, seglen,
+                                 params, out, S, A, B, Hb, Wb, emission, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

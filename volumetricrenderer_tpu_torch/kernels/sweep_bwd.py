@@ -45,7 +45,10 @@ def sweep_bwd_reference(stack, slice_z, v_grid, u_grid, seglen, params,
     the (Hb, Wb) cotangents of the acc, trans and wsum maps; trans, wsum:
     the forward's own maps. Emission reads ct_trans, ct_wsum, trans and
     wsum, absorption ct_acc; the others may be None. light: the optional
-    (S, A, B) light stack the forward read (emission only).
+    (S, A, B) light stack the forward read (emission only). A bfloat16
+    stack (and light stack) is the bfloat16 stream mode, as in the forward:
+    widened texels, tap weights rounded to bfloat16, and the transposes
+    that scatter are those rounded matrices'; dG and dL are float32.
 
     It replays the forward per slice with the banded tap matrices and
     scatters dsigma * sample_scale through their transposes:
@@ -60,6 +63,7 @@ def sweep_bwd_reference(stack, slice_z, v_grid, u_grid, seglen, params,
     if light is not None and not emission:
         raise ValueError("sweep: a light volume needs emission")
     S, A, B = stack.shape
+    low = stack.dtype == torch.bfloat16
     e_k, e_a, e_b, sign, density, sscale, thresh, ambient = (
         params[n] for n in range(8))
     dG = torch.zeros((S, A, B), dtype=torch.float32, device=stack.device)
@@ -77,11 +81,12 @@ def sweep_bwd_reference(stack, slice_z, v_grid, u_grid, seglen, params,
         mask = ((a01 >= 0.0) & (a01 <= 1.0))[:, None] \
             & ((b01 >= 0.0) & (b01 <= 1.0))[None, :] & front
         maskf = mask.to(torch.float32)
-        Wa = linear_resample_matrix(a01, A, address_mode)
-        Wbm = linear_resample_matrix(b01, B, address_mode)
+        Wa = linear_resample_matrix(a01, A, address_mode, round_bf16=low)
+        Wbm = linear_resample_matrix(b01, B, address_mode, round_bf16=low)
         k = S - 1 - s if flip else s
         if emission:
-            sigma = (Wa @ stack[k] @ Wbm.T) * sscale * maskf
+            sigma = (Wa @ stack[k].to(torch.float32) @ Wbm.T) * sscale \
+                * maskf
             live = (T > thresh).to(torch.float32)
             E = torch.exp(-density * sigma * seglen)
             alpha = live * (1.0 - E)
@@ -108,7 +113,7 @@ def build_kernel():
     if _lib is None:
         lib, info = build_library("sweep_bwd")
         fn = lib.sweep_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib, build_info = lib, info
@@ -120,18 +125,19 @@ def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, ct_acc,
                   light=None):
     """Check the inputs, allocate the zeroed (S, A, B) gradient (and, with
     a light stack, its zeroed gradient), launch the kernel on the current
-    stream and count the launch. Arguments as sweep_bwd_reference's; the
-    maps a mode does not read may be None. Returns dG, or (dG, dL) with a
-    light stack."""
+    stream and count the launch. Arguments as sweep_bwd_reference's (the
+    stack's dtype selects the kernel's instantiation); the maps a mode does
+    not read may be None. Returns float32 dG, or (dG, dL) with a light
+    stack."""
     global launches
     dev = stack.device
     if light is not None and not emission:
         raise ValueError("sweep_bwd kernel: a light volume needs emission")
     maps = (dict(ct_trans=ct_trans, ct_wsum=ct_wsum, trans=trans, wsum=wsum)
             if emission else dict(ct_acc=ct_acc))
-    S, A, B, Hb, Wb = check_sweep_inputs("sweep_bwd", stack, slice_z, v_grid,
-                                         u_grid, seglen, params, maps,
-                                         light=light)
+    S, A, B, Hb, Wb, elem = check_sweep_inputs(
+        "sweep_bwd", stack, slice_z, v_grid, u_grid, seglen, params, maps,
+        light=light)
     build_kernel()
 
     def ptr(name):
@@ -149,7 +155,7 @@ def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, ct_acc,
             ptr("ct_trans"), ptr("ct_wsum"), ptr("trans"), ptr("wsum"),
             dstack.data_ptr(),
             dlight.data_ptr() if light is not None else None, S, A, B, Hb,
-            Wb, int(emission), int(flip), int(wrap), stream)
+            Wb, int(emission), int(flip), int(wrap), elem, stream)
     if rc != 0:
         raise RuntimeError(f"sweep_bwd kernel launch failed: CUDA error {rc}")
     launches += 1

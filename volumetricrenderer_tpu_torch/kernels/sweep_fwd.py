@@ -16,6 +16,28 @@ clip(lT, 0, 1), lT the light layer's bilinear sample at the grid's own
 taps, wsum += T * alpha * shade. The node then has two differentiable
 inputs, the stack and the light stack.
 
+The bfloat16 stream mode (RenderConfig(dtype="bfloat16"), the TPU kernels'
+`low` mode) is defined for all four sweep kernels and their plain versions
+as follows. Every texel a kernel reads (the grid stack, the light stack,
+the 4-channel slabs L, the light slabs) is the float32 value rounded to
+bfloat16, ties to even, stored as torch.bfloat16 and read as 2-byte
+elements. Every bilinear tap weight (1 - fa, fa, 1 - fb, fb, and each
+channel's own in the 4-channel kernels) is rounded to bfloat16 too, each on
+its own. Products and sums, the carries (acc, T, wsum, hit), exp, the
+early-stop gate, the cotangents, dsigma and the scattered gradients stay
+float32; a sample is the four-tap sum in float32 of bfloat16 operands, in
+the order csrc/sweep_common.cuh's bilinear_at fixes, and the adjoint
+scatters with the rounded weights. (The JAX package also rounds the
+intermediate between its two matmuls; that belongs to its two-matmul
+schedule, differs between its kernels and its jnp sweep, and is not
+reproduced.) The cast lives inside the autograd nodes: a node takes the
+float32 stack, makes the bfloat16 copy, sweeps it, saves that copy for the
+backward (half the bytes, and the very texels the forward read) and returns
+a float32 gradient; with n_slices != depth the layer lerp runs in float32
+first. A stack that arrives in bfloat16 is swept without a copy and gets a
+bfloat16 gradient. The plain versions take the mode from the stack's dtype,
+as the kernels' launchers do.
+
 `launches` counts the kernel launches made by this module.
 """
 from __future__ import annotations
@@ -28,10 +50,12 @@ from ..config import LightConfig, MediumConfig, RenderConfig
 from ..ops.resample import linear_resample_matrix
 from ..ops.sampling import apply_address_mode, clip_unit
 from . import sweep_bwd
-from .build import build_library, check_sweep_inputs, light_sample
+from .build import (build_library, check_sweep_inputs, light_sample,
+                    stream_cast)
 
 __all__ = ["supported", "sweep_inputs", "sweep_light_stack", "sweep_base",
-           "sweep_fwd_reference", "build_kernel", "launch_kernel", "launches"]
+           "sweep_fwd_reference", "build_kernel", "launch_kernel",
+           "launches"]
 
 launches = 0  # kernel launches since import (or since a caller reset it)
 
@@ -39,6 +63,7 @@ _lib = None
 build_info = None  # set by the first build: path, seconds, nvcc output
 
 _ADDRESS_MODES = ("mirror", "clamp", "wrap")
+_DTYPES = ("float32", "bfloat16")
 
 
 def supported(cfg: RenderConfig, medium: MediumConfig, light_volume,
@@ -48,17 +73,19 @@ def supported(cfg: RenderConfig, medium: MediumConfig, light_volume,
 
     combine="reference" (kernels/sweep_ref_fwd.py): a 4-D grid, mirror
     addressing (the scaled and scrolled coords leave [0, 1]); a scroll is
-    allowed. combine="single" (this module): a 3-D grid, no scroll. A
-    light volume must be 3-D and needs emission."""
+    allowed. combine="single" (this module): a 3-D grid, no scroll
+    (ops/sweep.sweep_render brings a (D, H, W, C) grid and a scroll to that
+    form first). A light volume must be 3-D and needs emission. Both
+    stream types, as the TPU gate."""
     light_ok = light_volume is None or (cfg.emission
                                         and light_volume.dim() == 3)
     if medium.combine == "reference":
-        return (cfg.dtype == "float32"
+        return (cfg.dtype in _DTYPES
                 and grid_ndim == 4
                 and light_ok
                 and cfg.address_mode == "mirror")
     return (medium.combine == "single"
-            and cfg.dtype == "float32"
+            and cfg.dtype in _DTYPES
             and grid_ndim == 3
             and scroll is None
             and light_ok
@@ -81,6 +108,7 @@ def _layer_lerp_stack(gperm, slice_z, address_mode):
     the two bracketing layers). Differentiable in gperm; the layer fetch is
     index_select, whose backward is index_add_."""
     depth = gperm.shape[0]
+    gperm = gperm.to(torch.float32)  # a bfloat16 volume lerps in float32
     p = slice_z * depth - 0.5
     i0f = torch.floor(p)
     f = (p - i0f).to(torch.float32)[:, None, None]
@@ -94,20 +122,26 @@ def _layer_lerp_stack(gperm, slice_z, address_mode):
 
 def sweep_fwd_reference(stack, slice_z, v_grid, u_grid, seglen, params, *,
                         emission: bool, flip: bool, address_mode: str,
-                        light=None):
+                        light=None, _low=None):
     """Plain PyTorch version of the sweep kernel, with the same inputs.
 
-    stack: (S, A, B) float32, slice k = S-1-s feeds slice s when flip;
-    slice_z (S,), v_grid (Hb,), u_grid (Wb,), seglen (Hb, Wb), params (8,)
-    as _params_for; light: optional (S, A, B) light-transmittance stack in
-    the stack's layer order (emission only). Each slice is resampled as
-    Wa @ G_k @ Wb^T with banded tap matrices, the light layer at the same
-    taps (build.light_sample); out-of-box and behind-the-eye samples are
-    masked.
+    stack: (S, A, B) float32 or bfloat16, slice k = S-1-s feeds slice s
+    when flip; slice_z (S,), v_grid (Hb,), u_grid (Wb,), seglen (Hb, Wb),
+    params (8,) as _params_for; light: optional (S, A, B)
+    light-transmittance stack in the stack's layer order and dtype
+    (emission only). Each slice is resampled as Wa @ G_k @ Wb^T with banded
+    tap matrices, the light layer at the same taps (build.light_sample);
+    out-of-box and behind-the-eye samples are masked. A bfloat16 stack is
+    the bfloat16 stream mode: the texels widened to float32, the matrices'
+    tap weights rounded to bfloat16, float32 products. The private
+    _low=True forces that arithmetic on float32 stacks (which then hold
+    bfloat16 values): autograd through a bfloat16 tensor would round the
+    gradient, so the tests differentiate this form.
     Returns (acc, trans, wsum, hit), each (Hb, Wb) float32."""
     if light is not None and not emission:
         raise ValueError("sweep: a light volume needs emission")
     S, A, B = stack.shape
+    low = stack.dtype == torch.bfloat16 if _low is None else _low
     Hb, Wb = v_grid.shape[0], u_grid.shape[0]
     e_k, e_a, e_b, sign, density, sscale, thresh, ambient = (
         params[n] for n in range(8))
@@ -124,16 +158,16 @@ def sweep_fwd_reference(stack, slice_z, v_grid, u_grid, seglen, params, *,
         mask = ((a01 >= 0.0) & (a01 <= 1.0))[:, None] \
             & ((b01 >= 0.0) & (b01 <= 1.0))[None, :] & front
         maskf = mask.to(torch.float32)
-        Wa = linear_resample_matrix(a01, A, address_mode)
-        Wbm = linear_resample_matrix(b01, B, address_mode)
+        Wa = linear_resample_matrix(a01, A, address_mode, round_bf16=low)
+        Wbm = linear_resample_matrix(b01, B, address_mode, round_bf16=low)
         k = S - 1 - s if flip else s
-        sigma = (Wa @ stack[k] @ Wbm.T) * sscale * maskf
+        sigma = (Wa @ stack[k].to(torch.float32) @ Wbm.T) * sscale * maskf
         if emission:
             live = (trans > thresh).to(torch.float32)
             alpha = live * (1.0 - torch.exp(-density * sigma * seglen))
             shade = 1.0  # a product with 1.0 is exact: the no-light sum
             if light is not None:
-                lT = light_sample(light[k], a01, b01, address_mode)
+                lT = light_sample(light[k], a01, b01, address_mode, low)
                 shade = ambient + (1.0 - ambient) * clip_unit(lT)
             wsum = wsum + trans * alpha * shade
             trans = trans * (1.0 - alpha)
@@ -150,7 +184,7 @@ def build_kernel():
     if _lib is None:
         lib, info = build_library("sweep_fwd")
         fn = lib.sweep_fwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib, build_info = lib, info
@@ -160,16 +194,18 @@ def build_kernel():
 def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, emission,
                   flip, wrap, light=None):
     """Check the inputs, allocate the (4, Hb, Wb) output, launch the
-    kernel on the current stream and count the launch. `light` is the
-    optional (S, A, B) light stack in the stack's layer order (emission
-    only): it selects the kernel's light branch. Returns the (4, Hb, Wb)
-    tensor of acc, trans, wsum, hit."""
+    kernel on the current stream and count the launch. `stack` is float32
+    or bfloat16 (the stream mode: it selects the kernel's instantiation).
+    `light` is the optional (S, A, B) light stack in the stack's layer
+    order and dtype (emission only): it selects the kernel's light branch.
+    Returns the (4, Hb, Wb) float32 tensor of acc, trans, wsum, hit."""
     global launches
     dev = stack.device
     if light is not None and not emission:
         raise ValueError("sweep_fwd kernel: a light volume needs emission")
-    S, A, B, Hb, Wb = check_sweep_inputs("sweep_fwd", stack, slice_z, v_grid,
-                                         u_grid, seglen, params, light=light)
+    S, A, B, Hb, Wb, elem = check_sweep_inputs(
+        "sweep_fwd", stack, slice_z, v_grid, u_grid, seglen, params,
+        light=light)
     build_kernel()
     out = torch.empty((4, Hb, Wb), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -179,7 +215,7 @@ def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, emission,
             light.data_ptr() if light is not None else None,
             slice_z.data_ptr(), v_grid.data_ptr(), u_grid.data_ptr(),
             seglen.data_ptr(), params.data_ptr(), out.data_ptr(), S, A, B,
-            Hb, Wb, int(emission), int(flip), int(wrap), stream)
+            Hb, Wb, int(emission), int(flip), int(wrap), elem, stream)
     if rc != 0:
         raise RuntimeError(f"sweep_fwd kernel launch failed: CUDA error {rc}")
     launches += 1
@@ -191,11 +227,16 @@ class _SweepFwd(torch.autograd.Function):
     f_bwd (and, with a light stack, of its two-input instance): the
     kernels on a CUDA stack, the plain versions on a CPU stack. The stack
     and the light stack (or None) get gradients; `hit` is not
-    differentiable."""
+    differentiable. `low` is the bfloat16 stream mode: the node casts the
+    stacks it is given to the stream type (a no-op for a stack already in
+    it), sweeps and saves the cast stacks, and returns each gradient,
+    computed in float32, in its input's dtype."""
 
     @staticmethod
     def forward(ctx, stack, light, slice_z, v_grid, u_grid, seglen, params,
-                emission, flip, address_mode):
+                emission, flip, address_mode, low):
+        ctx.in_dtypes = (stack.dtype, None if light is None else light.dtype)
+        stack, light = stream_cast(stack, low), stream_cast(light, low)
         if stack.device.type == "cuda":
             maps = launch_kernel(stack, slice_z, v_grid, u_grid, seglen,
                                  params, emission, flip,
@@ -215,7 +256,7 @@ class _SweepFwd(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_acc, ct_trans, ct_wsum, _ct_hit):
-        none = (None,) * 8
+        none = (None,) * 9
         if not any(ctx.needs_input_grad[:2]):
             return (None, None) + none
         stack, slice_z, v_grid, u_grid, seglen, params, trans, wsum, light = \
@@ -234,6 +275,9 @@ class _SweepFwd(torch.autograd.Function):
                 wsum, emission=emission, flip=flip,
                 address_mode=address_mode, light=light)
         dstack, dlight = grads if light is not None else (grads, None)
+        dstack = dstack.to(ctx.in_dtypes[0])
+        if dlight is not None:
+            dlight = dlight.to(ctx.in_dtypes[1])
         return (dstack, dlight) + none
 
 
@@ -273,7 +317,9 @@ def sweep_base(gperm, plan, cfg: RenderConfig, medium: MediumConfig,
     grid permuted so the sweep axis is dim 0: the kernels for a CUDA grid,
     the plain versions for a CPU grid, differentiable in the grid either
     way. lperm: optional light-transmittance volume in the same layout
-    (emission only); the maps are differentiable in it too."""
+    (emission only); the maps are differentiable in it too. cfg.dtype
+    "bfloat16" sweeps in the bfloat16 stream mode (module docstring)."""
+    low = cfg.dtype == "bfloat16"
     (stack, *args), flip = sweep_inputs(gperm, plan, cfg, medium, light)
     lstack = None
     if lperm is not None:
@@ -290,4 +336,4 @@ def sweep_base(gperm, plan, cfg: RenderConfig, medium: MediumConfig,
     elif stack.device.type != "cpu":
         raise ValueError(f"sweep_base: no sweep for device {stack.device}")
     return _SweepFwd.apply(stack, lstack, *args, cfg.emission, flip,
-                           cfg.address_mode)
+                           cfg.address_mode, low)

@@ -50,6 +50,9 @@ def sweep_ref_bwd_reference(L, slice_z, v_grid, u_grid, seglen, params,
     trans, wsum: the forward's own maps. Emission reads ct_trans, ct_wsum,
     trans and wsum, absorption ct_acc; the others may be None. light: the
     optional (S, A, B) light slabs the forward read (emission only).
+    Bfloat16 slabs are the bfloat16 stream mode, as in the forward: widened
+    texels, every tap weight rounded to bfloat16, the scatter through the
+    rounded matrices' transposes; dL and dlight are float32.
 
     It replays the forward per slice with the banded tap matrices, forms
     dsigma in closed form (sweep_pallas.py:2007-2027, not autograd of the
@@ -63,10 +66,12 @@ def sweep_ref_bwd_reference(L, slice_z, v_grid, u_grid, seglen, params,
     if light is not None and not emission:
         raise ValueError("sweep: a light volume needs emission")
     S, _, A, B = L.shape
+    low = L.dtype == torch.bfloat16
     e_k, e_a, e_b, sign, density, sscale, thresh, ambient = (
         params[n] for n in range(8))
-    dL = torch.zeros_like(L)
-    dlight = torch.zeros_like(light) if light is not None else None
+    dL = torch.zeros_like(L, dtype=torch.float32)
+    dlight = (torch.zeros_like(light, dtype=torch.float32)
+              if light is not None else None)
     if emission:
         cw = ct_wsum
         bct = ct_trans * trans + cw * wsum
@@ -80,9 +85,10 @@ def sweep_ref_bwd_reference(L, slice_z, v_grid, u_grid, seglen, params,
         mask = ((a01 >= 0.0) & (a01 <= 1.0))[:, None] \
             & ((b01 >= 0.0) & (b01 <= 1.0))[None, :] & front
         maskf = mask.to(torch.float32)
-        mats = [channel_resample(a01, b01, params, c, A, B)
+        mats = [channel_resample(a01, b01, params, c, A, B, low)
                 for c in range(NCH)]
-        r = [Wa @ L[s, c] @ Wbm.T for c, (Wa, Wbm) in enumerate(mats)]
+        r = [Wa @ L[s, c].to(torch.float32) @ Wbm.T
+             for c, (Wa, Wbm) in enumerate(mats)]
         if emission:
             sigma = (r[0] * r[1]) * (r[2] + r[3]) * sscale * maskf
             live = (T > thresh).to(torch.float32)
@@ -93,8 +99,11 @@ def sweep_ref_bwd_reference(L, slice_z, v_grid, u_grid, seglen, params,
                 lT = light_sample(light[s], a01, b01, "clamp")
                 shade = ambient + (1.0 - ambient) * torch.clamp(lT, 0.0, 1.0)
                 dlT = cw * T * alpha * (1.0 - ambient) * clip_unit_grad(lT)
-                dlight[s] += (linear_resample_matrix(a01, A, "clamp").T @ dlT
-                              @ linear_resample_matrix(b01, B, "clamp"))
+                dlight[s] += (
+                    linear_resample_matrix(a01, A, "clamp",
+                                           round_bf16=low).T @ dlT
+                    @ linear_resample_matrix(b01, B, "clamp",
+                                             round_bf16=low))
             Wr = Wr + T * alpha * shade
             A_til = bct - cw * Wr
             dsigma = live * density * seglen * (cw * T * shade * E - A_til)
@@ -118,7 +127,7 @@ def build_kernel():
     if _lib is None:
         lib, info = build_library("sweep_ref_bwd")
         fn = lib.sweep_ref_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib, build_info = lib, info
@@ -131,8 +140,9 @@ def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, ct_acc,
     """Check the inputs, allocate the zeroed (S, 4, A, B) gradient (and,
     with light slabs, their zeroed gradient), launch the kernel on the
     current stream and count the launch. Arguments as
-    sweep_ref_bwd_reference's; the maps a mode does not read may be None.
-    Returns dL, or (dL, dlight) with light slabs."""
+    sweep_ref_bwd_reference's (L's dtype selects the kernel's
+    instantiation); the maps a mode does not read may be None. Returns
+    float32 dL, or (dL, dlight) with light slabs."""
     global launches
     dev = L.device
     if light is not None and not emission:
@@ -140,7 +150,7 @@ def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, ct_acc,
                          "emission")
     maps = (dict(ct_trans=ct_trans, ct_wsum=ct_wsum, trans=trans, wsum=wsum)
             if emission else dict(ct_acc=ct_acc))
-    S, A, B, Hb, Wb = check_sweep_inputs(
+    S, A, B, Hb, Wb, elem = check_sweep_inputs(
         "sweep_ref_bwd", L, slice_z, v_grid, u_grid, seglen, params, maps,
         channels=NCH, n_params=N_PARAMS, light=light)
     build_kernel()
@@ -149,7 +159,8 @@ def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, ct_acc,
         return maps[name].data_ptr() if name in maps else None
 
     dL = torch.zeros((S, NCH, A, B), dtype=torch.float32, device=dev)
-    dlight = torch.zeros_like(light) if light is not None else None
+    dlight = (torch.zeros_like(light, dtype=torch.float32)
+              if light is not None else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib.sweep_ref_bwd_launch(
@@ -159,7 +170,7 @@ def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, ct_acc,
             ptr("ct_trans"), ptr("ct_wsum"), ptr("trans"), ptr("wsum"),
             dL.data_ptr(),
             dlight.data_ptr() if light is not None else None, S, A, B, Hb,
-            Wb, int(emission), stream)
+            Wb, int(emission), elem, stream)
     if rc != 0:
         raise RuntimeError(
             f"sweep_ref_bwd kernel launch failed: CUDA error {rc}")

@@ -26,6 +26,13 @@ channel with scale 1 and no offset, and sampled at the unscaled
 coordinates. The node then has two differentiable inputs, L and the light
 slabs.
 
+RenderConfig(dtype="bfloat16") sweeps in the bfloat16 stream mode that
+kernels/sweep_fwd.py defines: L is built in float32 (_layer_channels), the
+node casts L and the light slabs to bfloat16, sweeps and saves the casts,
+and every channel's tap weights are rounded to bfloat16 on their own. dL
+comes back in float32 (the JAX package rounds it to bfloat16; the port
+does not).
+
 `launches` counts the kernel launches made by this module.
 """
 from __future__ import annotations
@@ -38,7 +45,7 @@ from ..config import LightConfig, MediumConfig, RenderConfig
 from ..ops.sampling import apply_address_mode, clip_unit
 from . import sweep_ref_bwd
 from .build import (N_PARAMS, NCH, build_library, channel_resample,
-                    check_sweep_inputs, light_sample)
+                    check_sweep_inputs, light_sample, stream_cast)
 from .sweep_fwd import _layer_lerp_stack, _params_for
 
 __all__ = ["sweep_ref_inputs", "sweep_ref_light_slabs", "sweep_base_ref",
@@ -84,7 +91,7 @@ def _layer_channels(gperm4, slice_z, medium: MediumConfig, offs,
         i0 = i0f.to(torch.int64)
         l0 = apply_address_mode(i0, depth, address_mode)
         l1 = apply_address_mode(i0 + 1, depth, address_mode)
-        g = gperm4[..., c]
+        g = gperm4[..., c].to(torch.float32)
         chans.append(torch.index_select(g, 0, l0) * (1.0 - f)
                      + torch.index_select(g, 0, l1) * f)
     return torch.stack(chans, dim=1)
@@ -105,21 +112,26 @@ def _params_ref(plan, cfg: RenderConfig, medium: MediumConfig,
 
 
 def sweep_ref_fwd_reference(L, slice_z, v_grid, u_grid, seglen, params, *,
-                            emission: bool, light=None):
+                            emission: bool, light=None, _low=None):
     """Plain PyTorch version of the 4-channel sweep kernel, with the same
     inputs.
 
-    L: (S, 4, A, B) float32 pre-lerped channel slabs in slice order;
-    slice_z (S,), v_grid (Hb,), u_grid (Wb,), seglen (Hb, Wb), params
-    (N_PARAMS,) as _params_ref. Each channel of each slice is resampled as
-    Wa @ L[s, c] @ Wb^T with banded matrices at its scaled and scrolled
-    coords; out-of-box and behind-the-eye samples are masked on the
-    unscaled coords. light: optional (S, A, B) light slabs in slice order
-    (emission only), resampled at the unscaled coords with clipped taps.
+    L: (S, 4, A, B) float32 or bfloat16 pre-lerped channel slabs in slice
+    order; slice_z (S,), v_grid (Hb,), u_grid (Wb,), seglen (Hb, Wb),
+    params (N_PARAMS,) as _params_ref. Each channel of each slice is
+    resampled as Wa @ L[s, c] @ Wb^T with banded matrices at its scaled and
+    scrolled coords; out-of-box and behind-the-eye samples are masked on
+    the unscaled coords. light: optional (S, A, B) light slabs in slice
+    order and L's dtype (emission only), resampled at the unscaled coords
+    with clipped taps. Bfloat16 slabs are the bfloat16 stream mode: texels
+    widened to float32, every tap weight rounded to bfloat16; the private
+    _low=True forces that arithmetic on float32 slabs, as in
+    sweep_fwd.sweep_fwd_reference.
     Returns (acc, trans, wsum, hit), each (Hb, Wb) float32."""
     if light is not None and not emission:
         raise ValueError("sweep: a light volume needs emission")
     S, _, A, B = L.shape
+    low = L.dtype == torch.bfloat16 if _low is None else _low
     Hb, Wb = v_grid.shape[0], u_grid.shape[0]
     e_k, e_a, e_b, sign, density, sscale, thresh, ambient = (
         params[n] for n in range(8))
@@ -138,15 +150,15 @@ def sweep_ref_fwd_reference(L, slice_z, v_grid, u_grid, seglen, params, *,
         maskf = mask.to(torch.float32)
         r = []
         for c in range(NCH):
-            Wa, Wbm = channel_resample(a01, b01, params, c, A, B)
-            r.append(Wa @ L[s, c] @ Wbm.T)
+            Wa, Wbm = channel_resample(a01, b01, params, c, A, B, low)
+            r.append(Wa @ L[s, c].to(torch.float32) @ Wbm.T)
         sigma = (r[0] * r[1]) * (r[2] + r[3]) * sscale * maskf
         if emission:
             live = (trans > thresh).to(torch.float32)
             alpha = live * (1.0 - torch.exp(-density * sigma * seglen))
             shade = 1.0  # a product with 1.0 is exact: the no-light sum
             if light is not None:
-                lT = light_sample(light[s], a01, b01, "clamp")
+                lT = light_sample(light[s], a01, b01, "clamp", low)
                 shade = ambient + (1.0 - ambient) * clip_unit(lT)
             wsum = wsum + trans * alpha * shade
             trans = trans * (1.0 - alpha)
@@ -163,7 +175,7 @@ def build_kernel():
     if _lib is None:
         lib, info = build_library("sweep_ref_fwd")
         fn = lib.sweep_ref_fwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib, build_info = lib, info
@@ -173,16 +185,17 @@ def build_kernel():
 def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, emission,
                   light=None):
     """Check the inputs, allocate the (4, Hb, Wb) output, launch the
-    kernel on the current stream and count the launch. `light` is the
-    optional (S, A, B) stack of light slabs in slice order (emission only):
-    it selects the kernel's light branch. Returns the (4, Hb, Wb) tensor of
-    acc, trans, wsum, hit."""
+    kernel on the current stream and count the launch. `L` is float32 or
+    bfloat16 (the stream mode: it selects the kernel's instantiation).
+    `light` is the optional (S, A, B) stack of light slabs in slice order
+    and L's dtype (emission only): it selects the kernel's light branch.
+    Returns the (4, Hb, Wb) float32 tensor of acc, trans, wsum, hit."""
     global launches
     dev = L.device
     if light is not None and not emission:
         raise ValueError("sweep_ref_fwd kernel: a light volume needs "
                          "emission")
-    S, A, B, Hb, Wb = check_sweep_inputs(
+    S, A, B, Hb, Wb, elem = check_sweep_inputs(
         "sweep_ref_fwd", L, slice_z, v_grid, u_grid, seglen, params,
         channels=NCH, n_params=N_PARAMS, light=light)
     build_kernel()
@@ -193,7 +206,7 @@ def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, emission,
             L.data_ptr(), light.data_ptr() if light is not None else None,
             slice_z.data_ptr(), v_grid.data_ptr(), u_grid.data_ptr(),
             seglen.data_ptr(), params.data_ptr(), out.data_ptr(), S, A, B,
-            Hb, Wb, int(emission), stream)
+            Hb, Wb, int(emission), elem, stream)
     if rc != 0:
         raise RuntimeError(
             f"sweep_ref_fwd kernel launch failed: CUDA error {rc}")
@@ -206,11 +219,16 @@ class _SweepRef(torch.autograd.Function):
     _fused_vjp_ref's f_fwd and f_bwd, without and with light slabs: the
     kernels on CUDA slabs, the plain versions on CPU slabs. There are no
     checkpoint outputs: the backward replays each ray from T = 1. L and
-    the light slabs (or None) get gradients; `hit` is not differentiable."""
+    the light slabs (or None) get gradients; `hit` is not differentiable.
+    `low` is the bfloat16 stream mode, handled as in sweep_fwd._SweepFwd:
+    the cast to the stream type, the sweep and the saved tensors are the
+    node's, and each float32 gradient returns in its input's dtype."""
 
     @staticmethod
     def forward(ctx, L, light, slice_z, v_grid, u_grid, seglen, params,
-                emission):
+                emission, low):
+        ctx.in_dtypes = (L.dtype, None if light is None else light.dtype)
+        L, light = stream_cast(L, low), stream_cast(light, low)
         if L.device.type == "cuda":
             maps = launch_kernel(L, slice_z, v_grid, u_grid, seglen, params,
                                  emission, light).unbind(0)
@@ -228,7 +246,7 @@ class _SweepRef(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_acc, ct_trans, ct_wsum, _ct_hit):
-        none = (None,) * 6
+        none = (None,) * 7
         if not any(ctx.needs_input_grad[:2]):
             return (None, None) + none
         L, slice_z, v_grid, u_grid, seglen, params, trans, wsum, light = \
@@ -241,6 +259,9 @@ class _SweepRef(torch.autograd.Function):
         grads = bwd(L, slice_z, v_grid, u_grid, seglen, params, *cts, trans,
                     wsum, emission=ctx.emission, light=light)
         dL, dlight = grads if light is not None else (grads, None)
+        dL = dL.to(ctx.in_dtypes[0])
+        if dlight is not None:
+            dlight = dlight.to(ctx.in_dtypes[1])
         return (dL, dlight) + none
 
 
@@ -273,7 +294,8 @@ def sweep_base_ref(gperm4, plan, cfg: RenderConfig, medium: MediumConfig,
     dim 0: the kernels for a CUDA grid, the plain versions for a CPU grid,
     differentiable in the grid either way. lperm: optional (D, A, B)
     light-transmittance volume in the same layout (emission only); the
-    maps are differentiable in it too."""
+    maps are differentiable in it too. cfg.dtype "bfloat16" sweeps in the
+    bfloat16 stream mode."""
     if gperm4.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sweep_base_ref: no sweep for device "
                          f"{gperm4.device}")
@@ -285,4 +307,5 @@ def sweep_base_ref(gperm4, plan, cfg: RenderConfig, medium: MediumConfig,
                 f"sweep_base_ref: the light volume must have the grid's "
                 f"shape {tuple(gperm4.shape[:3])}, got {tuple(lperm.shape)}")
         slabs = sweep_ref_light_slabs(lperm, plan, cfg)
-    return _SweepRef.apply(L, slabs, *args, cfg.emission)
+    return _SweepRef.apply(L, slabs, *args, cfg.emission,
+                           cfg.dtype == "bfloat16")

@@ -17,8 +17,9 @@ step intermediates are kept. sample_sigma covers both combines: channel 0
 and scrolled coordinates. Shadows: render_rays marches a secondary ray
 toward the light from every sample (_light_transmittance, with
 light.shadow_steps > 0), and render_rays_sliced samples a precomputed
-light-transmittance volume (ops/lighting.py), as the slice sweep does. Not
-ported yet, and raising NotImplementedError: scene_sigma.
+light-transmittance volume (ops/lighting.py), as the slice sweep does.
+scene_sigma is the summed extinction of a multi-volume scene, the sigma_fn
+of render.render_scene's per-ray backend.
 """
 from __future__ import annotations
 
@@ -91,11 +92,28 @@ def sample_sigma(grid, pos01, medium: MediumConfig, scroll, address_mode):
 
 def scene_sigma(volumes, pos01, cfg: RenderConfig, medium: MediumConfig,
                 scroll=None):
-    """Summed extinction of a multi-volume scene: not ported yet (bake the
-    scene onto one grid with models.scene.bake_scene instead)."""
-    raise NotImplementedError(
-        "scene_sigma (per-ray multi-volume scenes) is not ported yet; bake "
-        "the scene with models.scene.bake_scene")
+    """Summed extinction of a multi-volume scene at shared-box normalized
+    positions pos01 (..., 3). Each volume (models.scene.Volume) carries its
+    own world_to_local; densities of overlapping volumes add (independent
+    scatterers). A position outside a volume's own [0, 1] box contributes
+    zero there, not an address-mode repeat: each volume is a finite
+    object."""
+    dev = pos01.device
+    box_min = _f32(cfg.box_min, dev)
+    box_range = _f32(cfg.box_max, dev) - box_min
+    world = pos01 * box_range + box_min
+    total = torch.zeros(pos01.shape[:-1], dtype=torch.float32, device=dev)
+    for vol in volumes:
+        if vol.world_to_local is None:
+            p = pos01
+        else:
+            m = _f32(vol.world_to_local, dev)
+            local = world @ m[:3, :3].T + m[:3, 3]
+            p = (local - box_min) / box_range
+        inside = torch.all((p >= 0.0) & (p <= 1.0), dim=-1)
+        s = sample_sigma(vol.grid, p, medium, scroll, cfg.address_mode)
+        total = total + torch.where(inside, s, torch.zeros_like(s))
+    return total
 
 
 def _light_transmittance(grid, pos01, medium, scroll, cfg: RenderConfig,

@@ -15,18 +15,22 @@ __all__ = ["linear_taps", "linear_resample_matrix"]
 
 
 def linear_taps(u01: torch.Tensor, n_in: int, address_mode: str = "mirror",
-                dtype: torch.dtype = torch.float32):
+                dtype: torch.dtype = torch.float32, round_bf16: bool = False):
     """The two taps of 1-D linear resampling at normalized positions:
     (i0, i1, w0, w1), texel indices (int64) and their weights 1 - f and f,
     each (n_out,). The sampler's modes fold into the indices; address_mode
     "zero" is vacuum outside the texel support: a tap beyond [0, n_in)
     weighs nothing (the light sweep's boundary, ops/lighting.py; not a
-    sampler mode)."""
+    sampler mode). round_bf16: the sweep's bfloat16 stream mode, each
+    weight rounded to the nearest bfloat16 on its own (from the float32
+    1 - f and f) and held in `dtype`."""
     p = u01.to(torch.float32) * n_in - 0.5
     i0f = torch.floor(p)
     f = (p - i0f).to(dtype)
     i0 = i0f.to(torch.int64)
     w0, w1 = 1.0 - f, f
+    if round_bf16:
+        w0, w1 = (w.to(torch.bfloat16).to(dtype) for w in (w0, w1))
     if address_mode == "zero":
         a0 = torch.clamp(i0, 0, n_in - 1)
         a1 = torch.clamp(i0 + 1, 0, n_in - 1)
@@ -41,11 +45,14 @@ def linear_taps(u01: torch.Tensor, n_in: int, address_mode: str = "mirror",
 def linear_resample_matrix(u01: torch.Tensor, n_in: int,
                            address_mode: str = "mirror",
                            dtype: torch.dtype = torch.float32,
-                           zero_outside: bool = False) -> torch.Tensor:
+                           zero_outside: bool = False,
+                           round_bf16: bool = False) -> torch.Tensor:
     """(n_out, n_in) matrix with at most two non-zeros per row, the taps
-    of linear_taps (address modes as there); zero_outside=True zeroes rows
-    whose position leaves [0, 1]."""
-    a0, a1, w0, w1 = linear_taps(u01, n_in, address_mode, dtype)
+    of linear_taps (address modes and round_bf16 as there); zero_outside=
+    True zeroes rows whose position leaves [0, 1]. Where an address mode
+    puts both taps of a row on one texel, the entry is the sum of the two
+    (rounded) weights, as the sweep kernels add both taps' products."""
+    a0, a1, w0, w1 = linear_taps(u01, n_in, address_mode, dtype, round_bf16)
     cols = torch.arange(n_in, device=u01.device)[None, :]
     zero = torch.zeros((), dtype=dtype, device=u01.device)
     w0 = torch.where(cols == a0[:, None], w0[:, None], zero)

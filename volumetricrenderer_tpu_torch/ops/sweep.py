@@ -389,37 +389,45 @@ def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
                  scroll=None, light_volume=None):
     """Render one RGBA frame (H, W, 4) by sweeping slices front to back.
 
-    grid: a (D, H, W) float32 density grid with medium.combine "single",
-    or a (D, H, W, 4) grid with "reference" and an optional (4, 3)
-    per-channel scroll. A CUDA grid goes through the hand-written sweep
-    kernels, a CPU grid through their plain PyTorch versions
+    grid: a (D, H, W) density grid with medium.combine "single", or a
+    (D, H, W, 4) grid with "reference" and an optional (4, 3) per-channel
+    scroll. A CUDA grid goes through the hand-written sweep kernels, a CPU
+    grid through their plain PyTorch versions
     (kernels/sweep_fwd.sweep_base, kernels/sweep_ref_fwd.sweep_base_ref).
+    With combine="single" the function is "channel 0, the scroll is
+    ignored" (ops/integrate.sample_sigma): a (D, H, W, C) grid is swept as
+    grid[..., 0] and a scroll is dropped, so the presets' (D, H, W, 1)
+    grids take the single-channel kernels. The JAX package sends that form
+    to its general jnp sweep, which computes the same function on another
+    route.
     light_volume: optional (D, H, W) light-transmittance grid of the
     grid's spatial shape (ops/lighting.py): with emission every sample is
     shaded by its clipped trilinear sample, and the frame is
     differentiable in it too.
-    Configurations the kernels do not cover raise NotImplementedError: the
-    bfloat16 stream mode waits for a later slice of the port, and the JAX
-    package's general jnp sweep (a scroll or a 4-D grid with
-    combine="single", clamp or wrap addressing with "reference", a light
-    volume with absorption or of another shape) is not ported."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: the bfloat16 stream mode of the sweep "
-            "kernels waits for a later slice of the port; use 'float32'")
+    cfg.dtype "bfloat16" sweeps in the kernels' bfloat16 stream mode
+    (kernels/sweep_fwd.py): texels and tap weights in bfloat16, everything
+    else and the gradient in float32.
+    Configurations the kernels do not cover raise NotImplementedError: what
+    else the JAX package's general jnp sweep served (clamp or wrap
+    addressing with "reference", a light volume with absorption or of
+    another shape) is not ported."""
+    if medium.combine == "single":
+        if grid.dim() == 4:
+            grid = grid[..., 0]
+        scroll = None
     ok = (sweep_fwd.supported(cfg, medium, light_volume, scroll, grid.dim())
           and (light_volume is None
                or light_volume.shape == grid.shape[:3]))
     if not ok:
         raise NotImplementedError(
-            "the torch sweep covers combine='single' with a 3-D grid, no "
-            "scroll and mirror/clamp/wrap addressing, and "
-            "combine='reference' with a 4-D grid and mirror addressing, "
-            "either with emission and a 3-D light volume of the grid's "
-            f"spatial shape; got combine={medium.combine!r}, "
+            "the torch sweep covers combine='single' (channel 0, no scroll)"
+            " with mirror/clamp/wrap addressing, and combine='reference' "
+            "with a 4-D grid and mirror addressing, either in float32 or "
+            "bfloat16 and with emission and a 3-D light volume of the "
+            f"grid's spatial shape; got combine={medium.combine!r}, "
             f"grid.shape={tuple(grid.shape)}, scroll={scroll is not None}, "
             f"address_mode={cfg.address_mode!r}, emission={cfg.emission}, "
-            "light_volume="
+            f"dtype={cfg.dtype!r}, light_volume="
             f"{None if light_volume is None else tuple(light_volume.shape)}")
     lperm = (light_volume.permute(plan.perm) if light_volume is not None
              else None)
