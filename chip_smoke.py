@@ -21,6 +21,15 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
 4. the backward kernel against its plain version in the same cases plus
    the density-500 early-stop case, on seeded normal cotangents; in each
    case the plain version is also held to autograd of the forward's;
+4b. the tiled schedule of K1 and K2 (kernels/csrc/sweep_tile.cuh) under
+   stress (TILED_STRESS): a window across the wrap seam, ragged base grids
+   that are no multiple of the tile, density 500 (tiles whose rays end at
+   different slices), absorption, a light volume with lT exactly 1 and one
+   stretched past [0, 1], bfloat16, texels denser than base pixels and a
+   stage above 48 KB of shared memory; each with the stage the host sizes,
+   with none (every tile-slice through global memory) and with half of it,
+   K1's maps equal bit for bit across the three, both kernels held to the
+   plain versions;
 5. bench.py's gradient check through the kernels: the sweep's grid
    gradient on an identity-warp plan against the per-ray oracle's,
    cloud_volume(24, 7) at 48x32;
@@ -124,8 +133,10 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
 21. prints a JSON line of kernel results (each kernel's launches on the
    main paths, error, time, plain version's time, and the least time the
    card could take for the same work, each also for the light variant and
-   for the bfloat16 mode), then the last line {"ok": true, "device":
-   {...}}.
+   for the bfloat16 mode; for K1 and K2 the tile-slices they computed on
+   the main paths and how many of those read through global memory), with
+   each time's share of its bound logged before it, then the last line
+   {"ok": true, "device": {...}}. Every main path logs its tile-slices.
 
 Any failure raises, so the exit code is non-zero and no result is printed.
 One frame of each medium, one shadowed frame and the profile tables are
@@ -393,6 +404,34 @@ def counts():
 def reset_counts():
     for mod, _, _ in KERNELS.values():
         mod.launches = 0
+    for name in TILES:
+        KERNELS[name][0].tiles.reset()
+
+
+# Tile-slices K1 and K2 computed on the main paths, and of those the ones
+# read through global memory (their window exceeded the stage the host
+# sized): name -> [computed, global].
+TILES = {"sweep_fwd": [0, 0], "sweep_bwd": [0, 0]}
+
+
+def path_counts(label):
+    """counts() at the end of a main path; also takes the tile-slices K1
+    and K2 computed since the last reset_counts (or the last call), logs
+    them by path and adds them to TILES."""
+    launches = counts()
+    parts = []
+    for name, total in TILES.items():
+        tiles = KERNELS[name][0].tiles
+        done, glob = tiles.read()
+        tiles.reset()
+        total[0] += done
+        total[1] += glob
+        if done:
+            parts.append(f"{name} {done} tile-slices, {glob} through global "
+                         "memory")
+    if parts:
+        log(f"tile-slices, {label}: " + "; ".join(parts))
+    return launches
 
 
 def build_all():
@@ -613,7 +652,7 @@ def ref_full_width(dev, out_dir):
                      "expected 1")
             frames.append((f"reference emission={em} {name}", cfg, scroll,
                            img))
-    serve_launches = counts()
+    serve_launches = path_counts("reference preset serving")
     log(f"reference serving path: {len(frames)} frames, launches (fwd, bwd, "
         f"ref_fwd, ref_bwd) {serve_launches}")
     if serve_launches != (0, 0, len(frames), 0):
@@ -685,7 +724,7 @@ def ref_full_width(dev, out_dir):
                 f"launches {step}, dL max abs err {e:.3e} at max|dL| "
                 f"{scale:.3e}, max |grad| per channel "
                 f"{[f'{x:.3e}' for x in per_channel]}")
-    train_launches = counts()
+    train_launches = path_counts("reference preset training")
     log(f"reference training path: launches (fwd, bwd, ref_fwd, ref_bwd) "
         f"{train_launches}")
     if train_launches != (0, 0, 2, 2) or len(spy.seen) != 2:
@@ -1001,7 +1040,7 @@ def config4_full_width(grid, dev, out_dir):
             fail(f"config 4 frame {i}: render_image launched the sweep "
                  f"kernel {sweep_fwd.launches - before} times, expected 1")
         frames.append(img)
-    serve_launches = counts()
+    serve_launches = path_counts("config 4 serving")
     log(f"config 4 serving path: {len(frames)} shadowed frames, launches "
         f"(fwd, bwd, ref_fwd, ref_bwd) {serve_launches}")
     if serve_launches != (len(frames), 0, 0, 0):
@@ -1066,7 +1105,7 @@ def config4_full_width(grid, dev, out_dir):
         loss = (img[..., :3] ** 2).sum()
         loss.backward()
         torch.cuda.synchronize()
-    train_launches = counts()
+    train_launches = path_counts("config 4 training")
     if train_launches != (1, 1, 0, 0) or len(spy.seen) != 1:
         fail(f"config 4 forward+backward launched {train_launches}, "
              "expected (1, 1, 0, 0)")
@@ -1115,7 +1154,7 @@ def ref_shadow_full_width(grid4, cam, plan, dev):
         frames.append(render_image(grid4, cam, cfg, medium, light,
                                    scroll=scroll, plan=plan))
         torch.cuda.synchronize()
-    serve_launches = counts()
+    serve_launches = path_counts("reference medium with shadows serving")
     if serve_launches != (0, 0, len(frames), 0):
         fail(f"reference shadowed serving launched {serve_launches}, "
              f"expected (0, 0, {len(frames)}, 0)")
@@ -1144,7 +1183,7 @@ def ref_shadow_full_width(grid4, cam, plan, dev):
         loss = (img[..., :3] ** 2).sum()
         loss.backward()
         torch.cuda.synchronize()
-    train_launches = counts()
+    train_launches = path_counts("reference medium with shadows training")
     if train_launches != (0, 0, 1, 1) or len(spy.seen) != 1:
         fail(f"reference shadowed forward+backward launched "
              f"{train_launches}, expected (0, 0, 1, 1)")
@@ -1318,6 +1357,116 @@ def light_timings(grid, cam, plan, grid4, cam4, plan4, dev, gpu_line,
                             (*inputs, lslabs, *cts[1:], maps[1], maps[2],
                              inputs[0], lslabs))
     return out
+
+
+# --- the tiled schedule of K1 and K2 (kernels/csrc/sweep_tile.cuh) --------
+#
+# Each case runs K1 and K2 with the stage the host sizes from the plan, with
+# none (every tile-slice through global memory) and with half of it (both
+# paths in one launch); K1's maps are equal bit for bit across the three
+# and, like K2's gradients, held to the plain versions at the tolerances of
+# the phases above.
+TILED_STRESS = (
+    ("wrap seam", dict(eye=(0.9, 0.8, 1.6), mode="wrap", light="ones")),
+    ("ragged base 100x70", dict(eye=SMALL_EYES[1][0], force=(100, 70))),
+    ("ragged base 70x100, absorption, clamp",
+     dict(eye=SMALL_EYES[2][0], emission=False, mode="clamp",
+          force=(70, 100))),
+    ("density 500", dict(eye=SMALL_EYES[0][0], density=500.0)),
+    ("light with lT exactly 1", dict(eye=SMALL_EYES[3][0], light="ones")),
+    ("light stretched, wrap", dict(eye=SMALL_EYES[2][0], light="stretched",
+                                   mode="wrap")),
+    ("bfloat16 with light, wrap seam",
+     dict(eye=(0.9, 0.8, 1.6), mode="wrap", light="ones", low=True)),
+    ("texels denser than pixels, 64^3 on 37x45",
+     dict(eye=SMALL_EYES[3][0], size=64, force=(37, 45))),
+    ("stage above 48 KB, 128^3 on 56x56",
+     dict(eye=SMALL_EYES[3][0], size=128, force=(56, 56))),
+)
+
+
+def tiled_stress_checks(dev):
+    """The stress cases of K1's and K2's tiled schedule (TILED_STRESS).
+    Returns {kernel: [errors]}."""
+    from volumetricrenderer_tpu_torch.kernels import build
+    from volumetricrenderer_tpu_torch.ops.sweep import plan_sweep
+    errs = {"sweep_fwd": [], "sweep_bwd": []}
+    lcfg = LightConfig(ambient=0.2, shadow_steps=32)
+    for what, case in TILED_STRESS:
+        em, mode = case.get("emission", True), case.get("mode", "mirror")
+        n = case.get("size", 16)
+        grid = torch.tensor(np.random.default_rng(0).uniform(0.2, 1.0,
+                                                             (n,) * 3),
+                            dtype=torch.float32, device=dev)
+        cfg = RenderConfig(emission=em, quadrature="sliced",
+                           address_mode=mode)
+        plan = plan_sweep(make_camera(CameraConfig(eye=case["eye"], width=96,
+                                                   height=64)),
+                          grid.shape, cfg, supersample=cfg.sweep_supersample,
+                          force_base_dims=case.get("force"), device=dev)
+        medium = MediumConfig(combine="single",
+                              density=case.get("density", 8.0))
+        kind = case.get("light")
+        (stack, *args), flip = sweep_fwd.sweep_inputs(
+            grid.permute(plan.perm), plan, cfg, medium,
+            lcfg if kind else None)
+        stack, light = stack.contiguous(), None
+        if kind:
+            lvol = light_transmittance_volume(grid, lcfg, cfg, medium)
+            if kind == "stretched":
+                lvol = stretched(lvol)
+            light = sweep_fwd.sweep_light_stack(lvol.permute(plan.perm), plan,
+                                                cfg).contiguous()
+        if case.get("low"):
+            stack = stack.to(torch.bfloat16)
+            light = light.to(torch.bfloat16) if light is not None else None
+        wrap = mode == "wrap"
+        spans = build.tile_spans(*args[:3], args[4], stack.shape[1],
+                                 stack.shape[2], wrap)
+        need = build.stage_texels(spans)
+        kw = dict(emission=em, flip=flip, address_mode=mode, light=light)
+        want_maps = torch.stack(sweep_fwd.sweep_fwd_reference(stack, *args,
+                                                              **kw))
+        rng = np.random.default_rng(9)
+        cts = [torch.tensor(rng.normal(size=plan.base_shape),
+                            dtype=torch.float32, device=dev)
+               for _ in range(3)]
+        tol = BWD_TOL_GATE if medium.density > 100.0 else BWD_TOL
+        first, parts = None, []
+        for stage in (None, 0, need // 2):
+            for mod in (sweep_fwd, sweep_bwd):
+                mod.tiles.reset()
+            maps = sweep_fwd.launch_kernel(stack, *args, em, flip, wrap,
+                                           light, stage=stage)
+            got = sweep_bwd.launch_kernel(stack, *args, *cts, maps[1],
+                                          maps[2], em, flip, wrap,
+                                          light=light, stage=stage)
+            torch.cuda.synchronize()
+            done, glob = sweep_fwd.tiles.read()
+            bdone, bglob = sweep_bwd.tiles.read()
+            if first is None:
+                first = maps
+                errs["sweep_fwd"].append(check_close(maps, want_maps,
+                                                     f"tiled {what} maps"))
+            elif not torch.equal(maps, first):
+                fail(f"tiled {what}: K1 with stage {stage} differs from K1 "
+                     "with the plan's stage")
+            want = sweep_bwd.sweep_bwd_reference(stack, *args, *cts, maps[1],
+                                                 maps[2], **kw)
+            if light is None:
+                got, want = (got,), (want,)
+            e = max(check_grad(g, w, f"tiled {what} stage {stage}", tol)[0]
+                    for g, w in zip(got, want))
+            errs["sweep_bwd"].append(e)
+            if stage == 0 and (glob, bglob) != (done, bdone):
+                fail(f"tiled {what}: stage 0 computed {done - glob} tile-"
+                     "slices from shared memory")
+            parts.append(f"stage {need if stage is None else stage}: K1 "
+                         f"{done} tile-slices ({glob} global), K2 {bdone} "
+                         f"({bglob}), grads {e:.3e}")
+        log(f"tiled {what}: base {plan.base_shape}, maps max abs err "
+            f"{errs['sweep_fwd'][-1]:.3e}; " + "; ".join(parts))
+    return errs
 
 
 # --- the bfloat16 stream mode --------------------------------------------
@@ -1620,7 +1769,7 @@ def low_step(name, grid, cam, plan, cfg, medium, light, scroll, bwd_mod,
         loss = (img[..., :3] ** 2).sum()
         loss.backward()
         torch.cuda.synchronize()
-    launches = counts()
+    launches = path_counts(name)
     if launches != expect or len(spy.seen) != 1:
         fail(f"{name} launched {launches}, expected {expect}")
     if g.grad.dtype != torch.float32 \
@@ -1669,7 +1818,7 @@ def bf16_full_width(dev, grid, flag_frames, flag_cams, grid4, cam4, plan4):
     for (name, plan, _), (_, cam) in zip(flag_frames, flag_cams):
         imgs.append(render_image(grid, cam, low, medium, plan=plan))
         torch.cuda.synchronize()
-    paths.append(counts())
+    paths.append(path_counts("bf16 flagship serving"))
     if paths[-1] != (len(imgs), 0, 0, 0):
         fail(f"bf16 serving path launched {paths[-1]}, expected "
              f"({len(imgs)}, 0, 0, 0)")
@@ -1696,7 +1845,7 @@ def bf16_full_width(dev, grid, flag_frames, flag_cams, grid4, cam4, plan4):
             frames.append((c, sc, render_image(grid4, cam4, low_cfg(c), rmed,
                                                scroll=sc, plan=plan4)))
             torch.cuda.synchronize()
-    paths.append(counts())
+    paths.append(path_counts("bf16 reference"))
     if paths[-1] != (0, 0, len(frames), 0):
         fail(f"bf16 reference serving path launched {paths[-1]}, expected "
              f"(0, 0, {len(frames)}, 0)")
@@ -1723,7 +1872,7 @@ def bf16_full_width(dev, grid, flag_frames, flag_cams, grid4, cam4, plan4):
     for cam, plan in zip(cams, plans):
         imgs.append(render_image(grid, cam, low, medium, light, plan=plan))
         torch.cuda.synchronize()
-    paths.append(counts())
+    paths.append(path_counts("bf16 config 4"))
     if paths[-1] != (len(imgs), 0, 0, 0):
         fail(f"bf16 config 4 serving path launched {paths[-1]}, expected "
              f"({len(imgs)}, 0, 0, 0)")
@@ -1751,7 +1900,7 @@ def bf16_full_width(dev, grid, flag_frames, flag_cams, grid4, cam4, plan4):
         frames.append((sc, render_image(grid4, cam4, low, smed, light,
                                         scroll=sc, plan=plan4)))
         torch.cuda.synchronize()
-    paths.append(counts())
+    paths.append(path_counts("bf16 reference shadowed"))
     if paths[-1] != (0, 0, len(frames), 0):
         fail(f"bf16 reference shadowed serving launched {paths[-1]}, "
              f"expected (0, 0, {len(frames)}, 0)")
@@ -1989,7 +2138,7 @@ def preset_front_end(dev, out_dir):
         rc = cli.main(["render", "--preset", name, "--out", out])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = counts()
+        launches = path_counts(f"cli render --preset {name}")
         if rc != 0:
             fail(f"cli render --preset {name} returned {rc}")
         sliced = p.render.quadrature == "sliced"
@@ -2058,7 +2207,7 @@ def preset_front_end(dev, out_dir):
             torch.cuda.synchronize()
             if counts() != (1, 0, 0, 0):
                 fail(f"render_preset(config2, bfloat16) launched {counts()}")
-            paths.append(counts())
+            paths.append(path_counts("render_preset(config2, bfloat16)"))
             log(f"render_preset(config2, dtype=bfloat16): launches "
                 f"{counts()}")
             errs["sweep_fwd"] += check_low_frame(
@@ -2156,6 +2305,11 @@ def main(argv=None):
         log(f"{what}: max abs err {e:.3e} (max|dG| {scale:.3e}); plain vs "
             f"autograd {e_auto:.3e}")
 
+    # 4b. The tiled schedule's stress cases (TILED_STRESS).
+    tiled = tiled_stress_checks(dev)
+    errs += tiled["sweep_fwd"]
+    bwd_errs += tiled["sweep_bwd"]
+
     # 5. bench.py's gradient check, through the kernels.
     cfg = RenderConfig(emission=True, quadrature="sliced")
     cam = make_camera(CameraConfig(width=48, height=32))
@@ -2199,7 +2353,7 @@ def main(argv=None):
             fail(f"{name}: render_image launched the sweep kernel "
                  f"{sweep_fwd.launches - before} times, expected 1")
         frames.append((name, plan, img))
-    serve_launches = counts()
+    serve_launches = path_counts("flagship serving")
     log(f"serving path: {len(frames)} frames, launches (fwd, bwd, ref_fwd, "
         f"ref_bwd) {serve_launches}")
     if serve_launches != (len(frames), 0, 0, 0):
@@ -2244,7 +2398,7 @@ def main(argv=None):
         loss = (img[..., :3] ** 2).sum()
         loss.backward()
         torch.cuda.synchronize()
-    step_launches = counts()
+    step_launches = path_counts("flagship forward+backward step")
     if step_launches != (1, 1, 0, 0) or len(spy.seen) != 1:
         fail(f"flagship forward+backward launched {step_launches}, "
              f"expected (1, 1, 0, 0)")
@@ -2281,7 +2435,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_launches = tuple(a - b for a, b in zip(counts(), before))
-    train_launches = counts()
+    train_launches = path_counts("config 3 fit")
     log(f"config 3 fit: losses {[f'{x:.6e}' for x in res.losses]}, "
         f"skipped {res.skipped_steps}, launches {fit_launches}, "
         f"{fit_s:.2f} s with the plan build")
@@ -2471,6 +2625,17 @@ def main(argv=None):
             f"{bound_low_l:.4f} ms ({by_low_l}: {flops_l:.4g} float "
             f"operations, {nbytes_l:.4g} bytes); {launches_low} launches on "
             f"the bfloat16 main paths, {launches_preset} on the presets'")
+        log(f"[{gpu_line}] {name} share of its bound: float32 "
+            f"{bound_ms / ms:.4f}, with light {bound_l / ms_l:.4f}, bfloat16 "
+            f"{bound_low / lt['ms']:.4f}, bfloat16 with light "
+            f"{bound_low_l / lt['ms_light']:.4f}")
+        tiles = TILES.get(name)
+        if tiles is not None:
+            if tiles[0] < 1:
+                fail(f"{name}: no tile-slice computed on the main paths")
+            log(f"[{gpu_line}] {name} on the main paths: {tiles[0]} "
+                f"tile-slices, {tiles[1]} through global memory (share "
+                f"{tiles[1] / tiles[0]:.4g})")
         kernel_errs[name] += [e for errs_ in light_errs + low_errs
                               for e in errs_[name]]
         results.append({
@@ -2498,6 +2663,8 @@ def main(argv=None):
             "bound_ms_bf16": bound_low,
             "bound_by_bf16": by_low,
             "bound_ms_bf16_light": bound_low_l,
+            "tile_slices": tiles[0] if tiles else None,
+            "tile_slices_global": tiles[1] if tiles else None,
         })
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,292 @@
+#!/usr/bin/env python3
+"""A/B of the single-channel sweep kernels K1 (kernels/csrc/sweep_fwd.cu) and
+K2 (kernels/csrc/sweep_bwd.cu) against another copy of their sources, in
+turns on one CUDA GPU, with the ladder of the tiled schedule between them.
+
+    python3 kernel_ab.py --other DIR [--out DIR] [--runs N]
+
+DIR holds sweep_fwd.cu, sweep_bwd.cu and the sweep_common.cuh they include,
+with the per-pixel kernels' C interface (no stage and no tally arguments):
+for example an earlier commit's,
+
+    mkdir -p DIR && git archive REV \\
+        volumetricrenderer_tpu_torch/kernels/csrc \\
+        | tar -x --strip-components=3 -C DIR
+
+(a directory that .gitignore lists, such as volumetricrenderer_tpu_torch/
+_build/other). Three settings: the flagship forward+backward plan
+(cloud_volume(256, 7), default camera at 1920x1080: 1536^2 base, 256
+slices), config 4's orbit frame 0 with its light volume (LightConfig(
+shadow_steps=32)), and the flagship in the bfloat16 stream mode. For each,
+both kernels of each version run on the same inputs:
+
+* the other K1's maps against this K1's, staged and with every tile-slice
+  read through global memory (stage=0): equal bit for bit, or the script
+  fails;
+* the other K2's dG (and dL) against this K2's, both paths: within 2e-4 of
+  the maximum (the atomics sum in another order each run);
+* timings in turns, other / global / staged / staged / global / other,
+  each a median of --runs CUDA-event intervals after two warm-ups.
+
+It prints the nvcc/ptxas report of every build, one line per timing, the
+tile-slice tally, and the results as one JSON line (also written to
+--out/kernel_ab.json). It needs a GPU and fails without one.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from volumetricrenderer_tpu_torch import (CameraConfig, LightConfig,
+                                          MediumConfig, RenderConfig,
+                                          cloud_volume,
+                                          light_transmittance_volume,
+                                          make_camera, orbit_camera,
+                                          plan_for)
+from volumetricrenderer_tpu_torch.kernels import build, sweep_bwd, sweep_fwd
+
+WIDTH, HEIGHT, VOLUME = 1920, 1080, 256
+GRAD_TOL = 2e-4
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def build_other(src_dir):
+    """Compile the other sweep_fwd.cu and sweep_bwd.cu with the port's
+    flags; returns ({name: launcher}, {name: nvcc output})."""
+    fns, logs = {}, {}
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    for name, n_ptr in (("sweep_fwd", 8), ("sweep_bwd", 14)):
+        src = os.path.join(src_dir, name + ".cu")
+        lib = os.path.join(build.BUILD_DIR,
+                           f"other-{name}-{build.source_key(src)[:16]}.so")
+        t0 = time.perf_counter()
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib,
+                               src], capture_output=True, text=True)
+        logs[name] = (f"{time.perf_counter() - t0:.1f} s\n"
+                      + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{logs[name]}")
+        fn = getattr(ctypes.CDLL(lib), name + "_launch")
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns, logs
+
+
+def ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def elem_of(stack):
+    return build.ELEM_BF16 if stack.dtype == torch.bfloat16 else \
+        build.ELEM_F32
+
+
+def other_fwd(fn, stack, args, flip, light):
+    slice_z, v, u, seg, params = args
+    S, A, B = stack.shape
+    out = torch.empty((4, v.numel(), u.numel()), dtype=torch.float32,
+                      device=stack.device)
+    rc = fn(ptr(stack), ptr(light), ptr(slice_z), ptr(v), ptr(u), ptr(seg),
+            ptr(params), ptr(out), S, A, B, v.numel(), u.numel(), 1,
+            int(flip), 0, elem_of(stack),
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"other sweep_fwd launch failed: CUDA error {rc}")
+    return out
+
+
+def other_bwd(fn, stack, args, cts, maps, flip, light):
+    slice_z, v, u, seg, params = args
+    S, A, B = stack.shape
+    dG = torch.zeros((S, A, B), dtype=torch.float32, device=stack.device)
+    dL = torch.zeros_like(dG) if light is not None else None
+    rc = fn(ptr(stack), ptr(light), ptr(slice_z), ptr(v), ptr(u), ptr(seg),
+            ptr(params), None, ptr(cts[1]), ptr(cts[2]), ptr(maps[1]),
+            ptr(maps[2]), ptr(dG), ptr(dL), S, A, B, v.numel(), u.numel(), 1,
+            int(flip), 0, elem_of(stack),
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"other sweep_bwd launch failed: CUDA error {rc}")
+    return dG if light is None else (dG, dL)
+
+
+def cuda_ms(fn, runs, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def grad_err(got, want):
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / scale
+
+
+def setting(name, stack, args, flip, light, other, runs, gpu_line):
+    """Checks and times both kernels of both versions on one setting."""
+    res = {"setting": name, "base": list(args[1].shape + args[2].shape),
+           "slices": int(args[0].shape[0]), "dtype": str(stack.dtype)}
+    gen = torch.Generator(device=stack.device).manual_seed(3)
+    cts = [torch.randn(args[1].numel(), args[2].numel(), device=stack.device,
+                       generator=gen) for _ in range(3)]
+    sweep_fwd.tiles.reset()
+    staged = sweep_fwd.launch_kernel(stack, *args, True, flip, False, light)
+    done, glob = sweep_fwd.tiles.read()
+    res["stage_texels"] = build.stage_for(*args[:3], args[4], stack.shape[1],
+                                          stack.shape[2], False)
+    res["tile_slices"], res["tile_slices_global"] = done, glob
+    gmaps = sweep_fwd.launch_kernel(stack, *args, True, flip, False, light,
+                                    stage=0)
+    omaps = other_fwd(other["sweep_fwd"], stack, args, flip, light)
+    torch.cuda.synchronize()
+    if not (torch.equal(staged, omaps) and torch.equal(gmaps, omaps)):
+        raise RuntimeError(
+            f"{name}: K1 differs from the other K1: max abs err "
+            f"{float((staged - omaps).abs().max()):.3e} (staged), "
+            f"{float((gmaps - omaps).abs().max()):.3e} (global)")
+    maps = staged
+
+    def new_bwd(stage=None):
+        return sweep_bwd.launch_kernel(stack, *args, None, cts[1], cts[2],
+                                       maps[1], maps[2], True, flip, False,
+                                       light=light, stage=stage)
+    grads = {"staged": new_bwd(), "global": new_bwd(0),
+             "other": other_bwd(other["sweep_bwd"], stack, args, cts, maps,
+                                flip, light)}
+    torch.cuda.synchronize()
+    if light is None:
+        grads = {k: (g, None) for k, g in grads.items()}
+    errs = {}
+    for k in ("staged", "global"):
+        errs[f"dG_{k}"] = grad_err(grads[k][0], grads["other"][0])
+        if light is not None:
+            errs[f"dL_{k}"] = grad_err(grads[k][1], grads["other"][1])
+    res["grad_rel_err"] = errs
+    if max(errs.values()) > GRAD_TOL:
+        raise RuntimeError(f"{name}: K2 differs from the other K2: {errs}")
+
+    fwd = {"other": lambda: other_fwd(other["sweep_fwd"], stack, args, flip,
+                                      light),
+           "global": lambda: sweep_fwd.launch_kernel(
+               stack, *args, True, flip, False, light, stage=0),
+           "staged": lambda: sweep_fwd.launch_kernel(
+               stack, *args, True, flip, False, light)}
+    bwd = {"other": lambda: other_bwd(other["sweep_bwd"], stack, args, cts,
+                                      maps, flip, light),
+           "global": lambda: new_bwd(0), "staged": new_bwd}
+    order = ("other", "global", "staged", "staged", "global", "other")
+    for kernel, fns in (("K1", fwd), ("K2", bwd)):
+        times = {k: [] for k in fns}
+        for k in order:
+            times[k].append(cuda_ms(fns[k], runs))
+        res[kernel] = times
+        med = {k: statistics.median(v) for k, v in times.items()}
+        log(f"[{gpu_line}] {name} {kernel}: other "
+            + " / ".join(f"{t:.3f}" for t in times["other"])
+            + " ms, tiled global " + " / ".join(f"{t:.3f}" for t in
+                                                times["global"])
+            + " ms, tiled staged " + " / ".join(f"{t:.3f}" for t in
+                                                times["staged"])
+            + f" ms; other / staged {med['other'] / med['staged']:.2f}x, "
+            f"other / global {med['other'] / med['global']:.2f}x")
+    log(f"  {name}: base {tuple(res['base'])}, {res['slices']} slices, stage "
+        f"{res['stage_texels']} texels, {done} tile-slices of which {glob} "
+        f"through global memory; K2 error {errs}")
+    return res
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--other", required=True,
+                        help="directory with the other sweep_fwd.cu, "
+                        "sweep_bwd.cu and sweep_common.cuh")
+    parser.add_argument("--out", default=None)
+    parser.add_argument("--runs", type=int, default=12)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: torch.cuda.is_available() is False: "
+                         "this script needs a CUDA GPU")
+    gpu_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(gpu_line)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    for name, mod in (("sweep_fwd", sweep_fwd), ("sweep_bwd", sweep_bwd)):
+        info = mod.build_kernel()
+        log(f"build {name} (this tree): {info['seconds']:.1f} s")
+        for line in info["log"].strip().splitlines():
+            log(f"  nvcc: {line}")
+    other, logs = build_other(args.other)
+    for name, text in logs.items():
+        log(f"build {name} (other): " + text.splitlines()[0])
+        for line in text.strip().splitlines()[1:]:
+            log(f"  nvcc: {line}")
+
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    medium = MediumConfig(combine="single", density=8.0)
+    grid = cloud_volume(VOLUME, 7, device=dev)
+    results = []
+
+    cam = make_camera(CameraConfig(width=WIDTH, height=HEIGHT))
+    plan = plan_for(cam, grid.shape, cfg, device=dev)
+    (stack, *fargs), flip = sweep_fwd.sweep_inputs(grid.permute(plan.perm),
+                                                   plan, cfg, medium)
+    stack = stack.contiguous()
+    results.append(setting("flagship", stack, fargs, flip, None, other,
+                           args.runs, gpu_line))
+    results.append(setting("flagship bfloat16", stack.to(torch.bfloat16),
+                           fargs, flip, None, other, args.runs, gpu_line))
+
+    light = LightConfig(shadow_steps=32)
+    cam4 = orbit_camera(0.0, width=WIDTH, height=HEIGHT)
+    plan4 = plan_for(cam4, grid.shape, cfg, device=dev)
+    (stack4, *fargs4), flip4 = sweep_fwd.sweep_inputs(
+        grid.permute(plan4.perm), plan4, cfg, medium, light)
+    lvol = light_transmittance_volume(grid, light, cfg, medium)
+    lstack = sweep_fwd.sweep_light_stack(lvol.permute(plan4.perm), plan4,
+                                         cfg).contiguous()
+    results.append(setting("config 4 frame 0 with light",
+                           stack4.contiguous(), fargs4, flip4, lstack, other,
+                           args.runs, gpu_line))
+    results.append(setting("config 4 frame 0 with light, bfloat16",
+                           stack4.contiguous().to(torch.bfloat16), fargs4,
+                           flip4, lstack.to(torch.bfloat16), other,
+                           args.runs, gpu_line))
+
+    line = json.dumps({"device": gpu_line, "ab": results})
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "kernel_ab.json"), "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

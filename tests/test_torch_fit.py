@@ -249,3 +249,22 @@ def test_cli_fit_fixed_quadrature(tmp_path):
     assert os.path.exists(os.path.join(out, "fitted.png"))
     _, _, _, extra = tckpt.restore_checkpoint(os.path.join(out, "ckpt"))
     assert extra == {"quadrature": "fixed"}
+
+
+def test_fit_grid_defaults_to_the_gpu(problem):
+    """No entry point picks the CPU by itself: a numpy target and no
+    init_grid fit on `device`, "cuda" by default, so without a GPU the
+    default raises torch's own error; device="cpu" (or a CPU tensor, as
+    the tests above pass) fits on the CPU and matches the JAX fit."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    with pytest.raises((RuntimeError, AssertionError)):
+        tfit.fit_grid(problem["target"], *problem["targs"], grid_size=SIZE,
+                      steps=1, learning_rate=LR)
+    got = tfit.fit_grid(problem["target"], *problem["targs"],
+                        grid_size=SIZE, steps=2, learning_rate=LR,
+                        device="cpu")
+    assert got.grid.device.type == "cpu"
+    want = _jax_fit(problem, 2)
+    _assert_fits_close(problem, got.losses, got.grid.numpy(), want.losses,
+                       np.asarray(want.grid))

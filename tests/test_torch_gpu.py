@@ -94,7 +94,7 @@ def test_kernel_render_matches_plain_render(cuda):
     """A whole frame through render_image on the card against the same
     frame rendered on the CPU (plain version, same plan values)."""
     from volumetricrenderer_tpu_torch import cloud_volume, render_image
-    grid_c = cloud_volume(32, 7)
+    grid_c = cloud_volume(32, 7, device="cpu")
     cam = make_camera(CameraConfig(width=96, height=64))
     cfg = RenderConfig(emission=True, quadrature="sliced")
     medium = MediumConfig(combine="single", density=8.0)
@@ -161,7 +161,7 @@ def test_gpu_render_gradient_matches_cpu(cuda, emission):
     """d/dgrid of sum(rgb^2) through render_image on the card (both
     kernels) against the same on the CPU (both plain versions)."""
     from volumetricrenderer_tpu_torch import cloud_volume, render_image
-    grid_c = cloud_volume(32, 7)
+    grid_c = cloud_volume(32, 7, device="cpu")
     cam = make_camera(CameraConfig(width=96, height=64))
     cfg = RenderConfig(emission=emission, quadrature="sliced")
     medium = MediumConfig(combine="single", density=8.0)
@@ -580,7 +580,7 @@ def test_gpu_shadowed_render_and_gradient_match_cpu(cuda, combine):
     the CPU (the plain versions): image and d/dgrid of sum(rgb^2)."""
     from volumetricrenderer_tpu_torch import cloud_volume, render_image
     if combine == "single":
-        grid_c = cloud_volume(32, 7)
+        grid_c = cloud_volume(32, 7, device="cpu")
         medium, scroll = MediumConfig(combine="single", density=8.0), "none"
     else:
         grid_c = torch.tensor(
@@ -823,7 +823,7 @@ def test_bf16_gpu_render_and_gradient_match_cpu(cuda, combine, shadows):
     float32 frame."""
     from volumetricrenderer_tpu_torch import cloud_volume, render_image
     if combine == "single":
-        grid_c = cloud_volume(32, 7)
+        grid_c = cloud_volume(32, 7, device="cpu")
         medium, scroll = MediumConfig(combine="single", density=8.0), "none"
     else:
         grid_c = torch.tensor(
@@ -926,3 +926,206 @@ def test_bf16_launches_validate_inputs(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         round_weights_on_device(torch.ones(4))
     assert (sweep_fwd.launches, sweep_bwd.launches) == before
+
+
+# --- the tiled schedule of K1 and K2 (csrc/sweep_tile.cuh) ------------------
+
+def _tiled_inputs(dev, eye, emission=True, mode="mirror", n_slices=None,
+                  density=8.0, kind=None, low=False, force=None, d=16):
+    """The sweep kernels' inputs for one plan: (stack, args, flip, wrap,
+    light, cfg, plan, medium); force: the base grid's (Hb, Wb)."""
+    from volumetricrenderer_tpu_torch.ops.sweep import plan_sweep
+    grid = torch.tensor(np.random.default_rng(0).uniform(0.2, 1.0, (d,) * 3),
+                        dtype=torch.float32, device=dev)
+    cfg = RenderConfig(emission=emission, quadrature="sliced",
+                       address_mode=mode)
+    plan = plan_sweep(make_camera(CameraConfig(eye=eye, width=96, height=64)),
+                      grid.shape, cfg, supersample=cfg.sweep_supersample,
+                      n_slices=n_slices, force_base_dims=force, device=dev)
+    medium = MediumConfig(combine="single", density=density)
+    (stack, *args), flip = sweep_fwd.sweep_inputs(
+        grid.permute(plan.perm), plan, cfg, medium, LIGHT if kind else None)
+    stack = stack.contiguous()
+    light = None
+    if kind:
+        lvol = _light_volume(grid, cfg, medium, kind)
+        light = sweep_fwd.sweep_light_stack(lvol.permute(plan.perm), plan,
+                                            cfg).contiguous()
+    if low:
+        stack = _low(stack)
+        light = _low(light) if light is not None else None
+    return stack, args, flip, mode == "wrap", light, cfg, plan, medium
+
+
+def _spans(stack, args, wrap):
+    from volumetricrenderer_tpu_torch.kernels import build
+    return build.tile_spans(*args[:3], args[4], stack.shape[1],
+                            stack.shape[2], wrap)
+
+
+def _tiled_paths(dev, tol=BWD_TOL, **case):
+    """K1 and K2 with the stage the plan sizes, with none (every tile-slice
+    through global memory) and with half of it (both paths in one launch):
+    K1's maps equal bit for bit across the three and match the plain
+    version, K2's gradients match the plain version in each; K1's tally of
+    tile-slices agrees with the host mirror (build.tile_slices): none
+    through global memory where every window fits, all with no stage.
+    Returns the plan's stage in texels."""
+    from volumetricrenderer_tpu_torch.kernels import build
+    stack, args, flip, wrap, light, cfg, plan, _ = _tiled_inputs(dev, **case)
+    em = cfg.emission
+    spans = _spans(stack, args, wrap)
+    need = build.stage_texels(spans)
+    assert need > 1
+    kw = dict(emission=em, flip=flip, address_mode=cfg.address_mode,
+              light=light)
+    want_maps = sweep_fwd.sweep_fwd_reference(stack, *args, **kw)
+    rng = np.random.default_rng(9)
+    cts = [torch.tensor(rng.normal(size=plan.base_shape), dtype=torch.float32,
+                        device=dev) for _ in range(3)]
+    first = None
+    for stage in (None, 0, need // 2):
+        sweep_fwd.tiles.reset()
+        sweep_bwd.tiles.reset()
+        maps = sweep_fwd.launch_kernel(stack, *args, em, flip, wrap, light,
+                                       stage=stage)
+        got = sweep_bwd.launch_kernel(stack, *args, *cts, maps[1], maps[2],
+                                      em, flip, wrap, light=light,
+                                      stage=stage)
+        torch.cuda.synchronize()
+        done, glob = sweep_fwd.tiles.read()
+        cap = build.stage_cap(need if stage is None else stage,
+                              build.stage_buffers(False, light is not None))
+        active, mirror_glob = build.tile_slices(spans, cap)
+        assert 0 < done <= active and glob <= mirror_glob
+        if mirror_glob == 0:
+            assert glob == 0
+        if cap == 0:
+            assert glob == done
+        if stage == need // 2:
+            assert mirror_glob > 0
+        if not em:  # no ray ends early: every active tile-slice computed
+            assert (done, glob) == (active, mirror_glob)
+        if first is None:
+            first = maps
+            for g, w, n in zip(maps, want_maps, NAMES):
+                torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=n)
+        else:
+            assert torch.equal(maps, first)
+        want = sweep_bwd.sweep_bwd_reference(stack, *args, *cts, maps[1],
+                                             maps[2], **kw)
+        if light is None:
+            got, want = (got,), (want,)
+        for g, w in zip(got, want):  # dG (and dL)
+            _assert_grad_close(g, w, tol)
+    return need
+
+
+TILED_CASES = {
+    "ragged base": dict(eye=EYES[1][0], force=(100, 70)),
+    "ragged base, absorption, clamp": dict(eye=EYES[2][0], emission=False,
+                                           mode="clamp", force=(70, 100)),
+    "sub-voxel stack": dict(eye=EYES[0][0], n_slices=24),
+    "absorption": dict(eye=EYES[4][0], emission=False),
+    "light, lT exactly 1": dict(eye=EYES[3][0], kind="ones"),
+    "light stretched, wrap": dict(eye=EYES[2][0], kind="pushed",
+                                  mode="wrap"),
+    "bfloat16": dict(eye=EYES[0][0], low=True, mode="clamp"),
+    "bfloat16 with light": dict(eye=EYES[4][0], low=True, kind="ones"),
+    "texels denser than pixels": dict(eye=EYES[3][0], d=64),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(TILED_CASES))
+def test_tiled_paths_match_plain_versions(cuda, name):
+    _tiled_paths(cuda, **TILED_CASES[name])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("low", [False, True])
+def test_tiled_window_across_the_wrap_seam(cuda, low):
+    """With wrap addressing, windows that cross the seam (unwrapped
+    indices below 0 or above n - 1, read modulo n) hold their texels."""
+    case = dict(eye=(0.9, 0.8, 1.6), mode="wrap", kind="ones", low=low)
+    stack, args, _, wrap, *_ = _tiled_inputs(cuda, **case)
+    front, rows, cols = _spans(stack, args, wrap)
+    n = stack.shape[1]
+    crosses = ((rows[0] < 0) | (rows[1] > n - 1)) & rows[2] & front
+    assert bool(crosses.any())
+    _tiled_paths(cuda, **case)
+
+
+@pytest.mark.gpu
+def test_tiled_gate_at_density_500(cuda):
+    """Tiles whose rays end at different slices: the replay's gate stops
+    each pixel where the forward stopped, and the tile's walk ends when no
+    pixel is live (fewer tile-slices than its slice range holds)."""
+    _tiled_paths(cuda, tol=5e-4, eye=EYES[0][0], density=500.0)
+    stack, args, flip, wrap, *_ = _tiled_inputs(cuda, eye=EYES[0][0],
+                                                density=500.0)
+    from volumetricrenderer_tpu_torch.kernels import build
+    sweep_fwd.tiles.reset()
+    sweep_fwd.launch_kernel(stack, *args, True, flip, wrap)
+    active, _ = build.tile_slices(_spans(stack, args, wrap), 10 ** 6)
+    assert sweep_fwd.tiles.read()[0] < active
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["mirror", "wrap"])
+def test_tile_tally_matches_host_mirror(cuda, mode):
+    """Without an early stop (absorption) every active tile-slice is
+    computed: the kernels' tally equals build.tile_slices at each stage."""
+    from volumetricrenderer_tpu_torch.kernels import build
+    stack, args, flip, wrap, *_ = _tiled_inputs(
+        cuda, eye=EYES[3][0], emission=False, mode=mode, force=(96, 130))
+    spans = _spans(stack, args, wrap)
+    need = build.stage_texels(spans)
+    cts = [torch.ones(args[1].numel(), args[2].numel(), device=cuda)] * 3
+    for stage in (need, 0, need // 3):
+        sweep_fwd.tiles.reset()
+        sweep_bwd.tiles.reset()
+        maps = sweep_fwd.launch_kernel(stack, *args, False, flip, wrap,
+                                       stage=stage)
+        sweep_bwd.launch_kernel(stack, *args, *cts, maps[1], maps[2], False,
+                                flip, wrap, stage=stage)
+        want = build.tile_slices(spans, build.stage_cap(
+            stage, build.stage_buffers(False, False)))
+        assert sweep_fwd.tiles.read() == want
+        assert sweep_bwd.tiles.read() == build.tile_slices(
+            spans, build.stage_cap(stage, build.stage_buffers(True, False)))
+
+
+@pytest.mark.gpu
+def test_tiled_stage_above_48kb(cuda):
+    """A plan whose windows need more than 48 KB of dynamic shared memory
+    (128^3 on a 56 x 56 base: 8,832 texels, 70 KB for K1) launches with
+    the larger stage, and K2's windows beyond STAGE_BYTES_MAX read through
+    global memory."""
+    from volumetricrenderer_tpu_torch.kernels import build
+    stack, args, flip, wrap, *_ = _tiled_inputs(cuda, eye=EYES[3][0], d=128,
+                                                force=(56, 56))
+    need = build.stage_texels(_spans(stack, args, wrap))
+    assert 4 * 2 * build.stage_cap(need, build.stage_buffers(False, False)) \
+        > 48 * 1024
+    _tiled_paths(cuda, eye=EYES[3][0], d=128, force=(56, 56))
+
+
+@pytest.mark.gpu
+def test_fit_grid_numpy_target_runs_on_the_gpu(cuda):
+    """fit_grid with a numpy target and no init_grid fits on the card by
+    default, through both kernels once per step."""
+    from volumetricrenderer_tpu_torch.fit import fit_grid
+    target = np.random.default_rng(4).uniform(0.0, 0.5, (24, 32, 3)).astype(
+        np.float32)
+    cam = make_camera(CameraConfig(width=32, height=24))
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    before = (sweep_fwd.launches, sweep_bwd.launches)
+    res = fit_grid(target, cam, cfg, MediumConfig(combine="single",
+                                                  density=8.0),
+                   grid_size=12, steps=3)
+    torch.cuda.synchronize()
+    assert res.grid.device.type == "cuda"
+    assert (sweep_fwd.launches, sweep_bwd.launches) == (before[0] + 3,
+                                                        before[1] + 3)
+    assert all(np.isfinite(res.losses)) and res.skipped_steps == 0

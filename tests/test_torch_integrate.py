@@ -178,8 +178,8 @@ def test_bench_gradient_check():
     cfg = T.RenderConfig(emission=True, quadrature="sliced")
     medium = T.MediumConfig(combine="single", density=8.0)
     cam = T.make_camera(T.CameraConfig(width=48, height=32))
-    grid = T.cloud_volume(24, 7)
-    plan = T.plan_for(cam, grid.shape, cfg)
+    grid = T.cloud_volume(24, 7, device="cpu")
+    plan = T.plan_for(cam, grid.shape, cfg, device="cpu")
     plan_base = dataclasses.replace(plan, identity_warp=True)
     o, d = tsweep.base_rays(plan)
 
@@ -269,7 +269,7 @@ def test_bench_gradient_check_reference():
     grid = _t(np.random.default_rng(2).uniform(0.1, 1.0, (12, 12, 12, 4))
               .astype(np.float32))
     scroll = _scroll4("random")
-    plan = T.plan_for(cam, grid.shape, cfg)
+    plan = T.plan_for(cam, grid.shape, cfg, device="cpu")
     o, d = tsweep.base_rays(plan)
     g1 = grid.clone().requires_grad_()
     (tsweep.sweep_render(g1, dataclasses.replace(plan, identity_warp=True),
@@ -382,13 +382,13 @@ def test_bench_gradient_check_with_shadows(combine):
     cam = T.make_camera(T.CameraConfig(width=48, height=32))
     if combine == "single":
         medium = T.MediumConfig(combine="single", density=8.0)
-        grid, scroll = T.cloud_volume(16, 7), None
+        grid, scroll = T.cloud_volume(16, 7, device="cpu"), None
     else:
         medium = T.MediumConfig(density=8.0)
         grid = _t(np.random.default_rng(2).uniform(0.1, 1.0, (12, 12, 12, 4))
                   .astype(np.float32))
         scroll = _scroll4("random")
-    plan = T.plan_for(cam, grid.shape, cfg)
+    plan = T.plan_for(cam, grid.shape, cfg, device="cpu")
     o, d = tsweep.base_rays(plan)
 
     def lvol(g):

@@ -16,7 +16,7 @@ def _port_sources():
     # _build/ holds build outputs, not sources
     return sorted(p for p in PKG.rglob("*.py")
                   if "_build" not in p.relative_to(PKG).parts) \
-        + [ROOT / "chip_smoke.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 
 
 def test_sources_import_no_jax():
@@ -25,7 +25,7 @@ def test_sources_import_no_jax():
             "volumetricrenderer_tpu_torch/ops/media.py",
             "volumetricrenderer_tpu_torch/utils/clock.py",
             "volumetricrenderer_tpu_torch/utils/sanitize.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "kernel_ab.py"} <= names
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
@@ -51,14 +51,14 @@ def test_port_imports_and_renders_without_jax():
         import volumetricrenderer_tpu_torch as T
         for m in pkgutil.walk_packages(T.__path__, T.__name__ + "."):
             importlib.import_module(m.name)
-        grid = T.cloud_volume(16, 7)
+        grid = T.cloud_volume(16, 7, device="cpu")
         cam = T.make_camera(T.CameraConfig(width=48, height=32))
         img = T.render_image(grid, cam,
                              T.RenderConfig(emission=True,
                                             quadrature="sliced"),
                              T.MediumConfig(combine="single", density=8.0))
         assert img.shape == (32, 48, 4) and bool(torch.isfinite(img).all())
-        grid4 = T.build_volume(T.VolumeConfig(size=8))
+        grid4 = T.build_volume(T.VolumeConfig(size=8), device="cpu")
         img = T.render_image(grid4, cam, T.RenderConfig(quadrature="sliced"),
                              T.MediumConfig(),
                              scroll=T.reference_media_scroll(1.7))

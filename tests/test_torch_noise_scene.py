@@ -102,7 +102,7 @@ def test_noise_grid_simplex_cellular(kind):
 
 def test_cloud_volume():
     want = np.asarray(jscene.cloud_volume(32, 7))
-    got = tscene.cloud_volume(32, 7)
+    got = tscene.cloud_volume(32, 7, device="cpu")
     assert got.shape == (32, 32, 32) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
 
@@ -113,7 +113,7 @@ def test_build_volume():
                                          for k, f, s, o, p in chans))
     tv = TVolume(size=12, channels=tuple(TNoise(k, f, s, o, p)
                                          for k, f, s, o, p in chans))
-    got = tscene.build_volume(tv)
+    got = tscene.build_volume(tv, device="cpu")
     assert got.shape == (12, 12, 12, 2)
     np.testing.assert_allclose(got.numpy(), np.asarray(jscene.build_volume(jv)),
                                rtol=0, atol=ATOL)
@@ -124,7 +124,8 @@ def test_build_volume_reference_recipe(quantize):
     """The reference preset's recipe (cellular, cellular, Perlin, simplex;
     channel 0 sharpened by pow 4) at size 16. Quantized values may land one
     unorm level apart where the float grids differ in the last bit."""
-    got = tscene.build_volume(TVolume(size=16, quantize_uint8=quantize))
+    got = tscene.build_volume(TVolume(size=16, quantize_uint8=quantize),
+                              device="cpu")
     want = np.asarray(jscene.build_volume(JVolume(size=16,
                                                   quantize_uint8=quantize)))
     assert got.shape == (16, 16, 16, 4) and got.dtype == torch.float32
@@ -140,3 +141,23 @@ def test_build_volume_reference_recipe(quantize):
     for c in range(4):
         assert float(got[..., c].min()) == 0.0
         assert float(got[..., c].max()) == 1.0
+
+
+@pytest.mark.parametrize("builder", ["cloud_volume", "build_volume"])
+def test_volume_builders_default_to_the_gpu(builder):
+    """cloud_volume and build_volume build on `device`, "cuda" by default:
+    without a GPU the default raises torch's own error, and device="cpu"
+    builds the JAX package's volume on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    if builder == "cloud_volume":
+        args, jargs = (12, 7), (12, 7)
+    else:
+        args, jargs = (TVolume(size=8),), (JVolume(size=8),)
+    with pytest.raises((RuntimeError, AssertionError)):
+        getattr(tscene, builder)(*args)
+    got = getattr(tscene, builder)(*args, device="cpu")
+    assert got.device.type == "cpu"
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(getattr(jscene, builder)(*jargs)),
+                               rtol=0, atol=ATOL)

@@ -97,3 +97,23 @@ def test_plan_device_argument():
         tcam.make_camera(CameraConfig(width=32, height=16)), (8, 8, 8),
         RenderConfig(quadrature="sliced"), device=torch.device("cpu"))
     assert all(getattr(tplan, f).device.type == "cpu" for f in ARRAYS)
+
+
+def test_plan_for_defaults_to_the_gpu():
+    """plan_for builds its arrays on `device`, "cuda" by default: without a
+    GPU the default raises torch's own error, and device="cpu" gives the
+    JAX plan on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    from volumetricrenderer_tpu.render import plan_for as jplan_for
+    from volumetricrenderer_tpu_torch.render import plan_for
+    cam_kw = dict(eye=(0.4, 0.3, 3.0), width=96, height=64)
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    cam = tcam.make_camera(CameraConfig(**cam_kw))
+    with pytest.raises((RuntimeError, AssertionError)):
+        plan_for(cam, (16, 16, 16), cfg)
+    tplan = plan_for(cam, (16, 16, 16), cfg, device="cpu")
+    assert tplan.v_grid.device.type == "cpu"
+    jplan = jplan_for(jcam.make_camera(JCameraConfig(**cam_kw)), (16, 16, 16),
+                      JRender(emission=True, quadrature="sliced"))
+    _assert_plans_match(jplan, tplan)

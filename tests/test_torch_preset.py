@@ -261,7 +261,7 @@ def test_render_preset_bfloat16():
     """RenderConfig(dtype="bfloat16") through render_preset: within
     tests/test_bf16.py's 3e-2 max / 3e-3 mean of the float32 frame."""
     tp = _small(T, "config2")
-    grid = T.build_volume(tp.volume)
+    grid = T.build_volume(tp.volume, device="cpu")
     a = T.render_preset(tp, grid=grid)
     b = T.render_preset(dataclasses.replace(
         tp, render=dataclasses.replace(tp.render, dtype="bfloat16")),

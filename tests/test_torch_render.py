@@ -84,7 +84,7 @@ def test_render_backends_and_errors(cloud):
     _, _, _, tcfg, tmed, tcam = _configs(True)
     grid = torch.from_numpy(cloud.copy())
     auto = T.render_image(grid, tcam, tcfg, tmed)
-    plan = T.plan_for(tcam, grid.shape, tcfg)
+    plan = T.plan_for(tcam, grid.shape, tcfg, device="cpu")
     torch.testing.assert_close(
         T.render(grid, tcam, tcfg, tmed, backend="pallas", plan=plan), auto)
     with pytest.raises(ValueError, match="unknown backend"):
@@ -303,7 +303,7 @@ def test_shaded_sweep_matches_oracle():
     L = T.light_transmittance_volume(grid, light, cfg, medium)
     cam = T.make_camera(T.CameraConfig(eye=(2.5, 2.2, 2.8), width=24,
                                        height=16))
-    plan = T.plan_for(cam, grid.shape, cfg)
+    plan = T.plan_for(cam, grid.shape, cfg, device="cpu")
     got = sweep_render(grid, dataclasses.replace(plan, identity_warp=True),
                        cfg, medium, light, light_volume=L)
     o, d = base_rays(plan)

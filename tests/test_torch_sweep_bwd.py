@@ -207,7 +207,7 @@ def test_build_key_covers_included_headers(tmp_path):
     cached library's name hashes the source and its local includes."""
     src = os.path.join(build.CSRC, "sweep_bwd.cu")
     names = [os.path.basename(p) for p in build._source_files(src)]
-    assert names == ["sweep_bwd.cu", "sweep_common.cuh"]
+    assert names == ["sweep_bwd.cu", "sweep_common.cuh", "sweep_tile.cuh"]
 
     (tmp_path / "inc").mkdir()
     (tmp_path / "k.cu").write_text('#include "inc/a.cuh"\nint k;\n')

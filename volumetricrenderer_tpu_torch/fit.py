@@ -31,11 +31,11 @@ class FitResult:
     skipped_steps: int = 0  # steps the NaN guard refused to apply
 
 
-def _device_of(*xs):
+def _device_of(*xs, default):
     for x in xs:
         if isinstance(x, torch.Tensor):
             return x.device
-    return torch.device("cpu")
+    return torch.device(default)
 
 
 def fit_grid(
@@ -54,12 +54,15 @@ def fit_grid(
     init_opt_state=None,
     start_step: int = 0,
     nan_guard: bool = True,
+    device="cuda",
 ) -> FitResult:
     """Fit a single-channel density grid so the rendered image matches
     target_rgb (H, W, 3). Returns the fitted grid and the loss history.
 
     The fit runs on the device of init_grid, else of target_rgb, when
-    either is a tensor, and on the CPU otherwise. The loss is
+    either is a tensor, and on `device` otherwise: "cuda" unless the caller
+    asks for another, so without a GPU the default raises torch's own error
+    and only device="cpu" gets the CPU. The loss is
     mean((rgb - target)^2); after each Adam step (lr = learning_rate,
     betas (0.9, 0.999), eps 1e-8, as optax.adam) the grid is clamped to
     [0, 1].
@@ -75,7 +78,7 @@ def fit_grid(
     nan_guard: a step whose loss or gradients are not finite applies no
     update, leaving the grid and the Adam state as they were; such steps
     are counted in skipped_steps."""
-    dev = _device_of(init_grid, target_rgb)
+    dev = _device_of(init_grid, target_rgb, default=device)
     target = torch.as_tensor(target_rgb, dtype=torch.float32, device=dev)
     if init_grid is None:
         grid = torch.full((grid_size,) * 3, 0.1, dtype=torch.float32,

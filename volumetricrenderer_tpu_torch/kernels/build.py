@@ -8,7 +8,11 @@ csrc/ that it includes, and of the flags, so an edited source or header
 rebuilds and an unchanged one loads at once. Nothing here runs at
 import time, and a machine without nvcc raises instead of falling back.
 check_sweep_inputs is the sweep wrappers' check of their arguments before
-the pointers are passed to a kernel. NCH, N_PARAMS and channel_resample are
+the pointers are passed to a kernel. tile_spans, stage_texels, stage_for,
+stage_buffers, stage_cap, tile_slices and TileTally are the host side of
+K1's and K2's tiled schedule (csrc/sweep_tile.cuh): the tile-slice windows,
+the stage they size, and the kernels' tally of tile-slices by path. NCH,
+N_PARAMS and channel_resample are
 what the two 4-channel sweep modules (sweep_ref_fwd, sweep_ref_bwd) share;
 light_sample is what the four plain versions share. bf16_round, stream_cast
 and the ELEM_* codes belong to the bfloat16 stream mode, which
@@ -23,6 +27,7 @@ import re
 import shutil
 import subprocess
 import time
+import weakref
 
 import torch
 
@@ -31,7 +36,10 @@ from ..ops.resample import linear_resample_matrix, linear_taps
 __all__ = ["NVCC_FLAGS", "build_library", "source_key",
            "check_sweep_inputs", "NCH", "N_PARAMS", "channel_resample",
            "light_sample", "bf16_round", "stream_cast", "ELEM_F32",
-           "ELEM_BF16"]
+           "ELEM_BF16", "TILE_ROWS", "TILE_COLS", "STAGE_BYTES_MAX",
+           "tile_spans", "stage_texels", "stage_for", "stage_buffers",
+           "stage_cap",
+           "tile_slices", "TileTally", "IdentityCache"]
 
 NCH = 4        # channels of the reference medium
 N_PARAMS = 20  # sweep_fwd._params_for's 8, 4 coord scales, 4 b and 4 a offsets
@@ -234,3 +242,149 @@ def light_sample(layer, a01, b01, address_mode, low=None):
     return (wa0 * (wb0 * r0.index_select(1, b0) + wb1 * r0.index_select(1, b1))
             + wa1 * (wb0 * r1.index_select(1, b0)
                      + wb1 * r1.index_select(1, b1)))
+
+
+# K1's and K2's tile (csrc/sweep_tile.cuh kRows, kCols) and the most dynamic
+# shared memory a launch may take for its windows (the card allows 227 KB a
+# block; more than 48 KB is opted into at launch).
+TILE_ROWS, TILE_COLS = 32, 32
+STAGE_BYTES_MAX = 96 * 1024
+
+
+class IdentityCache:
+    """Values computed from tensors, kept while those very tensors live:
+    the key is their identity plus hashable extras, checked through weak
+    references so a freed tensor's reused id never matches. The sweep plan's
+    arrays are never written in place, so a value computed from them stays
+    right. Holds at most `size` entries, dropping the oldest."""
+
+    def __init__(self, size=64):
+        self._entries, self._size = {}, size
+
+    def get(self, tensors, extra, make):
+        key = (tuple(id(t) for t in tensors), extra)
+        hit = self._entries.get(key)
+        if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
+            return hit[1]
+        value = make()
+        if len(self._entries) >= self._size:
+            self._entries.pop(next(iter(self._entries)))
+        self._entries[key] = (tuple(weakref.ref(t) for t in tensors), value)
+        return value
+
+
+def _axis_spans(e, delta, q, n, wrap, tile):
+    """sweep_tile.cuh axis_span for every tile of one axis and every slice:
+    (lo, hi, any), each (tiles, S). The float32 expressions of the kernel,
+    on the tile's first and last line."""
+    length = q.shape[0]
+    first = torch.arange(0, length, tile, device=q.device)
+    last = torch.clamp(first + tile, max=length) - 1
+    x0 = e + delta[None, :] * q[first][:, None]
+    x1 = e + delta[None, :] * q[last][:, None]
+    lo, hi = torch.minimum(x0, x1), torch.maximum(x0, x1)
+    any_in = (hi >= 0.0) & (lo <= 1.0)
+    t_lo = torch.floor(torch.clamp(lo, 0.0, 1.0) * n - 0.5).to(torch.int64)
+    t_hi = torch.floor(torch.clamp(hi, 0.0, 1.0) * n - 0.5).to(torch.int64) + 1
+    if not wrap:
+        t_lo, t_hi = t_lo.clamp(0, n - 1), t_hi.clamp(0, n - 1)
+    return t_lo, t_hi, any_in
+
+
+def tile_spans(slice_z, v_grid, u_grid, params, A, B, wrap):
+    """The tile-slice windows of K1's and K2's schedule, as the kernels
+    compute them (sweep_tile.cuh next_window), on the tensors' device.
+
+    Returns (front, rows, cols): front (S,) bool, the slices in front of the
+    eye; rows = (lo, hi, any), each (ceil(Hb / TILE_ROWS), S): the window's
+    texel-row range [lo, hi] (clipped for mirror and clamp, unwrapped for
+    wrap, where it is read modulo A) and whether a row of the tile can be in
+    the box; cols the same for the columns and B. A tile-slice is active
+    (inside the tile's slice range) when front & rows.any & cols.any; its
+    window is rows.hi - rows.lo + 1 by cols.hi - cols.lo + 1 texels."""
+    e_k, e_a, e_b, sign = (params[n] for n in range(4))
+    delta = slice_z - e_k
+    front = delta * sign > 0.0
+    return (front, _axis_spans(e_a, delta, v_grid, A, wrap, TILE_ROWS),
+            _axis_spans(e_b, delta, u_grid, B, wrap, TILE_COLS))
+
+
+def _extents(span):
+    lo, hi, any_in = span
+    return torch.where(any_in, hi - lo + 1, torch.zeros_like(lo))
+
+
+def stage_texels(spans) -> int:
+    """The largest window, in texels, of any active tile-slice of
+    tile_spans' result: the stage that holds every window of the plan."""
+    front, rows, cols = spans
+    need = _extents(rows).amax(0) * _extents(cols).amax(0)
+    return int(torch.where(front, need, torch.zeros_like(need)).max())
+
+
+_STAGES = IdentityCache()
+
+
+def stage_for(slice_z, v_grid, u_grid, params, A, B, wrap) -> int:
+    """stage_texels of these plan tensors, computed once per set of tensors
+    (the computation ends in a read to the host; a plan reused for many
+    frames pays it once)."""
+    return _STAGES.get(
+        (slice_z, v_grid, u_grid, params), (A, B, bool(wrap)),
+        lambda: stage_texels(tile_spans(slice_z, v_grid, u_grid, params, A,
+                                        B, wrap)))
+
+
+def stage_buffers(backward: bool, light: bool) -> int:
+    """The window buffers of `cap` float slots a launch takes besides its
+    window table (csrc/sweep_fwd.cu, sweep_bwd.cu): two staged windows per
+    volume (the stack's, and the light stack's); K2 also one accumulation
+    window per warp (8) and volume."""
+    return (2 if light else 1) * (2 + (8 if backward else 0))
+
+
+def stage_cap(texels: int, buffers: int) -> int:
+    """The stage a launch takes: `texels` slots per window buffer, at most
+    what STAGE_BYTES_MAX allows for `buffers` buffers of 4-byte slots. A
+    tile-slice whose window is larger reads through global memory."""
+    return max(0, min(int(texels), STAGE_BYTES_MAX // (4 * buffers)))
+
+
+def tile_slices(spans, cap: int):
+    """(active, global): the active tile-slices of tile_spans' result, and
+    of those the ones whose window exceeds `cap` texels and so read through
+    global memory. With no ray ending early (absorption) a kernel's tally
+    equals `active`."""
+    front, rows, cols = spans
+    r, c = _extents(rows), _extents(cols)
+    area = r[:, None, :] * c[None, :, :] * front[None, None, :]
+    active = area > 0
+    return int(active.sum()), int((active & (area > cap)).sum())
+
+
+class TileTally:
+    """A kernel's tally of tile-slices on each device, (computed, read
+    through global memory), added to by every launch (the C launchers'
+    `counts`). read() sums the devices (a read to the host); reset() zeroes
+    them."""
+
+    def __init__(self):
+        self._counts = {}
+
+    def tensor(self, device):
+        t = self._counts.get(device)
+        if t is None:
+            t = self._counts[device] = torch.zeros(2, dtype=torch.int64,
+                                                   device=device)
+        return t
+
+    def read(self):
+        done = glob = 0
+        for t in self._counts.values():
+            d, g = (int(x) for x in t.tolist())
+            done, glob = done + d, glob + g
+        return done, glob
+
+    def reset(self):
+        for t in self._counts.values():
+            t.zero_()

@@ -1,6 +1,6 @@
-// Device code shared by the slice-sweep kernels (sweep_fwd.cu, sweep_bwd.cu,
-// and through sweep_ref_common.cuh the 4-channel sweep_ref_fwd.cu and
-// sweep_ref_bwd.cu).
+// Device code shared by the slice-sweep kernels (sweep_fwd.cu, sweep_bwd.cu
+// through sweep_tile.cuh, and through sweep_ref_common.cuh the 4-channel
+// sweep_ref_fwd.cu and sweep_ref_bwd.cu).
 //
 // The backward kernel replays the forward's transmittance slice by slice,
 // and the early-stop gate T > thresh decides which slices contribute. A
@@ -135,13 +135,6 @@ __device__ __forceinline__ float bilinear_at(const T* __restrict__ layer,
        + round_weight<T>(t.fa)
              * (round_weight<T>(1.f - t.fb) * g10
                 + round_weight<T>(t.fb) * g11);
-}
-
-// sigma = sample_scale * bilinear(layer) at the taps.
-template <typename T>
-__device__ __forceinline__ float sigma_at(const T* __restrict__ layer, int B,
-                                          const Taps& t, float sscale) {
-  return sscale * bilinear_at<T>(layer, B, t);
 }
 
 // E = exp(-density * sigma * seg); the slice's opacity is alpha = 1 - E.

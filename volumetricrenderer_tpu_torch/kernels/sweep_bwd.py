@@ -12,6 +12,10 @@ CUDA stack launches the kernel (or raises), a CPU stack runs the plain
 version. Plan arrays and params get no gradient, as in the JAX package;
 `hit` is not differentiable.
 
+The kernel runs K1's tiled schedule (csrc/sweep_tile.cuh) and sums each
+tile-slice's dG (and dL) in shared memory, per warp, before adding it to the
+gradient; `tiles` tallies its tile-slices as kernels/sweep_fwd.py's does.
+
 `launches` counts the kernel launches made by this module.
 """
 from __future__ import annotations
@@ -22,12 +26,14 @@ import torch
 
 from ..ops.resample import linear_resample_matrix
 from ..ops.sampling import clip_unit_grad
-from .build import build_library, check_sweep_inputs, light_sample
+from .build import (TileTally, build_library, check_sweep_inputs,
+                    light_sample, stage_buffers, stage_cap, stage_for)
 
 __all__ = ["sweep_bwd_reference", "build_kernel", "launch_kernel",
-           "launches"]
+           "launches", "tiles"]
 
 launches = 0  # kernel launches since import (or since a caller reset it)
+tiles = TileTally()  # tile-slices (computed, read through global memory)
 
 _lib = None
 build_info = None  # set by the first build: path, seconds, nvcc output
@@ -113,8 +119,8 @@ def build_kernel():
     if _lib is None:
         lib, info = build_library("sweep_bwd")
         fn = lib.sweep_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 \
+            + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _lib, build_info = lib, info
     return build_info
@@ -122,13 +128,13 @@ def build_kernel():
 
 def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, ct_acc,
                   ct_trans, ct_wsum, trans, wsum, emission, flip, wrap,
-                  light=None):
+                  light=None, stage=None):
     """Check the inputs, allocate the zeroed (S, A, B) gradient (and, with
     a light stack, its zeroed gradient), launch the kernel on the current
     stream and count the launch. Arguments as sweep_bwd_reference's (the
     stack's dtype selects the kernel's instantiation); the maps a mode does
-    not read may be None. Returns float32 dG, or (dG, dL) with a light
-    stack."""
+    not read may be None. `stage` as sweep_fwd.launch_kernel's. Returns
+    float32 dG, or (dG, dL) with a light stack."""
     global launches
     dev = stack.device
     if light is not None and not emission:
@@ -139,6 +145,9 @@ def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, ct_acc,
         "sweep_bwd", stack, slice_z, v_grid, u_grid, seglen, params, maps,
         light=light)
     build_kernel()
+    if stage is None:
+        stage = stage_for(slice_z, v_grid, u_grid, params, A, B, wrap)
+    cap = stage_cap(stage, stage_buffers(True, light is not None))
 
     def ptr(name):
         return maps[name].data_ptr() if name in maps else None
@@ -155,7 +164,8 @@ def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, ct_acc,
             ptr("ct_trans"), ptr("ct_wsum"), ptr("trans"), ptr("wsum"),
             dstack.data_ptr(),
             dlight.data_ptr() if light is not None else None, S, A, B, Hb,
-            Wb, int(emission), int(flip), int(wrap), elem, stream)
+            Wb, int(emission), int(flip), int(wrap), elem, cap,
+            tiles.tensor(dev).data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"sweep_bwd kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -38,6 +38,12 @@ first. A stack that arrives in bfloat16 is swept without a copy and gets a
 bfloat16 gradient. The plain versions take the mode from the stack's dtype,
 as the kernels' launchers do.
 
+The kernel's schedule (csrc/sweep_tile.cuh) tiles the base grid and stages
+each tile-slice's tap window in shared memory; the host sizes that stage
+from the plan (build.stage_for, once per plan) and `tiles` tallies the
+tile-slices the kernel computed and those it read through global memory
+because their window exceeded the stage.
+
 `launches` counts the kernel launches made by this module.
 """
 from __future__ import annotations
@@ -50,14 +56,16 @@ from ..config import LightConfig, MediumConfig, RenderConfig
 from ..ops.resample import linear_resample_matrix
 from ..ops.sampling import apply_address_mode, clip_unit
 from . import sweep_bwd
-from .build import (build_library, check_sweep_inputs, light_sample,
-                    stream_cast)
+from .build import (IdentityCache, TileTally, build_library,
+                    check_sweep_inputs, light_sample, stage_buffers,
+                    stage_cap, stage_for, stream_cast)
 
 __all__ = ["supported", "sweep_inputs", "sweep_light_stack", "sweep_base",
            "sweep_fwd_reference", "build_kernel", "launch_kernel",
-           "launches"]
+           "launches", "tiles"]
 
 launches = 0  # kernel launches since import (or since a caller reset it)
+tiles = TileTally()  # tile-slices (computed, read through global memory)
 
 _lib = None
 build_info = None  # set by the first build: path, seconds, nvcc output
@@ -92,14 +100,23 @@ def supported(cfg: RenderConfig, medium: MediumConfig, light_volume,
             and cfg.address_mode in _ADDRESS_MODES)
 
 
+_PARAMS = IdentityCache()
+
+
 def _params_for(plan, cfg: RenderConfig, medium: MediumConfig,
                 light: LightConfig) -> torch.Tensor:
     """(8,) float32: e_k, e_a, e_b, sign, density, sample_scale,
-    early-stop transmittance, ambient — the TPU kernels' params layout."""
-    rest = torch.tensor([plan.sign, medium.density, medium.sample_scale,
-                         cfg.early_stop_transmittance, light.ambient],
-                        dtype=torch.float32, device=plan.eye01.device)
-    return torch.cat([plan.eye01.to(torch.float32), rest])
+    early-stop transmittance, ambient — the TPU kernels' params layout.
+    One tensor per plan and values, so the stage sized from it (build.
+    stage_for) is sized once per plan."""
+    values = (plan.sign, medium.density, medium.sample_scale,
+              cfg.early_stop_transmittance, light.ambient)
+
+    def make():
+        rest = torch.tensor(values, dtype=torch.float32,
+                            device=plan.eye01.device)
+        return torch.cat([plan.eye01.to(torch.float32), rest])
+    return _PARAMS.get((plan.eye01,), values, make)
 
 
 def _layer_lerp_stack(gperm, slice_z, address_mode):
@@ -184,20 +201,23 @@ def build_kernel():
     if _lib is None:
         lib, info = build_library("sweep_fwd")
         fn = lib.sweep_fwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
+            + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _lib, build_info = lib, info
     return build_info
 
 
 def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, emission,
-                  flip, wrap, light=None):
+                  flip, wrap, light=None, stage=None):
     """Check the inputs, allocate the (4, Hb, Wb) output, launch the
     kernel on the current stream and count the launch. `stack` is float32
     or bfloat16 (the stream mode: it selects the kernel's instantiation).
     `light` is the optional (S, A, B) light stack in the stack's layer
     order and dtype (emission only): it selects the kernel's light branch.
+    v_grid and u_grid must be monotone, as plan_sweep makes them. `stage`:
+    texel slots per window buffer; None sizes it from the plan
+    (build.stage_for), 0 reads every tile-slice through global memory.
     Returns the (4, Hb, Wb) float32 tensor of acc, trans, wsum, hit."""
     global launches
     dev = stack.device
@@ -207,6 +227,9 @@ def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, emission,
         "sweep_fwd", stack, slice_z, v_grid, u_grid, seglen, params,
         light=light)
     build_kernel()
+    if stage is None:
+        stage = stage_for(slice_z, v_grid, u_grid, params, A, B, wrap)
+    cap = stage_cap(stage, stage_buffers(False, light is not None))
     out = torch.empty((4, Hb, Wb), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -215,7 +238,8 @@ def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, emission,
             light.data_ptr() if light is not None else None,
             slice_z.data_ptr(), v_grid.data_ptr(), u_grid.data_ptr(),
             seglen.data_ptr(), params.data_ptr(), out.data_ptr(), S, A, B,
-            Hb, Wb, int(emission), int(flip), int(wrap), elem, stream)
+            Hb, Wb, int(emission), int(flip), int(wrap), elem, cap,
+            tiles.tensor(dev).data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"sweep_fwd kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -30,9 +30,11 @@ def build_channel(kind, size, frequency, seed, octaves=1, sharpen_power=1,
     return n
 
 
-def build_volume(cfg: VolumeConfig, device=None):
+def build_volume(cfg: VolumeConfig, device="cuda"):
     """The full (size, size, size, C) float32 grid in [0, 1]; with
-    quantize_uint8 the values snap to the 256-level unorm lattice."""
+    quantize_uint8 the values snap to the 256-level unorm lattice. Built on
+    `device`, "cuda" unless the caller asks for another: without a GPU the
+    default raises torch's own error."""
     channels = [
         build_channel(ch.kind, cfg.size, ch.frequency, ch.seed,
                       octaves=ch.octaves, sharpen_power=ch.sharpen_power,
@@ -45,9 +47,11 @@ def build_volume(cfg: VolumeConfig, device=None):
     return grid
 
 
-def cloud_volume(size, seed=7, octaves=5, coverage=0.45, device=None):
+def cloud_volume(size, seed=7, octaves=5, coverage=0.45, device="cuda"):
     """A puffy FBM cloud, (size, size, size) float32: fbm noise thresholded
-    softly by a radial falloff, normalized to a maximum of 1."""
+    softly by a radial falloff, normalized to a maximum of 1. Built on
+    `device`, "cuda" unless the caller asks for another: without a GPU the
+    default raises torch's own error."""
     n = build_channel("fbm", size, 4.0 / size, seed, octaves=octaves,
                       device=device)
     idx = (torch.arange(size, dtype=torch.float32, device=device) + 0.5) / size - 0.5

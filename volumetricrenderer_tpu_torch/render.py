@@ -31,8 +31,9 @@ backends then sample.
 `render_scene` renders a multi-volume scene (BASELINE config 3), baked onto
 one grid for the sweep or marched against the exact per-volume fields;
 `render_preset` renders a named preset at an animation time. Functions that
-take a grid run on the grid's device; `render_preset` creates its own
-tensors and does so on `device`, "cuda" unless the caller asks otherwise.
+take a grid run on the grid's device; `render_preset` and `plan_for` create
+their own tensors and do so on `device`, "cuda" unless the caller asks
+otherwise.
 """
 from __future__ import annotations
 
@@ -57,10 +58,13 @@ __all__ = ["render", "render_preset", "render_image", "render_scene",
 
 
 def plan_for(camera: Camera, grid_shape, cfg: RenderConfig,
-             world_to_local=None, n_slices=None, device=None) -> SweepPlan:
+             world_to_local=None, n_slices=None,
+             device="cuda") -> SweepPlan:
     """Build the sweep plan for a camera/volume/config triple, with its
-    arrays on `device`. Callers rendering many frames from one camera build
-    the plan once and pass it to render_image."""
+    arrays on `device`, "cuda" unless the caller asks for another (without
+    a GPU the default raises torch's own error). Callers rendering many
+    frames from one camera build the plan once and pass it to
+    render_image."""
     return plan_sweep(camera, grid_shape, cfg,
                       world_to_local=world_to_local,
                       supersample=cfg.sweep_supersample,
