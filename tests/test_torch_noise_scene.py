@@ -143,21 +143,21 @@ def test_build_volume_reference_recipe(quantize):
         assert float(got[..., c].max()) == 1.0
 
 
-@pytest.mark.parametrize("builder", ["cloud_volume", "build_volume"])
-def test_volume_builders_default_to_the_gpu(builder):
+@pytest.mark.parametrize("name", ["cloud_volume", "build_volume"])
+def test_volume_constructors_default_to_the_gpu(name):
     """cloud_volume and build_volume build on `device`, "cuda" by default:
     without a GPU the default raises torch's own error, and device="cpu"
     builds the JAX package's volume on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
-    if builder == "cloud_volume":
+    if name == "cloud_volume":
         args, jargs = (12, 7), (12, 7)
     else:
         args, jargs = (TVolume(size=8),), (JVolume(size=8),)
     with pytest.raises((RuntimeError, AssertionError)):
-        getattr(tscene, builder)(*args)
-    got = getattr(tscene, builder)(*args, device="cpu")
+        getattr(tscene, name)(*args)
+    got = getattr(tscene, name)(*args, device="cpu")
     assert got.device.type == "cpu"
     np.testing.assert_allclose(got.numpy(),
-                               np.asarray(getattr(jscene, builder)(*jargs)),
+                               np.asarray(getattr(jscene, name)(*jargs)),
                                rtol=0, atol=ATOL)

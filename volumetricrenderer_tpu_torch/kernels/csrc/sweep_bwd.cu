@@ -38,10 +38,11 @@
 // What bounds it on this card. The function needs 36 float operations per
 // in-box sample (5.9 GFLOP at the flagship: 0.087 ms at 67 TFLOP/s). The
 // first design, one thread per base pixel with four global float atomics
-// per live sample (eight with light), ran at 2.4 ms (5.5 with light): ~650
-// M atomics per flagship backward, and a warp's 32 lanes, one base row,
-// landing on ~6 texel columns of the same two rows, so same-address
-// atomics serialised in L2.
+// per live sample (eight with light), ran at 2.4 ms (5.5 with light) on an
+// NVIDIA H100 80GB HBM3 at 700 W: ~650 M atomics per flagship backward,
+// and a warp's 32 lanes, one base row, landing on ~6 texel columns of the
+// same two rows, so same-address atomics serialised in L2. This design
+// runs the same work in 1.8 ms (3.0 with light) on that card (PERF.md §6).
 //
 // Design (sweep_tile.cuh, K1's schedule). One CTA per 32 x 32 base tile, a
 // thread holding (T, Wr, cw, bct, seg) of 4 pixels in registers; the tile

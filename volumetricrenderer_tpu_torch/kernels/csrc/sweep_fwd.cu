@@ -37,8 +37,10 @@
 // in-box sample and a few per line (2.9 GFLOP at the flagship, 1536^2 base,
 // 256 slices: 0.044 ms at 67 TFLOP/s) and reads each texel once (0.034 ms
 // of device memory). The first design, one thread per base pixel, ran at
-// 1.1 ms: every sample recomputed both axes' taps and issued four scattered
-// loads, and the next slice's loads waited behind the live gate.
+// 1.1 ms on an NVIDIA H100 80GB HBM3 at 700 W: every sample recomputed both
+// axes' taps and issued four scattered loads, and the next slice's loads
+// waited behind the live gate; this design runs the same work in 0.75 ms
+// on that card (PERF.md §6).
 //
 // Design (sweep_tile.cuh). One CTA of 256 threads per 32 x 32 base tile, a
 // thread holding (acc, T, wsum, hit) of 4 pixels of its column in
