@@ -56,6 +56,16 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    density-500 early-stop case; in each the plain backward is also held to
    autograd of the plain forward; then the gradient check of step 5 with
    the 4-channel medium and the random scroll (24^3 x 4 at 48x32);
+9b. the tiled schedule of K4 and K5 (kernels/csrc/sweep_ref_tile.cuh)
+   under stress (REF_TILED_STRESS): seeded scrolls whose channel windows
+   cross mirror folds, ragged base grids, absorption, a channel scale above
+   1 (a window wider than the mirror's period) and a negative one, density
+   500, a light volume with lT exactly 1 and one stretched past [0, 1],
+   bfloat16 with light, and windows beyond what a stage may hold; each with
+   the stage sized from the plan (build.ref_stage_for, which must hold the
+   largest window), with none and with half the largest window, K4's maps
+   equal bit for bit across the three, both kernels held to the plain
+   versions, the tallies to the host mirror (build.ref_tile_slices);
 10. the reference preset at full width, build_volume(VolumeConfig()) =
    128^3 x 4 at 1280x720: serving, eight frames through render_image
    (absorption and emission x reference_media_scroll at t = 0 and 1.7 and
@@ -133,10 +143,13 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
 21. prints a JSON line of kernel results (each kernel's launches on the
    main paths, error, time, plain version's time, and the least time the
    card could take for the same work, each also for the light variant and
-   for the bfloat16 mode; for K1 and K2 the tile-slices they computed on
-   the main paths and how many of those read through global memory), with
-   each time's share of its bound logged before it, then the last line
-   {"ok": true, "device": {...}}. Every main path logs its tile-slices.
+   for the bfloat16 mode; the share of the bound; the registers of each
+   instantiation and the most spilled bytes from ptxas; the tile-slices
+   each kernel computed on the main paths and how many of those read
+   through global memory, which must be none for K4 and K5), with each
+   time's share of its bound logged before it, and the script's wall time
+   on a line of its own, then the last line {"ok": true, "device":
+   {...}}. Every main path logs its tile-slices.
 
 Any failure raises, so the exit code is non-zero and no result is printed.
 One frame of each medium, one shadowed frame and the profile tables are
@@ -151,6 +164,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -387,7 +401,10 @@ class BackwardSpy:
 
         def spy(*a, **kw):
             out = self.launch(*a, **kw)
-            self.seen.append((a, kw, out))
+            # The stage is the launch's, not the function's: the plain
+            # version takes the other arguments.
+            self.seen.append((a, {k: v for k, v in kw.items()
+                                  if k != "stage"}, out))
             return out
         self.module.launch_kernel = spy
         return self
@@ -408,15 +425,16 @@ def reset_counts():
         KERNELS[name][0].tiles.reset()
 
 
-# Tile-slices K1 and K2 computed on the main paths, and of those the ones
-# read through global memory (their window exceeded the stage the host
-# sized): name -> [computed, global].
-TILES = {"sweep_fwd": [0, 0], "sweep_bwd": [0, 0]}
+# Tile-slices each kernel computed on the main paths, and of those the ones
+# read through global memory (a window exceeded the stage the host sized):
+# name -> [computed, global].
+TILES = {name: [0, 0] for name in ("sweep_fwd", "sweep_bwd",
+                                   "sweep_ref_fwd", "sweep_ref_bwd")}
 
 
 def path_counts(label):
-    """counts() at the end of a main path; also takes the tile-slices K1
-    and K2 computed since the last reset_counts (or the last call), logs
+    """counts() at the end of a main path; also takes the tile-slices each
+    kernel computed since the last reset_counts (or the last call), logs
     them by path and adds them to TILES."""
     launches = counts()
     parts = []
@@ -440,6 +458,15 @@ def build_all():
         jobs = {name: pool.submit(mod.build_kernel)
                 for name, (mod, _, _) in KERNELS.items()}
         return {name: job.result() for name, job in jobs.items()}
+
+
+def ptxas_report(log_text):
+    """(registers of each instantiation, the most spill-store bytes of any)
+    from nvcc's -Xptxas -v output."""
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log_text)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                         log_text)]
+    return regs, max(spills, default=0)
 
 
 def inbox_samples(plan):
@@ -1469,6 +1496,133 @@ def tiled_stress_checks(dev):
     return errs
 
 
+# --- the tiled schedule of K4 and K5 (kernels/csrc/sweep_ref_tile.cuh) -----
+#
+# As TILED_STRESS for K1 and K2: each case runs K4 and K5 with the stage the
+# host sizes from the plan and the channel scales (build.ref_stage_for), with
+# none and with half the largest window; K4's maps are equal bit for bit
+# across the three and, like K5's gradients, held to the plain versions.
+# Every case has a seeded (4, 3) scroll, whose windows cross mirror folds.
+REF_TILED_STRESS = (
+    ("seeded scroll across folds", dict(eye=SMALL_EYES[3][0], seed=7)),
+    ("ragged base 100x70", dict(eye=SMALL_EYES[1][0], force=(100, 70))),
+    ("ragged base 70x100, absorption",
+     dict(eye=SMALL_EYES[2][0], emission=False, force=(70, 100))),
+    ("channel scale above 1 (a window wider than the mirror's period)",
+     dict(eye=SMALL_EYES[3][0], force=(20, 20),
+          scales=(2.5, 0.8, 3.1, 0.7))),
+    ("negative channel scale",
+     dict(eye=SMALL_EYES[2][0], scales=(1.0, -0.8, 0.75, 0.7))),
+    ("density 500", dict(eye=SMALL_EYES[0][0], density=500.0)),
+    ("light with lT exactly 1", dict(eye=SMALL_EYES[3][0], light="ones",
+                                     density=8.0)),
+    ("light stretched", dict(eye=SMALL_EYES[4][0], light="stretched",
+                             density=8.0)),
+    ("bfloat16 with light", dict(eye=SMALL_EYES[0][0], light="ones",
+                                 density=8.0, low=True)),
+    ("windows beyond the stage, 128^3 x 4 on 56x56, absorption",
+     dict(eye=SMALL_EYES[3][0], size=128, force=(56, 56), emission=False)),
+)
+
+
+def ref_tiled_stress_checks(dev):
+    """The stress cases of K4's and K5's tiled schedule (REF_TILED_STRESS).
+    Returns {kernel: [errors]}."""
+    from volumetricrenderer_tpu_torch.kernels import build
+    from volumetricrenderer_tpu_torch.ops.sweep import plan_sweep
+    errs = {"sweep_ref_fwd": [], "sweep_ref_bwd": []}
+    lcfg = LightConfig(ambient=0.2, shadow_steps=32)
+    for what, case in REF_TILED_STRESS:
+        em, n = case.get("emission", True), case.get("size", 16)
+        grid = torch.tensor(np.random.default_rng(0).uniform(0.1, 1.0,
+                                                             (n,) * 3 + (4,)),
+                            dtype=torch.float32, device=dev)
+        cfg = RenderConfig(emission=em, quadrature="sliced")
+        plan = plan_sweep(make_camera(CameraConfig(eye=case["eye"], width=96,
+                                                   height=64)),
+                          grid.shape, cfg, supersample=cfg.sweep_supersample,
+                          force_base_dims=case.get("force"), device=dev)
+        medium = MediumConfig(density=case.get("density", 1.0), **(
+            {"channel_coord_scale": case["scales"]} if "scales" in case
+            else {}))
+        scroll = seeded_scroll(case.get("seed", REF_SCROLL_SEEDS[0]), dev)
+        kind = case.get("light")
+        L, *args = sweep_ref_fwd.sweep_ref_inputs(
+            grid.permute(plan.perm + (3,)), plan, cfg, medium,
+            lcfg if kind else None, scroll)
+        L, light = L.contiguous(), None
+        if kind:
+            lvol = light_transmittance_volume(grid, lcfg, cfg, medium,
+                                              scroll=scroll)
+            if kind == "stretched":
+                lvol = stretched(lvol)
+            light = sweep_ref_fwd.sweep_ref_light_slabs(
+                lvol.permute(plan.perm), plan, cfg).contiguous()
+        if case.get("low"):
+            L = L.to(torch.bfloat16)
+            light = light.to(torch.bfloat16) if light is not None else None
+        A, B, lit = L.shape[2], L.shape[3], light is not None
+        spans = build.ref_tile_spans(*args[:3], args[4], A, B)
+        lspans = (build.tile_spans(*args[:3], args[4], A, B, False)
+                  if lit else None)
+        need = build.ref_stage_texels(spans, lspans)
+        bound = build.ref_stage_for(*args[:3], args[4], A, B, light=lit)
+        if need > bound:
+            fail(f"ref tiled {what}: a window of {need} slots exceeds the "
+                 f"offset-free stage bound {bound}")
+        want_maps = torch.stack(sweep_ref_fwd.sweep_ref_fwd_reference(
+            L, *args, emission=em, light=light))
+        rng = np.random.default_rng(9)
+        cts = [torch.tensor(rng.normal(size=plan.base_shape),
+                            dtype=torch.float32, device=dev)
+               for _ in range(3)]
+        tol = BWD_TOL_GATE if medium.density > 100.0 else BWD_TOL
+        first, parts = None, []
+        for stage in (None, 0, need // 2):
+            for mod in (sweep_ref_fwd, sweep_ref_bwd):
+                mod.tiles.reset()
+            maps = sweep_ref_fwd.launch_kernel(L, *args, em, light,
+                                               stage=stage)
+            got = sweep_ref_bwd.launch_kernel(L, *args, *cts, maps[1],
+                                              maps[2], emission=em,
+                                              light=light, stage=stage)
+            torch.cuda.synchronize()
+            done, glob = sweep_ref_fwd.tiles.read()
+            bdone, bglob = sweep_ref_bwd.tiles.read()
+            if first is None:
+                first = maps
+                errs["sweep_ref_fwd"].append(check_close(
+                    maps, want_maps, f"ref tiled {what} maps"))
+            elif not torch.equal(maps, first):
+                fail(f"ref tiled {what}: K4 with stage {stage} differs from "
+                     "K4 with the plan's stage")
+            want = sweep_ref_bwd.sweep_ref_bwd_reference(
+                L, *args, *cts, maps[1], maps[2], emission=em, light=light)
+            if light is None:
+                got, want = (got,), (want,)
+            e = max(check_grad(g, w, f"ref tiled {what} stage {stage}",
+                               tol)[0] for g, w in zip(got, want))
+            errs["sweep_ref_bwd"].append(e)
+            size = bound if stage is None else stage
+            mirror = (build.ref_tile_slices(
+                spans, build.ref_stage_cap(size, False, lit), lspans),
+                build.ref_tile_slices(
+                    spans, build.ref_stage_cap(size, True, lit), lspans))
+            if not em and ((done, glob), (bdone, bglob)) != mirror:
+                fail(f"ref tiled {what} stage {stage}: tallies "
+                     f"{(done, glob)}, {(bdone, bglob)} against the host "
+                     f"mirror {mirror}")
+            if stage == 0 and (glob, bglob) != (done, bdone):
+                fail(f"ref tiled {what}: stage 0 computed "
+                     f"{done - glob} tile-slices from shared memory")
+            parts.append(f"stage {size}: K4 {done} tile-slices ({glob} "
+                         f"global), K5 {bdone} ({bglob}), grads {e:.3e}")
+        log(f"ref tiled {what}: base {plan.base_shape}, largest window "
+            f"{need} slots, bound {bound}; maps max abs err "
+            f"{errs['sweep_ref_fwd'][-1]:.3e}; " + "; ".join(parts))
+    return errs
+
+
 # --- the bfloat16 stream mode --------------------------------------------
 #
 # RenderConfig(dtype="bfloat16"): texels and tap weights rounded to bfloat16,
@@ -2225,6 +2379,7 @@ def main(argv=None):
                         help="directory for the PNGs and the profiles")
     args = parser.parse_args(argv)
 
+    t_start = time.perf_counter()
     # 1. Device.
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
@@ -2247,10 +2402,12 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
 
     # 2. Build.
+    regs = {}
     for name, info in build_all().items():
         log(f"build {name}: {info['seconds']:.1f} s -> {info['path']}")
         for line in info["log"].strip().splitlines():
             log(f"  nvcc: {line}")
+        regs[name] = ptxas_report(info["log"])
 
     # 3. Forward kernel against the plain version at small shapes.
     errs = []
@@ -2520,6 +2677,11 @@ def main(argv=None):
     # 9. The 4-channel reference-combine kernels at small shapes.
     ref_errs, ref_bwd_errs = ref_small_checks(dev)
 
+    # 9b. The tiled schedule of K4 and K5 under stress (REF_TILED_STRESS).
+    ref_tiled = ref_tiled_stress_checks(dev)
+    ref_errs += ref_tiled["sweep_ref_fwd"]
+    ref_bwd_errs += ref_tiled["sweep_ref_bwd"]
+
     # 10. The reference preset at full width: serving and training.
     e_f, e_b, ref_serve, ref_train, grid4, cam4, plan4 = ref_full_width(
         dev, out_dir)
@@ -2629,13 +2791,19 @@ def main(argv=None):
             f"{bound_ms / ms:.4f}, with light {bound_l / ms_l:.4f}, bfloat16 "
             f"{bound_low / lt['ms']:.4f}, bfloat16 with light "
             f"{bound_low_l / lt['ms_light']:.4f}")
-        tiles = TILES.get(name)
-        if tiles is not None:
-            if tiles[0] < 1:
-                fail(f"{name}: no tile-slice computed on the main paths")
-            log(f"[{gpu_line}] {name} on the main paths: {tiles[0]} "
-                f"tile-slices, {tiles[1]} through global memory (share "
-                f"{tiles[1] / tiles[0]:.4g})")
+        tiles = TILES[name]
+        if tiles[0] < 1:
+            fail(f"{name}: no tile-slice computed on the main paths")
+        log(f"[{gpu_line}] {name} on the main paths: {tiles[0]} "
+            f"tile-slices, {tiles[1]} through global memory (share "
+            f"{tiles[1] / tiles[0]:.4g})")
+        if name.startswith("sweep_ref") and tiles[1]:
+            fail(f"{name}: {tiles[1]} tile-slices of the main paths read "
+                 "through global memory: the stage sized from the plan did "
+                 "not hold their windows")
+        n_regs, spill = regs[name]
+        log(f"[{gpu_line}] {name} registers per instantiation (ptxas) "
+            f"{n_regs}, most spill-store bytes {spill}")
         kernel_errs[name] += [e for errs_ in light_errs + low_errs
                               for e in errs_[name]]
         results.append({
@@ -2663,9 +2831,14 @@ def main(argv=None):
             "bound_ms_bf16": bound_low,
             "bound_by_bf16": by_low,
             "bound_ms_bf16_light": bound_low_l,
-            "tile_slices": tiles[0] if tiles else None,
-            "tile_slices_global": tiles[1] if tiles else None,
+            "bound_share": bound_ms / ms,
+            "bound_share_light": bound_l / ms_l,
+            "registers": n_regs,
+            "spill_bytes": spill,
+            "tile_slices": tiles[0],
+            "tile_slices_global": tiles[1],
         })
+    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,12 +85,13 @@ def _assert_fits_close(p, t_losses, t_grid, j_losses, j_grid):
 
 def test_bake_config3_scene_matches_jax(problem):
     cfg = T.RenderConfig(emission=True, quadrature="sliced")
-    got = tscene.bake_scene(tscene.config3_scene(SIZE), SIZE, cfg)
+    got = tscene.bake_scene(tscene.config3_scene(SIZE, device="cpu"), SIZE,
+                            cfg)
     assert tuple(got.shape) == (SIZE,) * 3
     np.testing.assert_allclose(got.numpy(), problem["true_grid"], rtol=1e-6,
                                atol=1e-6)
     assert float(got.max()) > 0.5  # both volumes landed in the box
-    for tv, jv in zip(tscene.config3_scene(SIZE),
+    for tv, jv in zip(tscene.config3_scene(SIZE, device="cpu"),
                       jscene.config3_scene(SIZE)):
         np.testing.assert_array_equal(tv.world_to_local.numpy(),
                                       np.asarray(jv.world_to_local))

@@ -1111,6 +1111,240 @@ def test_tiled_stage_above_48kb(cuda):
     _tiled_paths(cuda, eye=EYES[3][0], d=128, force=(56, 56))
 
 
+# --- the tiled schedule of K4 and K5 (csrc/sweep_ref_tile.cuh) -------------
+
+def _ref_tiled_inputs(dev, eye, emission=True, seed=5, n_slices=None,
+                      force=None, density=1.0, kind=None, low=False,
+                      scales=None, d=16):
+    """The 4-channel kernels' inputs for one plan and a seeded (4, 3)
+    scroll: (L, args, light, cfg, plan); force: the base grid's (Hb, Wb);
+    scales: the channels' coordinate scales."""
+    from volumetricrenderer_tpu_torch.ops.sweep import plan_sweep
+    grid = torch.tensor(
+        np.random.default_rng(0).uniform(0.1, 1.0, (d, d, d, 4)),
+        dtype=torch.float32, device=dev)
+    cfg = RenderConfig(emission=emission, quadrature="sliced")
+    plan = plan_sweep(make_camera(CameraConfig(eye=eye, width=96, height=64)),
+                      grid.shape, cfg, supersample=cfg.sweep_supersample,
+                      n_slices=n_slices, force_base_dims=force, device=dev)
+    medium = MediumConfig(density=density, **(
+        {"channel_coord_scale": scales} if scales else {}))
+    scroll = torch.tensor(np.random.default_rng(seed).uniform(-1.5, 1.5,
+                                                              (4, 3)),
+                          dtype=torch.float32, device=dev)
+    L, *args = sweep_ref_fwd.sweep_ref_inputs(
+        grid.permute(plan.perm + (3,)), plan, cfg, medium,
+        LIGHT if kind else None, scroll)
+    L, light = L.contiguous(), None
+    if kind:
+        lvol = _light_volume(grid, cfg, medium, kind, scroll)
+        light = sweep_ref_fwd.sweep_ref_light_slabs(lvol.permute(plan.perm),
+                                                    plan, cfg).contiguous()
+    if low:
+        L, light = _low(L), _low(light)
+    return L, args, light, cfg, plan
+
+
+def _ref_spans(L, args, light):
+    from volumetricrenderer_tpu_torch.kernels import build
+    A, B = L.shape[2], L.shape[3]
+    spans = build.ref_tile_spans(*args[:3], args[4], A, B)
+    lspans = (build.tile_spans(*args[:3], args[4], A, B, False)
+              if light is not None else None)
+    return spans, lspans
+
+
+def _ref_tiled_paths(dev, tol=BWD_TOL, **case):
+    """K4 and K5 with the stage the plan sizes (build.ref_stage_for), with
+    none (every tile-slice through global memory) and with half the largest
+    window (both paths in one launch): K4's maps equal bit for bit across
+    the three and match the plain version, K5's gradients match the plain
+    version in each; the kernels' tallies agree with the host mirror
+    (build.ref_tile_slices). Returns (largest window, stage bound)."""
+    from volumetricrenderer_tpu_torch.kernels import build
+    L, args, light, cfg, plan = _ref_tiled_inputs(dev, **case)
+    em, lit = cfg.emission, light is not None
+    spans, lspans = _ref_spans(L, args, light)
+    need = build.ref_stage_texels(spans, lspans)
+    bound = build.ref_stage_for(*args[:3], args[4], L.shape[2], L.shape[3],
+                                light=lit)
+    assert 1 < need <= bound
+    want_maps = sweep_ref_fwd.sweep_ref_fwd_reference(L, *args, emission=em,
+                                                      light=light)
+    rng = np.random.default_rng(9)
+    cts = [torch.tensor(rng.normal(size=plan.base_shape), dtype=torch.float32,
+                        device=dev) for _ in range(3)]
+    first = None
+    for stage in (None, 0, need // 2):
+        sweep_ref_fwd.tiles.reset()
+        sweep_ref_bwd.tiles.reset()
+        maps = sweep_ref_fwd.launch_kernel(L, *args, em, light, stage=stage)
+        got = sweep_ref_bwd.launch_kernel(L, *args, *cts, maps[1], maps[2],
+                                          emission=em, light=light,
+                                          stage=stage)
+        torch.cuda.synchronize()
+        done, glob = sweep_ref_fwd.tiles.read()
+        size = bound if stage is None else stage
+        active, mirror_glob = build.ref_tile_slices(
+            spans, build.ref_stage_cap(size, False, lit), lspans)
+        _, mirror_bglob = build.ref_tile_slices(
+            spans, build.ref_stage_cap(size, True, lit), lspans)
+        assert 0 < done <= active and glob <= mirror_glob
+        if mirror_glob == 0:
+            assert glob == 0
+        if stage == 0:
+            assert glob == done
+        if stage == need // 2:
+            assert mirror_glob > 0
+        if not em:  # no ray ends early: every active tile-slice computed
+            assert (done, glob) == (active, mirror_glob)
+            assert sweep_ref_bwd.tiles.read() == (active, mirror_bglob)
+        if first is None:
+            first = maps
+            for g, w, n in zip(maps, want_maps, NAMES):
+                torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=n)
+        else:
+            assert torch.equal(maps, first)
+        want = sweep_ref_bwd.sweep_ref_bwd_reference(
+            L, *args, *cts, maps[1], maps[2], emission=em, light=light)
+        if light is None:
+            got, want = (got,), (want,)
+        for g, w in zip(got, want):  # dL (and the light slabs' dL)
+            _assert_grad_close(g, w, tol)
+    return need, bound
+
+
+REF_TILED_CASES = {
+    "seeded scroll": dict(eye=EYES[0][0]),
+    "ragged base": dict(eye=EYES[1][0], force=(100, 70)),
+    "ragged base, absorption": dict(eye=EYES[2][0], emission=False,
+                                    force=(70, 100)),
+    "sub-voxel stack": dict(eye=EYES[0][0], n_slices=24),
+    "absorption": dict(eye=EYES[4][0], emission=False, seed=6),
+    "scale above 1": dict(eye=EYES[3][0], force=(20, 20),
+                          scales=(2.5, 0.8, 3.1, 0.7)),
+    "scale above 1, absorption": dict(eye=EYES[1][0], emission=False,
+                                      force=(20, 20),
+                                      scales=(2.5, 0.8, 3.1, 0.7)),
+    "negative scale": dict(eye=EYES[2][0], scales=(1.0, -0.8, 0.75, 0.7)),
+    "light, lT exactly 1": dict(eye=EYES[3][0], kind="ones", density=8.0),
+    "light stretched": dict(eye=EYES[2][0], kind="pushed", density=8.0),
+    "bfloat16": dict(eye=EYES[0][0], low=True),
+    "bfloat16, absorption": dict(eye=EYES[1][0], low=True, emission=False),
+    "bfloat16 with light": dict(eye=EYES[4][0], low=True, kind="ones",
+                                density=8.0),
+    "texels denser than pixels": dict(eye=EYES[3][0], d=64),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(REF_TILED_CASES))
+def test_ref_tiled_paths_match_plain_versions(cuda, name):
+    _ref_tiled_paths(cuda, **REF_TILED_CASES[name])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("low", [False, True])
+def test_ref_windows_across_the_mirror_fold(cuda, low):
+    """Seeded scrolls put channel windows across a mirror fold (unmirrored
+    slots below 0 or above n - 1, two slots on one texel): reads and the
+    flush's adds land on the folded texels."""
+    case = dict(eye=EYES[3][0], seed=7, low=low)
+    L, args, light, *_ = _ref_tiled_inputs(cuda, **case)
+    (front, rows, cols), _ = _ref_spans(L, args, light)
+    n = L.shape[2]
+    on = front[None, None, :] & rows[2][None]
+    crosses = ((rows[0] < 0) | (rows[1] > n - 1)) & on
+    assert bool(crosses.any())
+    _ref_tiled_paths(cuda, **case)
+
+
+@pytest.mark.gpu
+def test_ref_tiled_gate_at_density_500(cuda):
+    """Tiles whose rays end at different slices: K5's replay stops each
+    pixel where K4 stopped, and the walk ends when no pixel is live."""
+    from volumetricrenderer_tpu_torch.kernels import build
+    _ref_tiled_paths(cuda, tol=5e-4, eye=EYES[0][0], density=500.0)
+    L, args, light, *_ = _ref_tiled_inputs(cuda, eye=EYES[0][0],
+                                           density=500.0)
+    sweep_ref_fwd.tiles.reset()
+    maps = sweep_ref_fwd.launch_kernel(L, *args, True)
+    assert float(maps[1].min()) < 1e-3
+    active, _ = build.ref_tile_slices(_ref_spans(L, args, light)[0], 10 ** 6)
+    assert sweep_ref_fwd.tiles.read()[0] < active
+
+
+@pytest.mark.gpu
+def test_ref_windows_beyond_the_stage(cuda):
+    """A plan whose windows exceed what a stage may hold (128^3 x 4 on a
+    56 x 56 base): K4 launches with more than 48 KB of shared memory and
+    reads the larger windows through global memory, K5 (whose stage also
+    holds the eight warps' accumulation windows) reads and scatters them
+    there; both tallies show it, and both match the plain versions."""
+    from volumetricrenderer_tpu_torch.kernels import build
+    case = dict(eye=EYES[3][0], d=128, force=(56, 56), emission=False)
+    L, args, light, *_ = _ref_tiled_inputs(cuda, **case)
+    spans, _ = _ref_spans(L, args, light)
+    bound = build.ref_stage_for(*args[:3], args[4], 128, 128)
+    cap_f = build.ref_stage_cap(bound, False, False)
+    assert 4 * 2 * 4 * cap_f > 48 * 1024
+    assert build.ref_tile_slices(spans, cap_f)[1] > 0
+    assert build.ref_tile_slices(
+        spans, build.ref_stage_cap(bound, True, False))[1] > 0
+    _ref_tiled_paths(cuda, **case)
+
+
+@pytest.mark.gpu
+def test_ref_frames_with_new_scrolls_keep_the_stage(cuda, monkeypatch):
+    """render_image with a new scroll in every frame sizes the stage once
+    for the plan and medium (no read to the host per frame), and every
+    tile-slice of those frames is staged."""
+    from volumetricrenderer_tpu_torch import render_image
+    from volumetricrenderer_tpu_torch.kernels import build
+    grid = torch.tensor(
+        np.random.default_rng(0).uniform(0.1, 1.0, (16, 16, 16, 4)),
+        dtype=torch.float32, device=cuda)
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    cam = make_camera(CameraConfig(eye=EYES[3][0], width=96, height=64))
+    plan = plan_for(cam, grid.shape, cfg, device=cuda)
+    calls = []
+    real = build.ref_stage_bound
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+    monkeypatch.setattr(build, "ref_stage_bound", counted)
+    sweep_ref_fwd.tiles.reset()
+    for seed in (5, 6, 7, 8):
+        scroll = torch.tensor(np.random.default_rng(seed).uniform(
+            -1.5, 1.5, (4, 3)), dtype=torch.float32, device=cuda)
+        img = render_image(grid, cam, cfg, MediumConfig(), scroll=scroll,
+                           plan=plan)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(img).all())
+    assert len(calls) == 1
+    done, glob = sweep_ref_fwd.tiles.read()
+    assert done > 0 and glob == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cloud_volume", "build_volume",
+                                  "smoke_volume", "translate_w2l",
+                                  "config3_scene"])
+def test_scene_constructors_default_to_the_gpu(cuda, name):
+    """Without device=, the volume and scene constructors build on the
+    card."""
+    from volumetricrenderer_tpu_torch import VolumeConfig
+    from volumetricrenderer_tpu_torch.models import scene
+    args = {"cloud_volume": (12, 7), "build_volume": (VolumeConfig(size=8),),
+            "smoke_volume": (12, 23), "translate_w2l": (0.25, -0.5, 0.125),
+            "config3_scene": (8,)}[name]
+    got = getattr(scene, name)(*args)
+    tensors = ([t for v in got for t in (v.grid, v.world_to_local)]
+               if isinstance(got, list) else [got])
+    assert all(t.device.type == "cuda" for t in tensors)
+
+
 @pytest.mark.gpu
 def test_fit_grid_numpy_target_runs_on_the_gpu(cuda):
     """fit_grid with a numpy target and no init_grid fits on the card by

@@ -143,21 +143,38 @@ def test_build_volume_reference_recipe(quantize):
         assert float(got[..., c].max()) == 1.0
 
 
-@pytest.mark.parametrize("name", ["cloud_volume", "build_volume"])
+_CONSTRUCTORS = {  # name -> (the port's arguments, the JAX package's)
+    "cloud_volume": ((12, 7), (12, 7)),
+    "build_volume": ((TVolume(size=8),), (JVolume(size=8),)),
+    "smoke_volume": ((12, 23), (12, 23)),
+    "translate_w2l": ((0.25, -0.5, 0.125), (0.25, -0.5, 0.125)),
+    "config3_scene": ((8,), (8,)),
+}
+
+
+def _arrays(value):
+    """The arrays of a constructor's result: a grid or a matrix, or each
+    volume's grid and world_to_local."""
+    if isinstance(value, list):
+        return [a for v in value for a in (v.grid, v.world_to_local)]
+    return [value]
+
+
+@pytest.mark.parametrize("name", list(_CONSTRUCTORS))
 def test_volume_constructors_default_to_the_gpu(name):
-    """cloud_volume and build_volume build on `device`, "cuda" by default:
-    without a GPU the default raises torch's own error, and device="cpu"
-    builds the JAX package's volume on the CPU."""
+    """cloud_volume, build_volume, smoke_volume, translate_w2l and
+    config3_scene build on `device`, "cuda" by default: without a GPU the
+    default raises torch's own error, and device="cpu" builds the JAX
+    package's values on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
-    if name == "cloud_volume":
-        args, jargs = (12, 7), (12, 7)
-    else:
-        args, jargs = (TVolume(size=8),), (JVolume(size=8),)
+    args, jargs = _CONSTRUCTORS[name]
     with pytest.raises((RuntimeError, AssertionError)):
         getattr(tscene, name)(*args)
-    got = getattr(tscene, name)(*args, device="cpu")
-    assert got.device.type == "cpu"
-    np.testing.assert_allclose(got.numpy(),
-                               np.asarray(getattr(jscene, name)(*jargs)),
-                               rtol=0, atol=ATOL)
+    got = _arrays(getattr(tscene, name)(*args, device="cpu"))
+    want = _arrays(getattr(jscene, name)(*jargs))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device.type == "cpu"
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=ATOL)

@@ -87,10 +87,11 @@ def _scene_pair(n=16):
                            jscene.translate_w2l(0.0, 0.0, t1)),
              jscene.Volume(jnp.asarray(smoke),
                            jscene.translate_w2l(t2, 0.0, 0.0))]
+    cpu = dict(device="cpu")
     tvols = [tscene.Volume(torch.from_numpy(cloud.copy()),
-                           tscene.translate_w2l(0.0, 0.0, t1)),
+                           tscene.translate_w2l(0.0, 0.0, t1, **cpu)),
              tscene.Volume(torch.from_numpy(smoke.copy()),
-                           tscene.translate_w2l(t2, 0.0, 0.0))]
+                           tscene.translate_w2l(t2, 0.0, 0.0, **cpu))]
     return jvols, tvols
 
 
@@ -115,7 +116,8 @@ def test_scene_sigma_matches_jax(combine):
          jscene.Volume(jnp.asarray(g2))], jnp.asarray(pos), JCFG, jmed,
         None if scroll is None else jnp.asarray(scroll)))
     tvols = [tscene.Volume(torch.from_numpy(g1),
-                           tscene.translate_w2l(0.5, 0.0, 0.0)),
+                           tscene.translate_w2l(0.5, 0.0, 0.0,
+                                                device="cpu")),
              tscene.Volume(torch.from_numpy(g2))]
     got = tint.scene_sigma(tvols, torch.from_numpy(pos), TCFG, tmed,
                            None if scroll is None
@@ -172,7 +174,7 @@ def test_prepare_baked_scene_reference_combine_matches_jax():
         JCFG, J.MediumConfig(density=3.0), scroll=jnp.asarray(scroll))
     tg, tm, ts = T.prepare_baked_scene(
         [tscene.Volume(torch.from_numpy(g4),
-                       tscene.translate_w2l(0.0, 1 / 3, 0))],
+                       tscene.translate_w2l(0.0, 1 / 3, 0, device="cpu"))],
         TCFG, T.MediumConfig(density=3.0), scroll=torch.from_numpy(scroll))
     assert js is None and ts is None
     assert (tm.combine, tm.sample_scale, tm.density) == \

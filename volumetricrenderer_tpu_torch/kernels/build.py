@@ -11,7 +11,10 @@ check_sweep_inputs is the sweep wrappers' check of their arguments before
 the pointers are passed to a kernel. tile_spans, stage_texels, stage_for,
 stage_buffers, stage_cap, tile_slices and TileTally are the host side of
 K1's and K2's tiled schedule (csrc/sweep_tile.cuh): the tile-slice windows,
-the stage they size, and the kernels' tally of tile-slices by path. NCH,
+the stage they size, and the kernels' tally of tile-slices by path;
+ref_tile_spans, ref_stage_texels, ref_stage_bound, ref_stage_for,
+ref_stage_cap and ref_tile_slices are the same for K4's and K5's channel
+windows (csrc/sweep_ref_tile.cuh). NCH,
 N_PARAMS and channel_resample are
 what the two 4-channel sweep modules (sweep_ref_fwd, sweep_ref_bwd) share;
 light_sample is what the four plain versions share. bf16_round, stream_cast
@@ -38,8 +41,10 @@ __all__ = ["NVCC_FLAGS", "build_library", "source_key",
            "light_sample", "bf16_round", "stream_cast", "ELEM_F32",
            "ELEM_BF16", "TILE_ROWS", "TILE_COLS", "STAGE_BYTES_MAX",
            "tile_spans", "stage_texels", "stage_for", "stage_buffers",
-           "stage_cap",
-           "tile_slices", "TileTally", "IdentityCache"]
+           "stage_cap", "tile_slices", "TileTally", "IdentityCache",
+           "REF_MAX_SLOTS", "REF_ROUNDING", "ref_windows", "ref_tile_spans",
+           "ref_stage_texels", "ref_tile_slices", "ref_stage_bound",
+           "ref_stage_for", "ref_stage_cap"]
 
 NCH = 4        # channels of the reference medium
 N_PARAMS = 20  # sweep_fwd._params_for's 8, 4 coord scales, 4 b and 4 a offsets
@@ -273,10 +278,11 @@ class IdentityCache:
         return value
 
 
-def _axis_spans(e, delta, q, n, wrap, tile):
-    """sweep_tile.cuh axis_span for every tile of one axis and every slice:
-    (lo, hi, any), each (tiles, S). The float32 expressions of the kernel,
-    on the tile's first and last line."""
+def _unit_ends(e, delta, q, tile):
+    """The coordinate e + delta * q of every tile's first and last line on
+    every slice, in the kernels' float32 expressions, clamped to the box:
+    (lo, hi, any), each (tiles, S); any: a line of the tile can be in the
+    box."""
     length = q.shape[0]
     first = torch.arange(0, length, tile, device=q.device)
     last = torch.clamp(first + tile, max=length) - 1
@@ -284,8 +290,16 @@ def _axis_spans(e, delta, q, n, wrap, tile):
     x1 = e + delta[None, :] * q[last][:, None]
     lo, hi = torch.minimum(x0, x1), torch.maximum(x0, x1)
     any_in = (hi >= 0.0) & (lo <= 1.0)
-    t_lo = torch.floor(torch.clamp(lo, 0.0, 1.0) * n - 0.5).to(torch.int64)
-    t_hi = torch.floor(torch.clamp(hi, 0.0, 1.0) * n - 0.5).to(torch.int64) + 1
+    return torch.clamp(lo, 0.0, 1.0), torch.clamp(hi, 0.0, 1.0), any_in
+
+
+def _axis_spans(e, delta, q, n, wrap, tile):
+    """sweep_tile.cuh axis_span for every tile of one axis and every slice:
+    (lo, hi, any), each (tiles, S). The float32 expressions of the kernel,
+    on the tile's first and last line."""
+    lo, hi, any_in = _unit_ends(e, delta, q, tile)
+    t_lo = torch.floor(lo * n - 0.5).to(torch.int64)
+    t_hi = torch.floor(hi * n - 0.5).to(torch.int64) + 1
     if not wrap:
         t_lo, t_hi = t_lo.clamp(0, n - 1), t_hi.clamp(0, n - 1)
     return t_lo, t_hi, any_in
@@ -360,6 +374,159 @@ def tile_slices(spans, cap: int):
     area = r[:, None, :] * c[None, :, :] * front[None, None, :]
     active = area > 0
     return int(active.sum()), int((active & (area > cap)).sum())
+
+
+# K4's and K5's windows (csrc/sweep_ref_tile.cuh): one per channel, and
+# the light slabs' (K1's clipped window) as a fifth; the most slots a
+# tile-slice's windows may stage together (64 a thread, kMaxSlots).
+REF_MAX_SLOTS = 64 * 256
+# The float32 rounding of a channel coordinate, in texels, that the
+# offset-free stage bound allows for (ref_stage_bound).
+REF_ROUNDING = 1.0 / 16.0
+
+
+def ref_windows(light: bool) -> int:
+    """Windows per tile-slice of K4 and K5: NCH, and the light's."""
+    return NCH + (1 if light else 0)
+
+
+def _chan_tap(x, sc, off, n):
+    """sweep_ref_common.cuh chan_tap: the unmirrored tap floor((x * sc +
+    off) * n - 0.5), in the kernel's float32 expressions."""
+    return torch.floor((x * sc + off) * n - 0.5).to(torch.int64)
+
+
+def ref_tile_spans(slice_z, v_grid, u_grid, params, A, B):
+    """The channel windows of K4's and K5's tiled schedule, as the kernels
+    compute them (sweep_ref_tile.cuh fill_windows), on the tensors' device.
+
+    params is the (N_PARAMS,) vector of the sweep (the scroll's offsets
+    included). Returns (front, rows, cols): front (S,) bool, the slices in
+    front of the eye; rows = (lo, hi, any): lo and hi (NCH, ceil(Hb /
+    TILE_ROWS), S) int64, channel c's unmirrored texel-row range [lo, hi]
+    of each tile-slice (slot m of the window holds texel
+    mirror(lo + m)), any (tiles, S) whether a row of the tile can be in
+    the box (the unscaled coordinate: the box test is the ray's); cols the
+    same for the columns, B and the b offsets. The light window is K1's
+    (tile_spans with clipping)."""
+    e_k, e_a, e_b, sign = (params[n] for n in range(4))
+    delta = slice_z - e_k
+    front = delta * sign > 0.0
+
+    def axis(e, q, n, tile, off_at):
+        lo, hi, any_in = _unit_ends(e, delta, q, tile)
+        los, his = [], []
+        for c in range(NCH):
+            sc, off = params[8 + c], params[off_at + c]
+            t0, t1 = _chan_tap(lo, sc, off, n), _chan_tap(hi, sc, off, n)
+            los.append(torch.minimum(t0, t1))
+            his.append(torch.maximum(t0, t1) + 1)
+        return torch.stack(los), torch.stack(his), any_in
+
+    return (front, axis(e_a, v_grid, A, TILE_ROWS, 16),
+            axis(e_b, u_grid, B, TILE_COLS, 12))
+
+
+def _ref_areas(spans, light_spans=None):
+    """(active (tiles_r, tiles_c, S) bool, windows (W, tiles_r, tiles_c,
+    S) int64): the tile-slices in their tiles' slice ranges and the slots
+    of each of their windows, channels first, then the light's."""
+    front, (rlo, rhi, rany), (clo, chi, cany) = spans
+    active = front[None, None, :] & rany[:, None, :] & cany[None, :, :]
+    areas = (rhi - rlo + 1)[:, :, None, :] * (chi - clo + 1)[:, None, :, :]
+    if light_spans is not None:
+        _, rows, cols = light_spans
+        r, c = _extents(rows), _extents(cols)
+        areas = torch.cat([areas, (r[:, None, :] * c[None, :, :])[None]])
+    return active, areas
+
+
+def ref_stage_texels(spans, light_spans=None) -> int:
+    """The largest window, in slots, of any active tile-slice of
+    ref_tile_spans' result (and of tile_spans' light windows, if given):
+    the stage that holds every window of this sweep."""
+    active, areas = _ref_areas(spans, light_spans)
+    return int(torch.where(active[None], areas,
+                           torch.zeros_like(areas)).max())
+
+
+def ref_tile_slices(spans, cap: int, light_spans=None):
+    """(active, global): the active tile-slices of ref_tile_spans' result,
+    and of those the ones with a window (a channel's, or the light's if
+    light_spans is given) larger than `cap` slots, which read through
+    global memory. With no ray ending early, a kernel's tally."""
+    active, areas = _ref_areas(spans, light_spans)
+    over = (areas > cap).any(0)
+    return int(active.sum()), int((active & over).sum())
+
+
+def ref_stage_bound(slice_z, v_grid, u_grid, params, scales, A, B,
+                    light: bool) -> int:
+    """A stage, in slots, that holds every window of K4 and K5 on this plan
+    whatever the scroll's offsets: from the plan (params[:4]) and the
+    channels' coordinate scales only.
+
+    A channel's window spans the taps floor(P) of the coordinates of a
+    tile's first and last line clamped to the box, x0 <= x1, P = (x * sc +
+    off) * n - 0.5, plus one: t1 - t0 + 2 slots for the ordered taps. As
+    floor(a) - floor(b) <= ceil(a - b), that is at most ceil(|P1 - P0|) + 2
+    <= floor(d + E) + 3, where d = (x1 - x0) * |sc| * n is the scaled span
+    and E is the float32 rounding of P1 - P0 against d. E grows with
+    |q| = |x * sc + off|; it stays below REF_ROUNDING (1/16 texel) while
+    |q| * n < 2^16 (|q| below ~500 at n = 128). So a window has at most
+    floor(d + 1/16) + 3 slots along each axis, whatever off is; beyond that
+    range a window may be larger, and reads through global memory (the
+    kernels count it). With light, the light window (K1's, offset-free)
+    too. One read to the host."""
+    e_k, e_a, e_b, sign = (params[n] for n in range(4))
+    delta = slice_z - e_k
+    front = delta * sign > 0.0
+    sc = torch.tensor(scales, dtype=torch.float32).abs().to(torch.float64)
+
+    def extents(e, q, n, tile):
+        lo, hi, any_in = _unit_ends(e, delta, q, tile)
+        d = (hi.to(torch.float64) - lo.to(torch.float64))[None] \
+            * sc.to(q.device)[:, None, None] * n
+        ext = torch.floor(d + REF_ROUNDING).to(torch.int64) + 3
+        return torch.where(any_in[None], ext, torch.zeros_like(ext))
+
+    need = (extents(e_a, v_grid, A, TILE_ROWS).amax(1)
+            * extents(e_b, u_grid, B, TILE_COLS).amax(1)).amax(0)
+    if light:
+        _, rows, cols = tile_spans(slice_z, v_grid, u_grid, params, A, B,
+                                   False)
+        need = torch.maximum(need, _extents(rows).amax(0)
+                             * _extents(cols).amax(0))
+    return int(torch.where(front, need, torch.zeros_like(need)).max())
+
+
+_REF_STAGES = IdentityCache()
+
+
+def ref_stage_for(slice_z, v_grid, u_grid, params, A, B, scales=None,
+                  light=False) -> int:
+    """ref_stage_bound, computed once per set of these tensors and scales
+    (the computation ends in a read to the host). The bound reads only
+    params[:4], the plan's, so the sweep passes its per-plan (8,) params
+    and the medium's scales: every frame of a plan then finds the stage
+    here, whatever its scroll. scales None: params[8:12] (a host read)."""
+    if scales is None:
+        scales = tuple(params[8:8 + NCH].tolist())
+    return _REF_STAGES.get(
+        (slice_z, v_grid, u_grid, params),
+        (A, B, tuple(float(x) for x in scales), bool(light)),
+        lambda: ref_stage_bound(slice_z, v_grid, u_grid, params, scales, A,
+                                B, light))
+
+
+def ref_stage_cap(texels: int, backward: bool, light: bool) -> int:
+    """The stage a K4 or K5 launch takes, in slots per window buffer:
+    stage_cap of its buffers (two staged windows per window, K5 also one
+    accumulation window per warp and window), and at most REF_MAX_SLOTS
+    over its windows."""
+    nw = ref_windows(light)
+    buffers = nw * (2 + (8 if backward else 0))
+    return min(stage_cap(texels, buffers), REF_MAX_SLOTS // nw)
 
 
 class TileTally:

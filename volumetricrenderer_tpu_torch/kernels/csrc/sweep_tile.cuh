@@ -385,15 +385,17 @@ __device__ __forceinline__ Runs runs_of(const Line& c) {
 // each run's last lane adds its sums once. kAtomic: into the global
 // gradient layer with atomicAdd; else into the warp's own shared
 // accumulation window with plain adds. Lanes without a sample pass du = 0.
-// Every lane of the warp calls it.
+// `span`: no run of the warp is longer, so the sums stop at that distance
+// (K4/K5 pass it; K1/K2 take 32). Every lane of the warp calls it.
 template <bool kAtomic>
 __device__ __forceinline__ void warp_scatter(float* base, const Line& r,
                                              const Line& c, const Runs& q,
-                                             float du) {
+                                             float du, int span = 32) {
   const int lane = threadIdx.x;
   float s0 = du * c.w0, s1 = du * c.w1;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
+    if (d >= span) break;
     const float o0 = __shfl_up_sync(kFull, s0, d);
     const float o1 = __shfl_up_sync(kFull, s1, d);
     if (lane - d >= q.start0) s0 += o0;
@@ -447,10 +449,12 @@ inline size_t smem_bytes(int S, int buffers, int cap) {
          (size_t)buffers * (size_t)cap * sizeof(float);
 }
 
-// Allows a kernel more than the default 48 KB of dynamic shared memory.
+// Allows a kernel more than the default 48 KB of shared memory: `bytes`
+// of dynamic shared memory beside `static_bytes` of static.
 template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+inline cudaError_t allow_smem(K kernel, size_t bytes,
+                              size_t static_bytes = 0) {
+  if (bytes + static_bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);

@@ -16,6 +16,10 @@ kernels/sweep_ref_fwd.py calls one or the other by device: CUDA slabs
 launch the kernel (or raise), CPU slabs run the plain version. Plan arrays
 and params get no gradient, as in the JAX package.
 
+The kernel runs the forward's tiled schedule (csrc/sweep_ref_tile.cuh) and
+sums each channel's share per run of lanes into per-warp shared windows;
+`tiles` tallies its tile-slices as sweep_ref_fwd.tiles does.
+
 `launches` counts the kernel launches made by this module.
 """
 from __future__ import annotations
@@ -26,13 +30,15 @@ import torch
 
 from ..ops.resample import linear_resample_matrix
 from ..ops.sampling import clip_unit_grad
-from .build import (N_PARAMS, NCH, build_library, channel_resample,
-                    check_sweep_inputs, light_sample)
+from .build import (N_PARAMS, NCH, TileTally, build_library,
+                    channel_resample, check_sweep_inputs, light_sample,
+                    ref_stage_cap, ref_stage_for)
 
 __all__ = ["sweep_ref_bwd_reference", "build_kernel", "launch_kernel",
-           "launches"]
+           "launches", "tiles"]
 
 launches = 0  # kernel launches since import (or since a caller reset it)
+tiles = TileTally()  # tile-slices (computed, read through global memory)
 
 _lib = None
 build_info = None  # set by the first build: path, seconds, nvcc output
@@ -127,8 +133,8 @@ def build_kernel():
     if _lib is None:
         lib, info = build_library("sweep_ref_bwd")
         fn = lib.sweep_ref_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _lib, build_info = lib, info
     return build_info
@@ -136,13 +142,14 @@ def build_kernel():
 
 def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, ct_acc,
                   ct_trans, ct_wsum, trans, wsum, *, emission: bool,
-                  light=None):
+                  light=None, stage=None):
     """Check the inputs, allocate the zeroed (S, 4, A, B) gradient (and,
     with light slabs, their zeroed gradient), launch the kernel on the
     current stream and count the launch. Arguments as
     sweep_ref_bwd_reference's (L's dtype selects the kernel's
-    instantiation); the maps a mode does not read may be None. Returns
-    float32 dL, or (dL, dlight) with light slabs."""
+    instantiation); the maps a mode does not read may be None. `stage` as
+    sweep_ref_fwd.launch_kernel's. Returns float32 dL, or (dL, dlight) with
+    light slabs."""
     global launches
     dev = L.device
     if light is not None and not emission:
@@ -154,6 +161,10 @@ def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, ct_acc,
         "sweep_ref_bwd", L, slice_z, v_grid, u_grid, seglen, params, maps,
         channels=NCH, n_params=N_PARAMS, light=light)
     build_kernel()
+    if stage is None:
+        stage = ref_stage_for(slice_z, v_grid, u_grid, params, A, B,
+                              light=light is not None)
+    cap = ref_stage_cap(stage, True, light is not None)
 
     def ptr(name):
         return maps[name].data_ptr() if name in maps else None
@@ -170,7 +181,8 @@ def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, ct_acc,
             ptr("ct_trans"), ptr("ct_wsum"), ptr("trans"), ptr("wsum"),
             dL.data_ptr(),
             dlight.data_ptr() if light is not None else None, S, A, B, Hb,
-            Wb, int(emission), elem, stream)
+            Wb, int(emission), elem, cap, tiles.tensor(dev).data_ptr(),
+            stream)
     if rc != 0:
         raise RuntimeError(
             f"sweep_ref_bwd kernel launch failed: CUDA error {rc}")

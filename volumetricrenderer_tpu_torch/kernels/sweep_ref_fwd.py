@@ -26,6 +26,13 @@ channel with scale 1 and no offset, and sampled at the unscaled
 coordinates. The node then has two differentiable inputs, L and the light
 slabs.
 
+The kernels run sweep_fwd's tiled schedule with one tap window per
+channel (csrc/sweep_ref_tile.cuh). The stage they take is sized once per
+plan and medium (build.ref_stage_for, from the plan and the channels'
+coordinate scales, not the scroll's offsets), so an animated scroll pays no
+read to the host per frame; `tiles` tallies the tile-slices the kernel
+computed and those it read through global memory.
+
 RenderConfig(dtype="bfloat16") sweeps in the bfloat16 stream mode that
 kernels/sweep_fwd.py defines: L is built in float32 (_layer_channels), the
 node casts L and the light slabs to bfloat16, sweeps and saves the casts,
@@ -44,15 +51,17 @@ import torch
 from ..config import LightConfig, MediumConfig, RenderConfig
 from ..ops.sampling import apply_address_mode, clip_unit
 from . import sweep_ref_bwd
-from .build import (N_PARAMS, NCH, build_library, channel_resample,
-                    check_sweep_inputs, light_sample, stream_cast)
+from .build import (N_PARAMS, NCH, TileTally, build_library,
+                    channel_resample, check_sweep_inputs, light_sample,
+                    ref_stage_cap, ref_stage_for, stream_cast)
 from .sweep_fwd import _layer_lerp_stack, _params_for
 
 __all__ = ["sweep_ref_inputs", "sweep_ref_light_slabs", "sweep_base_ref",
            "sweep_ref_fwd_reference", "build_kernel", "launch_kernel",
-           "launches"]
+           "launches", "tiles"]
 
 launches = 0  # kernel launches since import (or since a caller reset it)
+tiles = TileTally()  # tile-slices (computed, read through global memory)
 
 _lib = None
 build_info = None  # set by the first build: path, seconds, nvcc output
@@ -175,21 +184,25 @@ def build_kernel():
     if _lib is None:
         lib, info = build_library("sweep_ref_fwd")
         fn = lib.sweep_ref_fwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _lib, build_info = lib, info
     return build_info
 
 
 def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, emission,
-                  light=None):
+                  light=None, stage=None):
     """Check the inputs, allocate the (4, Hb, Wb) output, launch the
     kernel on the current stream and count the launch. `L` is float32 or
     bfloat16 (the stream mode: it selects the kernel's instantiation).
     `light` is the optional (S, A, B) stack of light slabs in slice order
     and L's dtype (emission only): it selects the kernel's light branch.
-    Returns the (4, Hb, Wb) float32 tensor of acc, trans, wsum, hit."""
+    v_grid and u_grid must be monotone, as plan_sweep makes them. `stage`:
+    slots per window buffer; None sizes it (build.ref_stage_for, cached on
+    these very tensors, `params` included), 0 reads every tile-slice
+    through global memory. Returns the (4, Hb, Wb) float32 tensor of acc,
+    trans, wsum, hit."""
     global launches
     dev = L.device
     if light is not None and not emission:
@@ -199,6 +212,10 @@ def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, emission,
         "sweep_ref_fwd", L, slice_z, v_grid, u_grid, seglen, params,
         channels=NCH, n_params=N_PARAMS, light=light)
     build_kernel()
+    if stage is None:
+        stage = ref_stage_for(slice_z, v_grid, u_grid, params, A, B,
+                              light=light is not None)
+    cap = ref_stage_cap(stage, False, light is not None)
     out = torch.empty((4, Hb, Wb), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -206,7 +223,8 @@ def launch_kernel(L, slice_z, v_grid, u_grid, seglen, params, emission,
             L.data_ptr(), light.data_ptr() if light is not None else None,
             slice_z.data_ptr(), v_grid.data_ptr(), u_grid.data_ptr(),
             seglen.data_ptr(), params.data_ptr(), out.data_ptr(), S, A, B,
-            Hb, Wb, int(emission), elem, stream)
+            Hb, Wb, int(emission), elem, cap, tiles.tensor(dev).data_ptr(),
+            stream)
     if rc != 0:
         raise RuntimeError(
             f"sweep_ref_fwd kernel launch failed: CUDA error {rc}")
@@ -222,16 +240,17 @@ class _SweepRef(torch.autograd.Function):
     the light slabs (or None) get gradients; `hit` is not differentiable.
     `low` is the bfloat16 stream mode, handled as in sweep_fwd._SweepFwd:
     the cast to the stream type, the sweep and the saved tensors are the
-    node's, and each float32 gradient returns in its input's dtype."""
+    node's, and each float32 gradient returns in its input's dtype. `stage`
+    is both kernels' stage (launch_kernel's; None sizes it per call)."""
 
     @staticmethod
     def forward(ctx, L, light, slice_z, v_grid, u_grid, seglen, params,
-                emission, low):
+                emission, low, stage):
         ctx.in_dtypes = (L.dtype, None if light is None else light.dtype)
         L, light = stream_cast(L, low), stream_cast(light, low)
         if L.device.type == "cuda":
             maps = launch_kernel(L, slice_z, v_grid, u_grid, seglen, params,
-                                 emission, light).unbind(0)
+                                 emission, light, stage).unbind(0)
         elif L.device.type == "cpu":
             maps = sweep_ref_fwd_reference(L, slice_z, v_grid, u_grid,
                                            seglen, params, emission=emission,
@@ -241,12 +260,12 @@ class _SweepRef(torch.autograd.Function):
         ctx.mark_non_differentiable(maps[3])
         ctx.save_for_backward(L, slice_z, v_grid, u_grid, seglen, params,
                               maps[1], maps[2], light)
-        ctx.emission = emission
+        ctx.emission, ctx.stage = emission, stage
         return tuple(maps)
 
     @staticmethod
     def backward(ctx, ct_acc, ct_trans, ct_wsum, _ct_hit):
-        none = (None,) * 7
+        none = (None,) * 8
         if not any(ctx.needs_input_grad[:2]):
             return (None, None) + none
         L, slice_z, v_grid, u_grid, seglen, params, trans, wsum, light = \
@@ -254,10 +273,13 @@ class _SweepRef(torch.autograd.Function):
         # Cotangents may arrive broadcast (the gradient of a sum); the
         # kernel reads dense maps.
         cts = [c.contiguous() for c in (ct_acc, ct_trans, ct_wsum)]
-        bwd = (sweep_ref_bwd.launch_kernel if L.device.type == "cuda"
-               else sweep_ref_bwd.sweep_ref_bwd_reference)
-        grads = bwd(L, slice_z, v_grid, u_grid, seglen, params, *cts, trans,
-                    wsum, emission=ctx.emission, light=light)
+        args = (L, slice_z, v_grid, u_grid, seglen, params, *cts, trans, wsum)
+        if L.device.type == "cuda":
+            grads = sweep_ref_bwd.launch_kernel(
+                *args, emission=ctx.emission, light=light, stage=ctx.stage)
+        else:
+            grads = sweep_ref_bwd.sweep_ref_bwd_reference(
+                *args, emission=ctx.emission, light=light)
         dL, dlight = grads if light is not None else (grads, None)
         dL = dL.to(ctx.in_dtypes[0])
         if dlight is not None:
@@ -300,12 +322,19 @@ def sweep_base_ref(gperm4, plan, cfg: RenderConfig, medium: MediumConfig,
         raise ValueError(f"sweep_base_ref: no sweep for device "
                          f"{gperm4.device}")
     L, *args = sweep_ref_inputs(gperm4, plan, cfg, medium, light, scroll)
-    slabs = None
+    lt = light if light is not None else LightConfig()
+    slabs = stage = None
     if lperm is not None:
         if lperm.shape != gperm4.shape[:3]:
             raise ValueError(
                 f"sweep_base_ref: the light volume must have the grid's "
                 f"shape {tuple(gperm4.shape[:3])}, got {tuple(lperm.shape)}")
         slabs = sweep_ref_light_slabs(lperm, plan, cfg)
+    if gperm4.device.type == "cuda":
+        # From the plan's own params and the medium: no read per scroll.
+        stage = ref_stage_for(plan.slice_z, plan.v_grid, plan.u_grid,
+                              _params_for(plan, cfg, medium, lt),
+                              L.shape[2], L.shape[3],
+                              medium.channel_coord_scale, slabs is not None)
     return _SweepRef.apply(L, slabs, *args, cfg.emission,
-                           cfg.dtype == "bfloat16")
+                           cfg.dtype == "bfloat16", stage)

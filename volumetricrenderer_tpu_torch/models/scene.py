@@ -62,10 +62,11 @@ def cloud_volume(size, seed=7, octaves=5, coverage=0.45, device="cuda"):
     return d / torch.clamp(torch.max(d), min=1e-6)
 
 
-def smoke_volume(size, seed=23, octaves=4, device=None):
+def smoke_volume(size, seed=23, octaves=4, device="cuda"):
     """A wispy smoke column, (size, size, size) float32: FBM modulated by a
     vertical gradient and a horizontal Gaussian core, normalized to a
-    maximum of 1."""
+    maximum of 1. Built on `device`, "cuda" unless the caller asks for
+    another: without a GPU the default raises torch's own error."""
     n = build_channel("fbm", size, 6.0 / size, seed, octaves=octaves,
                       device=device)
     idx = (torch.arange(size, dtype=torch.float32, device=device) + 0.5) / size
@@ -84,9 +85,10 @@ class Volume:
     world_to_local: Optional[torch.Tensor] = None
 
 
-def translate_w2l(tx, ty, tz, device=None):
+def translate_w2l(tx, ty, tz, device="cuda"):
     """world_to_local of a volume translated by (tx, ty, tz): local =
-    world - t."""
+    world - t. On `device`, "cuda" unless the caller asks for another, as
+    the volumes it goes with."""
     m = torch.eye(4, dtype=torch.float32, device=device)
     m[:3, 3] = torch.tensor([-tx, -ty, -tz], dtype=torch.float32,
                             device=device)
@@ -123,10 +125,12 @@ def bake_scene(volumes, size, cfg):
     return total
 
 
-def config3_scene(size, cloud_seed=7, smoke_seed=23, device=None):
+def config3_scene(size, cloud_seed=7, smoke_seed=23, device="cuda"):
     """BASELINE config 3: a cloud + smoke two-volume scene, two grids with
     per-volume world transforms (the cloud raised, the smoke column below
-    it), translated by whole voxels of the [-1, 1] box."""
+    it), translated by whole voxels of the [-1, 1] box. Built on `device`,
+    "cuda" unless the caller asks for another: without a GPU the default
+    raises torch's own error."""
     half = 2.0 / size  # one voxel pitch of the [-1, 1] box
     cloud = Volume(cloud_volume(size, seed=cloud_seed, device=device),
                    translate_w2l(0.0, 0.0, round(0.5 / half) * half,
