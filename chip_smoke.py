@@ -3,7 +3,8 @@
 (serving) and the forward+backward render and fit (training), for the
 single-channel medium and for the 4-channel reference medium, without and
 with shadows (BASELINE config 4's light volume), in float32 and in the
-bfloat16 stream mode, and the preset front end (`cli render`, `cli info`).
+bfloat16 stream mode, the preset front end (`cli render`, `cli info`) and
+the viewer front end (`serve`, `cli animate`).
 
     python3 chip_smoke.py [--out DIR]    (| tee DIR/log.txt to keep the output)
 
@@ -109,7 +110,7 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    with shadows per frame (plan reused, light volume rebuilt) and the
    shadowed forward+backward step, with a torch.profiler table of that
    step;
-16. (the results are printed last, step 21);
+16. (the results are printed last, step 22);
 17. the bfloat16 stream mode (RenderConfig(dtype="bfloat16"): texels and
    tap weights rounded to bfloat16, everything else float32) at small
    shapes: torch's rounding against the device's on seeded weights and
@@ -140,7 +141,24 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    version at the preset's own shapes: the forward kernel's base maps on
    grid[..., 0] (or the baked grid) and its light volume, and the frame
    against finish_image of the plain maps; `cli info`;
-21. prints a JSON line of kernel results (each kernel's launches on the
+21. the viewer front end (serve.py, `cli animate`): serve's self-drive
+   through loopback HTTP at config2 (128^3, 512x512, 32 frames) and config4
+   (256^3, 1920x1080, shadows, 16 frames), the counts set to 0 before each:
+   K1 launches once per frame rendered, no frame fails, the mouse moves the
+   state; the last served frame equal to render_image at its state and
+   plan bit for bit and within 1 level of the plain version's frame; fps,
+   ms per frame, warm-up, the force_dims probe's seconds, plan-cache
+   misses, PNG bytes; then on each served renderer a walk of 8 lattice
+   states: the plan-cache miss's latency, the synchronizing calls while a
+   cached state is dispatched (torch.cuda.set_sync_debug_mode), a loop of
+   render_frame() against the FrameLoop's pace with two frames in flight,
+   one frame split into dispatch, device, fetch and PNG encode, a plan's
+   device bytes; `cli animate --preset config4 --orbit --frames 8 --video
+   x.apng` at full width (8 launches, 8 PNGs, per-frame seconds and plan
+   seconds, frame 0 equal to render_image with the forced-dims plan and
+   within 1 level of the plain version's), and `cli animate --preset
+   reference --frames 2` (no launch: the per-ray march);
+22. prints a JSON line of kernel results (each kernel's launches on the
    main paths, error, time, plain version's time, and the least time the
    card could take for the same work, each also for the light variant and
    for the bfloat16 mode; the share of the bound; the registers of each
@@ -2373,6 +2391,446 @@ def preset_front_end(dev, out_dir):
     return paths, errs
 
 
+# --- the viewer front end: serve and animate (step 21) -------------------
+
+# serve.py's self-drive through the real HTTP stack on loopback: preset and
+# frames served after the warm-up.
+SERVE_RUNS = (("config2", 32), ("config4", 16))
+# The walk of lattice states that times what two frames in flight buy:
+# states (azimuth steps, opposite the served ones, so first visits are
+# plan-cache misses) and frames per timed loop.
+WALK_STATES, WALK_FRAMES = 8, 24
+ANIMATE_FRAMES = 8
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ServeSpy:
+    """For the time of a `with` block, serve.py's InteractiveRenderer and
+    FrameLoop are subclasses that record the renderer serve() builds, the
+    lattice state of each frame it dispatches in order (the state
+    _plan_cached is given) with the host time of each plan-cache miss, and
+    the last frame a FrameLoop handed to a viewer with its sequence number
+    (frame seq is the seq-th dispatch) and the clock of every frame handed
+    out; error records the package logs (a frame that failed) are kept
+    too."""
+
+    def __init__(self, module):
+        self.module = module
+        self.renderer, self.states, self.served = None, [], None
+        self.misses, self.handed, self.errors = [], [], []
+
+    def __enter__(self):
+        import logging
+        spy, mod = self, self.module
+        self.classes = (mod.InteractiveRenderer, mod.FrameLoop)
+
+        class Renderer(self.classes[0]):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                spy.renderer = self
+
+            def _plan_cached(self, az, el, d):
+                spy.states.append((az, el, d))
+                before, t0 = self.plan_cache_misses, time.perf_counter()
+                plan = super()._plan_cached(az, el, d)
+                if self.plan_cache_misses != before:
+                    spy.misses.append((t0, time.perf_counter() - t0))
+                return plan
+
+        class Loop(self.classes[1]):
+            def next_frame(self, after_seq, timeout=600.0):
+                seq, img = super().next_frame(after_seq, timeout)
+                spy.served = (seq, img)
+                spy.handed.append(time.perf_counter())
+                return seq, img
+
+        class Errors(logging.Handler):
+            def emit(self, record):
+                if record.levelno >= logging.ERROR:
+                    spy.errors.append(record.getMessage())
+
+        mod.InteractiveRenderer, mod.FrameLoop = Renderer, Loop
+        self.handler = Errors()
+        mod.get_logger().addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.module.InteractiveRenderer, self.module.FrameLoop = self.classes
+        self.module.get_logger().removeHandler(self.handler)
+
+
+def served_uint8(img):
+    """serve.py's frame conversion: RGB over the page background, uint8."""
+    from volumetricrenderer_tpu_torch.serve import _PAGE_BG
+    a = img[..., 3:4]
+    rgb = img[..., :3] * a + _PAGE_BG * (1.0 - a)
+    return torch.clamp(rgb * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+
+
+def plain_frame(grid, plan, cfg, medium, light):
+    """The frame of the plain version at a preset's shapes: the light
+    volume from the grid where the preset shades, sweep_fwd_reference on
+    the kernel's inputs (channel 0 of a (D, H, W, 1) grid), finish_image."""
+    g3 = grid[..., 0] if grid.dim() == 4 else grid
+    with torch.no_grad():
+        lvol = (light_transmittance_volume(g3, light, cfg, medium)
+                if cfg.emission and light.shadow_steps > 0 else None)
+        (stack, *args), flip = sweep_fwd.sweep_inputs(
+            g3.permute(plan.perm), plan, cfg, medium, light)
+        lstack = None if lvol is None else sweep_fwd.sweep_light_stack(
+            lvol.permute(plan.perm), plan, cfg).contiguous()
+        maps = sweep_fwd.sweep_fwd_reference(
+            stack.contiguous(), *args, emission=cfg.emission, flip=flip,
+            address_mode=cfg.address_mode, light=lstack)
+        return finish_image(maps, plan, cfg, medium, light)
+
+
+def count_syncs(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): returns (result,
+    ["file:line" of each synchronizing call])."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                 if "synchronizing CUDA operation" in str(w.message)]
+
+
+def plan_bytes(plan):
+    """Device bytes of a sweep plan's tensors."""
+    return sum(t.numel() * t.element_size()
+               for t in (getattr(plan, f.name)
+                         for f in dataclasses.fields(plan))
+               if isinstance(t, torch.Tensor))
+
+
+def serve_cell(name, n_frames, gpu_line):
+    """serve(PRESETS[name], frames=n_frames) on the card through loopback
+    HTTP, counted from 0: K1 must launch once per frame rendered and no
+    frame may fail; the last served frame is held to render_image at its
+    state and plan (bit for bit) and to the plain version's frame (within
+    1 level). Returns (renderer, result, launches, errors)."""
+    from volumetricrenderer_tpu_torch import PRESETS
+    from volumetricrenderer_tpu_torch import serve as serve_mod
+    preset = PRESETS[name]
+    reset_counts()
+    with ServeSpy(serve_mod) as spy:
+        t0 = time.perf_counter()
+        res = serve_mod.serve(preset, port=free_port(), frames=n_frames,
+                              device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = path_counts(f"serve {name}")
+    r = spy.renderer
+    if spy.errors:
+        fail(f"serve {name}: a frame failed: {spy.errors[0]}")
+    if not res["mouse_drag_wheel_ok"]:
+        fail(f"serve {name}: the mouse drag and wheel moved no state")
+    if launches != (r.frames_rendered, 0, 0, 0) \
+            or r.frames_rendered < n_frames + 10:
+        fail(f"serve {name}: launches {launches} for {r.frames_rendered} "
+             "frames rendered")
+    log(f"serve {name} result: {json.dumps(res)}")
+    # serve()'s self-drive hands out 10 warm-up frames (the first, one per
+    # key, one after the mouse) before its timed loop; the drag and the
+    # wheel move the state, so the loop's keys can reach states the
+    # warm-up never planned.
+    t_timed = spy.handed[9]
+    timed_misses = [dt for t, dt in spy.misses if t > t_timed]
+    # The timed loop's rate without its plan builds (the self-drive's
+    # rounded ms_per_frame, less the misses' host time).
+    steady_ms = res["ms_per_frame"] - sum(timed_misses) * 1e3 / n_frames
+    log(f"[{gpu_line}] serve {name} ({preset.volume.size}^3, "
+        f"{preset.camera.width}x{preset.camera.height}, shadow_steps "
+        f"{preset.light.shadow_steps}): {res['fps']} fps, "
+        f"{res['ms_per_frame']} ms per frame over {n_frames} frames through "
+        f"HTTP, warm-up {res['warmup_s']} s, force_dims probe "
+        f"{r.probe_seconds:.3f} s (base dims {r.force_dims}), "
+        f"{res['plan_cache_misses']} plan-cache misses ({len(timed_misses)} "
+        f"in the timed loop, {sum(timed_misses):.3f} s of plan build: "
+        f"{steady_ms:.1f} ms per frame without them), PNG "
+        f"{res['png_bytes_mean']} bytes mean, {r.frames_rendered} frames "
+        f"rendered = K1 launches {launches[0]}, mouse_drag_wheel_ok "
+        f"{res['mouse_drag_wheel_ok']}, wall {wall:.2f} s")
+    seq, img = spy.served
+    az, el, d = spy.states[seq - 1]
+    final = res["final_state"]
+    at_final = (round(az, 3), round(el, 3), round(d, 3)) == (
+        final["azim"], final["elev"], final["dist"])
+    plan = r._plan_cache[(round(az, 6), round(el, 6), round(d, 6))]
+    with torch.no_grad():
+        want = render_image(r.grid, None, r.cfg, r.medium, r.light,
+                            plan=plan, backend="sweep")
+    plain = plain_frame(r.grid, plan, r.cfg, r.medium, r.light)
+    e = check_close(want, plain, f"serve {name} last served frame")
+    if not np.array_equal(img, served_uint8(want).cpu().numpy()):
+        fail(f"serve {name}: the last served frame (seq {seq}) is not "
+             "render_image's at its state and plan")
+    levels = int(np.abs(img.astype(np.int32) - served_uint8(plain).cpu()
+                        .numpy().astype(np.int32)).max())
+    if levels > 1:
+        fail(f"serve {name}: the last served frame is {levels} levels from "
+             "the plain version's")
+    # The loop hands out its newest frame, which may have been dispatched
+    # before the last key: hold a frame at the final state itself too.
+    final_frame = r.render_frame()
+    final_plan = r._plan_cached(r.azim, r.elev, r.dist)
+    with torch.no_grad():
+        want = render_image(r.grid, None, r.cfg, r.medium, r.light,
+                            plan=final_plan, backend="sweep")
+    now = r.state()
+    if any(now[k] != final[k] for k in ("azim", "elev", "dist")) \
+            or not np.array_equal(
+            final_frame, served_uint8(want).cpu().numpy()):
+        fail(f"serve {name}: the frame at the final state is not "
+             "render_image's")
+    log(f"serve {name}: last served frame (seq {seq}, state az {az:.4f} el "
+        f"{el:.4f} d {d:.4f}, the final state: {at_final}) equals "
+        f"render_image bit for bit; {levels} level(s) from the plain "
+        f"version's frame (float frame max abs err {e:.3e}); a frame "
+        "rendered at the final state equals render_image's too")
+    return r, res, launches, e
+
+
+def in_flight_timings(r, name, gpu_line):
+    """On the served renderer: a walk of WALK_STATES azimuth steps opposite
+    the served states. First visits: the plan-cache miss (plan build, then
+    the frame) and the syncs of each; then, all cached, the syncs of each
+    dispatch, a loop of render_frame() (dispatch + fetch each), the
+    FrameLoop's pace through next_frame without HTTP (two frames in
+    flight), and one frame split into dispatch (host), device, fetch and
+    PNG encode (medians over the walk). K1 launches once a frame."""
+    from volumetricrenderer_tpu_torch.serve import N_AZ, FrameLoop
+    from volumetricrenderer_tpu_torch.utils.image import encode_png
+    base = (r._az_idx + N_AZ // 2) % N_AZ
+
+    def goto(k):
+        r._az_idx = (base + k % WALK_STATES) % N_AZ
+
+    def state():
+        return r.azim, r.elev, r.dist
+
+    reset_counts()
+    plan_s, miss_s, miss_syncs, hits = [], [], [], 0
+    for k in range(WALK_STATES):
+        goto(k)
+        key = tuple(round(x, 6) for x in state())
+        hits += key in r._plan_cache
+        t0 = time.perf_counter()
+        plan, syncs = count_syncs(lambda: r._plan_cached(*state()))
+        t1 = time.perf_counter()
+        r.render_frame()
+        t2 = time.perf_counter()
+        plan_s.append(t1 - t0)
+        miss_s.append(t2 - t0)
+        miss_syncs += syncs
+    nbytes = plan_bytes(plan)
+    cached_syncs = []
+    for k in range(WALK_STATES):
+        goto(k)
+        pending, syncs = count_syncs(r.dispatch_frame)
+        pending.fetch()
+        cached_syncs += syncs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(WALK_FRAMES):
+        goto(k)
+        r.render_frame()
+    sync_ms = (time.perf_counter() - t0) / WALK_FRAMES * 1e3
+
+    class Walker:
+        frames_rendered = 0
+
+        def dispatch_frame(self):
+            goto(self.frames_rendered)
+            self.frames_rendered += 1
+            return r.dispatch_frame()
+
+    walker = Walker()
+    loop = FrameLoop(walker)
+    try:
+        seq0, _ = loop.next_frame(0, timeout=120)
+        t0 = time.perf_counter()
+        seq = seq0
+        while seq < seq0 + WALK_FRAMES:
+            seq, _ = loop.next_frame(seq, timeout=120)
+        loop_ms = (time.perf_counter() - t0) / (seq - seq0) * 1e3
+    finally:
+        loop.stop()
+    if loop.thread.is_alive():
+        fail(f"{name}: the frame loop did not stop")
+    split = {"dispatch": [], "device": [], "fetch": [], "encode": []}
+    for k in range(WALK_STATES):
+        goto(k)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        pending = r.dispatch_frame()
+        t1 = time.perf_counter()
+        e1.record()
+        img = pending.fetch()
+        t2 = time.perf_counter()
+        encode_png(img, level=1)
+        t3 = time.perf_counter()
+        e1.synchronize()
+        split["dispatch"].append((t1 - t0) * 1e3)
+        split["device"].append(e0.elapsed_time(e1))
+        split["fetch"].append((t2 - t1) * 1e3)
+        split["encode"].append((t3 - t2) * 1e3)
+    torch.cuda.synchronize()
+    n_frames = 2 * WALK_STATES + WALK_FRAMES + walker.frames_rendered \
+        + WALK_STATES
+    walk_launches = path_counts(f"serve {name} walk")
+    if walk_launches != (n_frames, 0, 0, 0):
+        fail(f"{name} walk: launches {walk_launches} for {n_frames} frames")
+    med = {k: statistics.median(v) for k, v in split.items()}
+    log(f"[{gpu_line}] serve {name} walk of {WALK_STATES} states: "
+        f"plan-cache miss {statistics.median(miss_s) * 1e3:.1f} ms median "
+        f"({min(miss_s) * 1e3:.1f}-{max(miss_s) * 1e3:.1f}; plan build "
+        f"{statistics.median(plan_s) * 1e3:.1f} ms of it; {hits} of the "
+        f"states were cached already), syncs in the misses' plan builds "
+        f"{len(miss_syncs)} ({sorted(set(miss_syncs))})")
+    log(f"[{gpu_line}] serve {name} cached states: synchronizing calls "
+        f"while dispatching {len(cached_syncs)} in {WALK_STATES} frames "
+        f"({sorted(set(cached_syncs))}); render_frame() loop "
+        f"{sync_ms:.3f} ms per frame; FrameLoop pace (two in flight, no "
+        f"HTTP) {loop_ms:.3f} ms per frame over {seq - seq0} frames; split "
+        f"of one frame: dispatch (host) {med['dispatch']:.3f} ms, device "
+        f"{med['device']:.3f} ms, fetch {med['fetch']:.3f} ms, PNG encode "
+        f"{med['encode']:.3f} ms (medians); a plan's device bytes "
+        f"{nbytes} ({nbytes * 512 / 2 ** 30:.3f} GiB at the 512-plan cap); "
+        f"K1 launches {walk_launches[0]} = frames {n_frames}")
+    return {"miss_ms": statistics.median(miss_s) * 1e3,
+            "plan_ms": statistics.median(plan_s) * 1e3,
+            "syncs_cached": len(cached_syncs), "syncs_miss": len(miss_syncs),
+            "sync_ms": sync_ms, "loop_ms": loop_ms, "split": med,
+            "plan_bytes": nbytes}
+
+
+def animate_cells(dev, out_dir, gpu_line):
+    """`cli animate --preset config4 --orbit --frames ANIMATE_FRAMES` at
+    full width with --video x.apng, counted from 0 (one K1 launch a frame,
+    a PNG each), its metrics.jsonl's per-frame seconds and plan seconds,
+    frame 0 against render_image with the forced-dims plan (the PNG's
+    bytes) and within 1 level of the plain version's frame; then `cli
+    animate --preset reference --frames 2`, the per-ray march (no launch).
+    The frames go to a temporary directory (eight 1080p PNGs and their
+    APNG are larger than --out should hold); metrics.jsonl is kept in
+    out_dir. Returns (launches, error)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return _animate_cells(dev, out_dir, gpu_line, tmp)
+
+
+def _animate_cells(dev, out_dir, gpu_line, tmp):
+    import shutil
+
+    from volumetricrenderer_tpu_torch import PRESETS, cli
+    from volumetricrenderer_tpu_torch.ops.sweep import plan_sweep
+    from volumetricrenderer_tpu_torch.utils.image import encode_png
+    adir = os.path.join(tmp, "config4")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["animate", "--preset", "config4", "--orbit", "--frames",
+                   str(ANIMATE_FRAMES), "--out-dir", adir, "--video",
+                   "x.apng"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_counts("cli animate --preset config4 --orbit")
+    pngs = [f for f in os.listdir(adir)
+            if f.startswith("frame_") and f.endswith(".png")]
+    if rc != 0 or launches != (ANIMATE_FRAMES, 0, 0, 0) \
+            or len(pngs) != ANIMATE_FRAMES \
+            or not os.path.getsize(os.path.join(adir, "x.apng")):
+        fail(f"cli animate --preset config4: rc {rc}, launches {launches}, "
+             f"{len(pngs)} PNGs")
+    shutil.copy(os.path.join(adir, "metrics.jsonl"), os.path.join(
+        out_dir, "chip_smoke_animate_config4_metrics.jsonl"))
+    with open(os.path.join(adir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    frames = [m for m in lines if "frame" in m]
+    dims = tuple(next(m["base_dims"] for m in lines if "base_dims" in m))
+    log(f"[{gpu_line}] cli animate --preset config4 --orbit --frames "
+        f"{ANIMATE_FRAMES} --video x.apng: wall {wall:.2f} s, base dims "
+        f"{dims}, launches {launches}; per frame seconds "
+        + ", ".join(f"{m['seconds']:.3f}" for m in frames)
+        + " of which plan build " +
+        ", ".join(f"{m['plan_seconds']:.3f}" for m in frames))
+    p = PRESETS["config4"]
+    grid = build_volume(p.volume, device=dev)
+    cam = orbit_camera(0.0, fov_y_degrees=p.camera.fov_y_degrees,
+                       width=p.camera.width, height=p.camera.height)
+    plan = plan_sweep(cam, grid.shape[:3], p.render,
+                      supersample=p.render.sweep_supersample,
+                      force_base_dims=dims, device=dev)
+    with torch.no_grad():
+        img = render_image(grid, None, p.render, p.medium, p.light,
+                           plan=plan, backend="sweep")
+    plain = plain_frame(grid, plan, p.render, p.medium, p.light)
+    e = check_close(img, plain, "animate config4 frame 0")
+
+    def u8(x):
+        return torch.clamp(x * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8) \
+            .cpu().numpy()
+    with open(os.path.join(adir, "frame_00000.png"), "rb") as f:
+        if f.read() != encode_png(u8(img)):
+            fail("cli animate --preset config4: frame 0 is not render_image"
+                 "'s with the forced-dims plan")
+    levels = int(np.abs(u8(img).astype(np.int32)
+                        - u8(plain).astype(np.int32)).max())
+    if levels > 1:
+        fail(f"cli animate frame 0 is {levels} levels from the plain "
+             "version's")
+    log(f"cli animate config4 frame 0 (base {plan.base_shape}) equals "
+        f"render_image with the forced-dims plan; {levels} level(s) from "
+        f"the plain version's frame (float max abs err {e:.3e})")
+    rdir = os.path.join(tmp, "reference")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["animate", "--preset", "reference", "--frames", "2",
+                   "--out-dir", rdir])
+    torch.cuda.synchronize()
+    ref_launches = path_counts("cli animate --preset reference")
+    if rc != 0 or ref_launches != (0, 0, 0, 0) or not os.path.exists(
+            os.path.join(rdir, "frame_00001.png")):
+        fail(f"cli animate --preset reference: rc {rc}, launches "
+             f"{ref_launches}")
+    log(f"[{gpu_line}] cli animate --preset reference --frames 2: wall "
+        f"{time.perf_counter() - t0:.2f} s, launches {ref_launches} (the "
+        "per-ray march)")
+    return launches, e
+
+
+def front_end(dev, out_dir, gpu_line):
+    """Step 21: the viewer front end on the card (serve_cell,
+    in_flight_timings and animate_cells). Returns ([launch tuples of the
+    counted paths], [errors of K1's frames])."""
+    paths, errs = [], []
+    for name, n_frames in SERVE_RUNS:
+        r, _, launches, e = serve_cell(name, n_frames, gpu_line)
+        paths.append(launches)
+        errs.append(e)
+        in_flight_timings(r, name, gpu_line)
+        del r
+    launches, e = animate_cells(dev, out_dir, gpu_line)
+    paths.append(launches)
+    errs.append(e)
+    return paths, errs
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None,
@@ -2741,7 +3199,12 @@ def main(argv=None):
     preset_paths, e_preset = preset_front_end(dev, out_dir)
     low_errs.append(e_preset)
 
-    # 21. Results. No single PyTorch call marches a carried, gated slice
+    # 21. The viewer front end: serve and animate.
+    front_paths, e_front = front_end(dev, out_dir, gpu_line)
+    low_errs.append({"sweep_fwd": e_front, "sweep_bwd": [],
+                     "sweep_ref_fwd": [], "sweep_ref_bwd": []})
+
+    # 22. Results. No single PyTorch call marches a carried, gated slice
     # sweep (grid_sample does one slice's taps only), so library_ms is null.
     times = {"sweep_fwd": (kernel_ms, plain_ms),
              "sweep_bwd": (bwd_ms, bwd_plain_ms),
@@ -2756,8 +3219,10 @@ def main(argv=None):
         launches_light = sum(path[k] for path in light_paths)
         launches_low = sum(path[k] for path in low_paths)
         launches_preset = sum(path[k] for path in preset_paths)
+        launches_front = sum(path[k] for path in front_paths)
         launches_f32 = sum(path[k] for path in main_paths) + launches_light
-        launches = launches_f32 + launches_low + launches_preset
+        launches = launches_f32 + launches_low + launches_preset \
+            + launches_front
         if launches_f32 - launches_light < 1 or launches_light < 1 \
                 or launches_low < 1:
             fail(f"{name}: no launch on a main path ({launches} in all, "
@@ -2786,7 +3251,8 @@ def main(argv=None):
             f"ms (float32 {lt['f32_light']:.3f} ms) against "
             f"{bound_low_l:.4f} ms ({by_low_l}: {flops_l:.4g} float "
             f"operations, {nbytes_l:.4g} bytes); {launches_low} launches on "
-            f"the bfloat16 main paths, {launches_preset} on the presets'")
+            f"the bfloat16 main paths, {launches_preset} on the presets', "
+            f"{launches_front} on serve's and animate's")
         log(f"[{gpu_line}] {name} share of its bound: float32 "
             f"{bound_ms / ms:.4f}, with light {bound_l / ms_l:.4f}, bfloat16 "
             f"{bound_low / lt['ms']:.4f}, bfloat16 with light "
@@ -2825,6 +3291,7 @@ def main(argv=None):
             "bound_ms_light": bound_l,
             "bound_by_light": by_l,
             "launches_bf16": launches_low,
+            "launches_front_end": launches_front,
             "ms_bf16": lt["ms"],
             "ms_bf16_light": lt["ms_light"],
             "plain_ms_bf16": lt["plain_ms"],

@@ -1363,3 +1363,219 @@ def test_fit_grid_numpy_target_runs_on_the_gpu(cuda):
     assert (sweep_fwd.launches, sweep_bwd.launches) == (before[0] + 3,
                                                         before[1] + 3)
     assert all(np.isfinite(res.losses)) and res.skipped_steps == 0
+
+
+# --- K1's and K2's static shared memory in the 48 KB opt-in check --------
+
+# A block may use 48 KB of shared memory, static and dynamic together,
+# without opting in. K1 and K2 hold 32 + 32 Line records of 16 bytes
+# statically (csrc/sweep_tile.cuh kStaticSmem); a stage whose dynamic bytes
+# land in (48 KB - 1 KB, 48 KB] is refused at launch unless the launcher
+# counts them.
+SMEM_DEFAULT = 48 * 1024
+LINE_SMEM = (32 + 32) * 16
+
+
+def _stage_in_band(S, backward, light):
+    """The stage (texel slots a window buffer) whose launch takes the most
+    dynamic shared memory that is still at most 48 KB."""
+    from volumetricrenderer_tpu_torch.kernels import build
+    buffers = build.stage_buffers(backward, light)
+    cap = (SMEM_DEFAULT - 16 * S) // (4 * buffers)
+    assert build.stage_cap(cap, buffers) == cap
+    assert SMEM_DEFAULT - LINE_SMEM < 16 * S + 4 * buffers * cap \
+        <= SMEM_DEFAULT
+    return cap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("light", [False, True])
+def test_stage_in_the_static_shared_memory_band(cuda, light):
+    """K1 and K2, float32, with a stage in the band that the launchers
+    refused before they counted their static shared memory: they launch
+    and match their plain versions."""
+    grid, cfg, plan, medium = _setup(cuda, EYES[0][0], True)
+    (stack, *args), flip = sweep_fwd.sweep_inputs(
+        grid.permute(plan.perm), plan, cfg, medium, LIGHT)
+    stack = stack.contiguous()
+    lstack = None
+    if light:
+        lstack = sweep_fwd.sweep_light_stack(
+            _light_volume(grid, cfg, medium, "pushed").permute(plan.perm),
+            plan, cfg).contiguous()
+    S = stack.shape[0]
+    maps = sweep_fwd.launch_kernel(stack, *args, True, flip, False, lstack,
+                                   stage=_stage_in_band(S, False, light))
+    rng = np.random.default_rng(9)
+    cts = [torch.tensor(rng.normal(size=plan.base_shape), dtype=torch.float32,
+                        device=cuda) for _ in range(3)]
+    got = sweep_bwd.launch_kernel(stack, *args, *cts, maps[1], maps[2], True,
+                                  flip, False, light=lstack,
+                                  stage=_stage_in_band(S, True, light))
+    torch.cuda.synchronize()
+    kw = dict(emission=True, flip=flip, address_mode="mirror", light=lstack)
+    want_maps = sweep_fwd.sweep_fwd_reference(stack, *args, **kw)
+    want = sweep_bwd.sweep_bwd_reference(stack, *args, *cts, maps[1],
+                                         maps[2], **kw)
+    for g, w, n in zip(maps, want_maps, NAMES):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=n)
+    for g, w in zip(got if light else (got,), want if light else (want,)):
+        _assert_grad_close(g, w)
+
+
+# --- the viewer front end on the card: serve and animate ------------------
+
+
+def _front_preset(name, size=32, width=96, height=64):
+    import dataclasses
+
+    from volumetricrenderer_tpu_torch import get_preset
+    p = get_preset(name)
+    return dataclasses.replace(
+        p, volume=dataclasses.replace(p.volume, size=size),
+        camera=dataclasses.replace(p.camera, width=width, height=height))
+
+
+def _served_uint8(img):
+    """serve.py's conversion: RGB over the page background, to uint8."""
+    from volumetricrenderer_tpu_torch.serve import _PAGE_BG
+    a = img[..., 3:4]
+    rgb = img[..., :3] * a + _PAGE_BG * (1.0 - a)
+    return torch.clamp(rgb * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8) \
+        .cpu().numpy()
+
+
+def _frame_of_state(r):
+    """render_image at the renderer's current state and cached plan."""
+    from volumetricrenderer_tpu_torch import render_image
+    plan = r._plan_cached(r.azim, r.elev, r.dist)
+    with torch.no_grad():
+        return render_image(r.grid, None, r.cfg, r.medium, r.light,
+                            plan=plan, backend="sweep")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["config2", "config4"])
+def test_render_frame_is_render_image_in_uint8(cuda, name):
+    from volumetricrenderer_tpu_torch.serve import InteractiveRenderer
+    r = InteractiveRenderer(_front_preset(name), probe=4, device=cuda)
+    r.key(" ")  # pause the media clock
+    for keys in ("", "dq", "ww"):
+        for k in keys:
+            r.key(k)
+        before = sweep_fwd.launches
+        got = r.render_frame()
+        assert sweep_fwd.launches == before + 1
+        assert got.shape == (64, 96, 3) and got.dtype == np.uint8
+        assert np.array_equal(got, _served_uint8(_frame_of_state(r)))
+
+
+@pytest.mark.gpu
+def test_cached_frame_dispatch_does_not_synchronize(cuda):
+    """A frame at a state whose plan is cached enqueues its work and its
+    copy to the host without waiting for the device."""
+    from volumetricrenderer_tpu_torch.serve import InteractiveRenderer
+    r = InteractiveRenderer(_front_preset("config4"), probe=4, device=cuda)
+    want = r.render_frame()  # builds the plan and the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = r.dispatch_frame()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.array_equal(pending.fetch(), want)
+
+
+class _Cycling:
+    """Dispatches the k-th frame at azimuth lattice step k % n."""
+
+    def __init__(self, renderer, n):
+        self.r, self.n, self.frames_rendered = renderer, n, 0
+
+    def dispatch_frame(self):
+        self.r._az_idx = self.frames_rendered % self.n
+        self.frames_rendered += 1
+        return self.r.dispatch_frame()
+
+
+@pytest.mark.gpu
+def test_frameloop_frames_arrive_in_order_and_unaltered(cuda):
+    """Four states dispatched back to back through the FrameLoop, two
+    frames in flight: every served frame is its own state's frame, in
+    dispatch order, and stays so while later frames are copied."""
+    from volumetricrenderer_tpu_torch.serve import FrameLoop, \
+        InteractiveRenderer
+    r = InteractiveRenderer(_front_preset("config2"), probe=4, device=cuda)
+    r.key(" ")
+    want = []
+    for k in range(4):
+        r._az_idx = k
+        want.append(r.render_frame().copy())
+    assert all(np.abs(want[k].astype(int) - want[0].astype(int)).max() > 0
+               for k in (1, 2, 3))
+    loop = FrameLoop(_Cycling(r, 4))
+    served = []
+    try:
+        seq = 0
+        for _ in range(12):
+            seq, img = loop.next_frame(seq, timeout=60)
+            served.append((seq, img, img.copy()))
+    finally:
+        loop.stop()
+    assert not loop.thread.is_alive()
+    seqs = [s for s, _, _ in served]
+    assert seqs == sorted(set(seqs))
+    for s, img, copy in served:
+        assert np.array_equal(img, copy)  # not overwritten since
+        assert np.array_equal(img, want[(s - 1) % 4]), s
+
+
+def _read_png(path):
+    """Decode an 8-bit PNG of utils/image.write_png (one IDAT, filter 0)."""
+    import struct
+    import zlib
+    data = open(path, "rb").read()
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        chunks.setdefault(tag, data[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    w, h, _, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    c = {0: 1, 2: 3, 6: 4}[color]
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8) \
+        .reshape(h, 1 + w * c)
+    return rows[:, 1:].reshape(h, w, c)
+
+
+@pytest.mark.gpu
+def test_cli_animate_on_the_card_writes_render_image_frames(cuda, tmp_path):
+    """`cli animate --device cuda` (config 4, shadows, orbit) launches K1
+    once a frame and writes render_image's frames at the path's forced
+    base dims."""
+    import math
+
+    from volumetricrenderer_tpu_torch import build_volume, cli, \
+        orbit_camera, render_image
+    from volumetricrenderer_tpu_torch.ops.sweep import plan_sweep
+    out = tmp_path / "anim"
+    before = sweep_fwd.launches
+    assert cli.main(["animate", "--preset", "config4", "--volume-size",
+                     "32", "--width", "96", "--height", "64", "--frames",
+                     "3", "--orbit", "--out-dir", str(out), "--device",
+                     "cuda"]) == 0
+    assert sweep_fwd.launches == before + 3
+    p = _front_preset("config4")
+    grid = build_volume(p.volume, device=cuda)
+    cams = [orbit_camera(2 * math.pi * i / 3, width=96, height=64)
+            for i in range(3)]
+    dims = cli.animation_base_dims(cams, grid.shape[:3], p.render)
+    for i, cam in enumerate(cams):
+        plan = plan_sweep(cam, grid.shape[:3], p.render,
+                          supersample=p.render.sweep_supersample,
+                          force_base_dims=dims, device=cuda)
+        with torch.no_grad():
+            img = render_image(grid, None, p.render, p.medium, p.light,
+                               plan=plan, backend="sweep")
+        want = torch.clamp(img * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+        assert np.array_equal(_read_png(out / f"frame_{i:05d}.png"),
+                              want.cpu().numpy()), i

@@ -25,6 +25,8 @@ def test_sources_import_no_jax():
             "volumetricrenderer_tpu_torch/ops/media.py",
             "volumetricrenderer_tpu_torch/utils/clock.py",
             "volumetricrenderer_tpu_torch/utils/sanitize.py",
+            "volumetricrenderer_tpu_torch/serve.py",
+            "volumetricrenderer_tpu_torch/utils/video.py",
             "chip_smoke.py", "kernel_ab.py"} <= names
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -105,6 +107,18 @@ def test_port_imports_and_renders_without_jax():
                          out + "/frame.png", "--device", "cpu",
                          "--check-nan"]) == 0
         assert cli.main(["info", "--device", "cpu"]) == 0
+        # the viewer front end: animate with a video, and a served frame
+        assert cli.main(["animate", "--preset", "config4", "--volume-size",
+                         "8", "--width", "12", "--height", "8", "--frames",
+                         "2", "--orbit", "--out-dir", out + "/anim",
+                         "--video", "a.html", "--device", "cpu"]) == 0
+        from volumetricrenderer_tpu_torch.serve import InteractiveRenderer
+        p = T.get_preset("config2")
+        p = dataclasses.replace(
+            p, volume=dataclasses.replace(p.volume, size=8),
+            camera=dataclasses.replace(p.camera, width=12, height=8))
+        frame = InteractiveRenderer(p, probe=1, device="cpu").render_frame()
+        assert frame.shape == (8, 12, 3) and frame.dtype.name == "uint8"
         assert not any(k in ("jax", "optax")
                        or k.startswith(("jax.", "jaxlib", "optax."))
                        for k, v in sys.modules.items() if v is not None)

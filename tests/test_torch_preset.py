@@ -422,8 +422,12 @@ def test_cli_info(capsys):
     ["info"],
     ["render", "--preset", "config1", "--volume-size", "8", "--width", "8",
      "--height", "8"],
-    ["fit", "--size", "6", "--image-size", "8", "--steps", "1"]],
-    ids=["info", "render", "fit"])
+    ["fit", "--size", "6", "--image-size", "8", "--steps", "1"],
+    ["animate", "--preset", "config1", "--volume-size", "8", "--width",
+     "8", "--height", "8", "--frames", "1"],
+    ["serve", "--preset", "config1", "--selftest-frames", "1", "--port",
+     "0"]],
+    ids=["info", "render", "fit", "animate", "serve"])
 def test_cli_default_device_fails_without_a_gpu(tmp_path, monkeypatch, args):
     """--device defaults to cuda on every subcommand; with no GPU and no
     --device cpu the command fails with torch's own error instead of
@@ -431,11 +435,12 @@ def test_cli_default_device_fails_without_a_gpu(tmp_path, monkeypatch, args):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
     monkeypatch.chdir(tmp_path)
-    if args[0] == "fit":
+    if args[0] in ("fit", "animate"):
         args = args + ["--out-dir", str(tmp_path / "run")]
     with pytest.raises((RuntimeError, AssertionError)):
         cli.main(args)
     assert not (tmp_path / "frame.png").exists()
+    assert not list(tmp_path.rglob("*.png"))
 
 
 def test_checked_names_the_first_nonfinite_output():

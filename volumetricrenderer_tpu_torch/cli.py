@@ -1,9 +1,12 @@
-"""Command-line entry point of the PyTorch port (port of the `render`,
-`fit` and `info` subcommands of volumetricrenderer_tpu/cli.py).
+"""Command-line entry point of the PyTorch port (port of
+volumetricrenderer_tpu/cli.py).
 
 Usage:
   python -m volumetricrenderer_tpu_torch render --preset config2 \
       --out frame.png
+  python -m volumetricrenderer_tpu_torch animate --preset config4 \
+      --frames 48 --orbit --out-dir frames/
+  python -m volumetricrenderer_tpu_torch serve --preset config2
   python -m volumetricrenderer_tpu_torch fit --size 32 --steps 100 \
       --out-dir fit_run/
   python -m volumetricrenderer_tpu_torch info
@@ -11,8 +14,6 @@ Usage:
 Every subcommand takes --device, "cuda" by default: the sweep kernels
 forward and backward. Without a GPU the command fails with torch's own
 error; only --device cpu runs the kernels' plain versions on the CPU.
-
-The JAX package's other subcommands (animate, serve) are not ported yet.
 """
 from __future__ import annotations
 
@@ -125,6 +126,134 @@ def cmd_render(args):
     return 0
 
 
+def animation_base_dims(cameras, grid_shape, cfg):
+    """The base dims every frame of an animated camera path is planned at:
+    each frame's natural dims probed on the host (plan_base_dims), the
+    largest of each taken for all, as the JAX animate plans its frames.
+    Forcing the dims changes a frame slightly (the base grid resamples its
+    rays), so the port keeps it to return the JAX package's frames. Raises
+    ValueError when a camera has no sweep axis."""
+    from .ops.sweep import plan_base_dims
+    dims = [plan_base_dims(c, grid_shape, cfg,
+                           supersample=cfg.sweep_supersample)
+            for c in cameras]
+    return max(d[0] for d in dims), max(d[1] for d in dims)
+
+
+def cmd_animate(args):
+    import math
+    import time
+
+    import torch
+
+    from .models.scene import build_volume
+    from .ops.camera import make_camera, orbit_camera
+    from .ops.integrate import reference_media_scroll
+    from .ops.sweep import plan_sweep
+    from .render import render_image
+    from .utils.clock import Clock
+    from .utils.image import AsyncFrameWriter
+    from .utils.metrics import MetricsWriter, get_logger
+
+    dev = torch.device(args.device)
+    preset = _resolve_preset(args)
+    os.makedirs(args.out_dir, exist_ok=True)
+    medium = preset.medium
+    if preset.scene:
+        # A multi-volume preset (config 3): bake the scene once through the
+        # helper render_scene uses, so `render` and `animate` show the same
+        # content.
+        from .models import scene as scene_mod
+        from .render import prepare_baked_scene
+        volumes = getattr(scene_mod, preset.scene)(preset.volume.size,
+                                                   device=dev)
+        grid, medium, _ = prepare_baked_scene(volumes, preset.render,
+                                              medium)
+    else:
+        grid = build_volume(preset.volume, device=dev)
+    n_ch = grid.shape[-1] if grid.dim() == 4 else 1
+    metrics = MetricsWriter(os.path.join(args.out_dir, "metrics.jsonl"))
+    log = get_logger()
+
+    def camera_at(i):
+        if args.orbit:
+            return orbit_camera(2 * math.pi * i / args.frames,
+                                fov_y_degrees=preset.camera.fov_y_degrees,
+                                width=preset.camera.width,
+                                height=preset.camera.height)
+        return make_camera(preset.camera)
+
+    cfg, light = preset.render, preset.light
+    sliced = cfg.quadrature == "sliced" and args.backend in ("auto", "sweep")
+    dims = None
+    if sliced:
+        try:
+            dims = animation_base_dims(
+                [camera_at(i) for i in range(args.frames)], grid.shape[:3],
+                cfg)
+        except ValueError as e:
+            # One wide-FOV or diagonal frame must not abort the animation:
+            # match render_image's loud per-frame fallback instead.
+            log.warning(
+                "no sweep axis for at least one animation frame (%s); "
+                "falling back to the unplanned per-frame path: expect a "
+                "large slowdown", e)
+            sliced = False
+    if sliced:
+        log.info("animation: %d frames planned at base dims %s",
+                 args.frames, dims)
+
+    collected = [] if args.video else None
+    clock = Clock()
+    # PNG writes run on a thread pool, so disk IO overlaps the next frame.
+    with _MaybeProfile(args.profile_dir, dev), AsyncFrameWriter() as writer:
+        for i in range(args.frames):
+            t = i / args.fps
+            scroll = (reference_media_scroll(t, n_channels=n_ch, device=dev)
+                      if medium.combine == "reference" else None)
+            t0 = time.perf_counter()
+            plan = None
+            if sliced:
+                # Each frame's plan at the path's base dims, built when the
+                # frame is due (one plan on the device at a time).
+                plan = plan_sweep(camera_at(i), grid.shape[:3], cfg,
+                                  supersample=cfg.sweep_supersample,
+                                  force_base_dims=dims, device=dev)
+            plan_s = time.perf_counter() - t0
+            with torch.no_grad():
+                # The light volume, where the preset shades, is rebuilt by
+                # render_image from the grid and this frame's scroll.
+                img = render_image(grid, camera_at(i), cfg, medium, light,
+                                   scroll=scroll, plan=plan,
+                                   backend="sweep" if sliced
+                                   else args.backend)
+                # uint8 on the device: a quarter of the bytes to the host,
+                # the conversion utils.image.to_uint8 makes.
+                frame = torch.clamp(img * 255.0 + 0.5, 0.0, 255.0).to(
+                    torch.uint8)
+            arr = frame.cpu().numpy()
+            writer.write(os.path.join(args.out_dir, f"frame_{i:05d}.png"),
+                         arr)
+            if collected is not None:
+                collected.append(arr)
+            dt = clock.stamp()
+            metrics.write(frame=i, seconds=dt, plan_seconds=plan_s,
+                          fps=1.0 / max(dt, 1e-9),
+                          mrays_per_s=preset.camera.width
+                          * preset.camera.height / dt / 1e6)
+    if collected is not None:
+        from .utils.video import write_video
+        vpath = args.video if os.path.isabs(args.video) else os.path.join(
+            args.out_dir, args.video)
+        write_video(vpath, collected, fps=args.fps)
+        log.info("wrote animation to %s", vpath)
+    if sliced:
+        metrics.write(base_dims=list(dims))
+    metrics.close()
+    log.info("wrote %d frames to %s", args.frames, args.out_dir)
+    return 0
+
+
 def cmd_info(args):
     import torch
 
@@ -231,6 +360,29 @@ def cmd_fit(args):
     return 0
 
 
+def cmd_serve(args):
+    import json
+
+    from .config import get_preset
+    from .serve import serve
+    from .utils.metrics import get_logger
+
+    try:
+        preset = get_preset(args.preset)
+    except KeyError as e:
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        raise SystemExit(2)
+    result = serve(preset, port=args.port, frames=args.selftest_frames,
+                   host=args.host, device=args.device)
+    if result is not None:
+        print(json.dumps(result, indent=1))
+        if args.selftest_out:
+            with open(args.selftest_out, "w") as f:
+                json.dump(result, f, indent=1)
+        get_logger().info("interactive self-test complete")
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="volumetricrenderer_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -241,6 +393,19 @@ def main(argv=None):
                     help="animation time (drives the media scroll)")
     pr.add_argument("--out", default="frame.png")
     pr.set_defaults(fn=cmd_render)
+
+    pa = sub.add_parser("animate", help="render an animation frame sequence")
+    _add_common(pa)
+    pa.add_argument("--frames", type=int, default=24)
+    pa.add_argument("--fps", type=float, default=24.0)
+    pa.add_argument("--orbit", action="store_true",
+                    help="orbit camera path (config 4)")
+    pa.add_argument("--out-dir", default="frames")
+    pa.add_argument("--video", default=None,
+                    help="also write the sequence as one animation file: "
+                         ".apng (stdlib), .gif (Pillow), or .html "
+                         "(self-contained scrubber viewer)")
+    pa.set_defaults(fn=cmd_animate)
 
     pf = sub.add_parser("fit", help="inverse-render fit demo (config 3)")
     pf.add_argument("--size", type=int, default=32)
@@ -258,6 +423,23 @@ def main(argv=None):
                          "<out-dir>/ckpt")
     _add_device(pf)
     pf.set_defaults(fn=cmd_fit)
+
+    ps = sub.add_parser(
+        "serve", help="live interactive renderer over HTTP (keys and the "
+                      "mouse drive the camera, R/F the media clock)")
+    ps.add_argument("--preset", default="config2")
+    ps.add_argument("--port", type=int, default=8788)
+    ps.add_argument("--host", default="127.0.0.1",
+                    help="bind address; the server has no auth, so "
+                         "non-loopback exposure (0.0.0.0) is opt-in")
+    ps.add_argument("--selftest-frames", type=int, default=None,
+                    help="self-drive mode: send synthetic key events, "
+                         "fetch N frames through the HTTP stack, print "
+                         "a JSON fps report, exit")
+    ps.add_argument("--selftest-out", default=None,
+                    help="write the self-drive JSON report here")
+    _add_device(ps)
+    ps.set_defaults(fn=cmd_serve)
 
     pi = sub.add_parser("info", help="device + presets")
     _add_device(pi)

@@ -42,6 +42,7 @@ __all__ = ["NVCC_FLAGS", "build_library", "source_key",
            "ELEM_BF16", "TILE_ROWS", "TILE_COLS", "STAGE_BYTES_MAX",
            "tile_spans", "stage_texels", "stage_for", "stage_buffers",
            "stage_cap", "tile_slices", "TileTally", "IdentityCache",
+           "PLAN_CACHE_SIZE",
            "REF_MAX_SLOTS", "REF_ROUNDING", "ref_windows", "ref_tile_spans",
            "ref_stage_texels", "ref_tile_slices", "ref_stage_bound",
            "ref_stage_for", "ref_stage_cap"]
@@ -256,6 +257,12 @@ TILE_ROWS, TILE_COLS = 32, 32
 STAGE_BYTES_MAX = 96 * 1024
 
 
+# Plans a caller may keep and reuse (serve.py keeps this many on its
+# lattice): the per-plan caches of the launchers hold as many, so a reused
+# plan's launch reads nothing back from the device.
+PLAN_CACHE_SIZE = 512
+
+
 class IdentityCache:
     """Values computed from tensors, kept while those very tensors live:
     the key is their identity plus hashable extras, checked through weak
@@ -263,7 +270,7 @@ class IdentityCache:
     arrays are never written in place, so a value computed from them stays
     right. Holds at most `size` entries, dropping the oldest."""
 
-    def __init__(self, size=64):
+    def __init__(self, size=PLAN_CACHE_SIZE):
         self._entries, self._size = {}, size
 
     def get(self, tensors, extra, make):

@@ -270,14 +270,16 @@ int launch(const void* stack_v, const void* light_v, const float* slice_z,
       S, light ? 2 * (2 + tl::kGroups) : 2 + tl::kGroups, cap);
   cudaError_t err;
   if (light) {
-    err = tl::allow_smem(sweep_bwd_kernel<true, T>, smem);
+    err = tl::allow_smem(sweep_bwd_kernel<true, T>, smem,
+                           tl::kStaticSmem);
     if (err == cudaSuccess)
       sweep_bwd_kernel<true, T><<<grid, block, smem, st>>>(
           stack, light, slice_z, v_grid, u_grid, seglen, params, ct_acc,
           ct_trans, ct_wsum, trans_out, wsum_out, dstack, dlight, S, A, B,
           Hb, Wb, emission, flip, wrap, cap, counts);
   } else {
-    err = tl::allow_smem(sweep_bwd_kernel<false, T>, smem);
+    err = tl::allow_smem(sweep_bwd_kernel<false, T>, smem,
+                           tl::kStaticSmem);
     if (err == cudaSuccess)
       sweep_bwd_kernel<false, T><<<grid, block, smem, st>>>(
           stack, light, slice_z, v_grid, u_grid, seglen, params, ct_acc,

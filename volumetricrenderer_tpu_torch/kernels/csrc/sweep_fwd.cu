@@ -229,13 +229,15 @@ int launch(const void* stack_v, const void* light_v, const float* slice_z,
   const size_t smem = tl::smem_bytes(S, light ? 4 : 2, cap);
   cudaError_t err;
   if (light) {
-    err = tl::allow_smem(sweep_fwd_kernel<true, T>, smem);
+    err = tl::allow_smem(sweep_fwd_kernel<true, T>, smem,
+                           tl::kStaticSmem);
     if (err == cudaSuccess)
       sweep_fwd_kernel<true, T><<<grid, block, smem, st>>>(
           stack, light, slice_z, v_grid, u_grid, seglen, params, out, S, A,
           B, Hb, Wb, emission, flip, wrap, cap, counts);
   } else {
-    err = tl::allow_smem(sweep_fwd_kernel<false, T>, smem);
+    err = tl::allow_smem(sweep_fwd_kernel<false, T>, smem,
+                           tl::kStaticSmem);
     if (err == cudaSuccess)
       sweep_fwd_kernel<false, T><<<grid, block, smem, st>>>(
           stack, light, slice_z, v_grid, u_grid, seglen, params, out, S, A,

@@ -449,6 +449,11 @@ inline size_t smem_bytes(int S, int buffers, int cap) {
          (size_t)buffers * (size_t)cap * sizeof(float);
 }
 
+// The static shared memory of K1 and K2: their rows_l and cols_l Line
+// records (sweep_fwd.cu, sweep_bwd.cu). The 48 KB default covers static and
+// dynamic together, so allow_smem must count these too.
+constexpr size_t kStaticSmem = (kRows + kCols) * sizeof(Line);
+
 // Allows a kernel more than the default 48 KB of shared memory: `bytes`
 // of dynamic shared memory beside `static_bytes` of static.
 template <typename K>

@@ -21,6 +21,7 @@ here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -309,6 +310,14 @@ def base_rays(plan: SweepPlan):
     return o.expand(d.shape), d
 
 
+@functools.lru_cache(maxsize=64)
+def _device_const(values, dtype, device):
+    """A tensor of `values` on `device`, made once: a constant made in every
+    frame would be a copy from pageable host memory, which waits for the
+    device's queue to drain."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _in01(x):
     return (x >= 0.0) & (x <= 1.0)
 
@@ -341,8 +350,9 @@ def warp_base_to_pixels(base_img, plan: SweepPlan, miss=None):
            + fc * ((1.0 - fr) * base_img[r0, c1] + fr * base_img[r1, c1]))
     if miss is not None:
         inr = (_in01(plan.warp_rows01) & _in01(plan.warp_cols01))[..., None]
-        out = torch.where(inr, out, torch.as_tensor(miss, dtype=out.dtype,
-                                                    device=out.device))
+        key = miss if isinstance(miss, (int, float)) else tuple(miss)
+        out = torch.where(inr, out, _device_const(key, out.dtype,
+                                                  out.device))
     return out[..., 0] if squeeze else out
 
 
@@ -358,11 +368,11 @@ def postwarp_pixels(out, cfg: RenderConfig, medium: MediumConfig,
                     light: Optional[LightConfig] = None):
     """Per-pixel nonlinearities after the warp: color = wsum * light color,
     or the Beer-Lambert display transform in absorption mode."""
-    background = torch.tensor(cfg.background, dtype=torch.float32,
-                              device=out.device)
+    background = _device_const(tuple(cfg.background), torch.float32,
+                               out.device)
     if cfg.emission:
         lt = light if light is not None else LightConfig()
-        lcol = torch.tensor(lt.color, dtype=torch.float32, device=out.device)
+        lcol = _device_const(tuple(lt.color), torch.float32, out.device)
         rgb = out[..., 0:1] * lcol + out[..., 1:2] * background
         alpha = 1.0 - out[..., 1]
     else:

@@ -1,6 +1,8 @@
-"""Image output (port of to_uint8 / encode_png / write_png from
-volumetricrenderer_tpu/utils/image.py): a pure-stdlib PNG encoder (zlib
-deflate, filter 0). Accepts numpy arrays and torch tensors on any device."""
+"""Image output (port of volumetricrenderer_tpu/utils/image.py): a
+pure-stdlib PNG encoder (zlib deflate, filter 0), an uncompressed PPM
+writer, and AsyncFrameWriter, which writes PNGs on worker threads so a
+render loop never waits on the disk. Accepts numpy arrays and torch tensors
+on any device."""
 from __future__ import annotations
 
 import struct
@@ -9,7 +11,8 @@ import zlib
 import numpy as np
 import torch
 
-__all__ = ["to_uint8", "encode_png", "write_png"]
+__all__ = ["to_uint8", "encode_png", "write_png", "write_ppm",
+           "AsyncFrameWriter"]
 
 
 def _host(img) -> np.ndarray:
@@ -60,3 +63,59 @@ def write_png(path, img):
     with open(path, "wb") as f:
         f.write(encode_png(img))
     return path
+
+
+def write_ppm(path, img):
+    """Fast uncompressed PPM (P6) writer for high-frame-rate dumps."""
+    arr = _host(img)
+    if arr.dtype != np.uint8:
+        arr = to_uint8(arr)
+    if arr.ndim == 2:
+        arr = np.repeat(arr[:, :, None], 3, axis=2)
+    if arr.shape[2] == 4:
+        arr = arr[:, :, :3]
+    h, w, _ = arr.shape
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h))
+        f.write(arr.tobytes())
+    return path
+
+
+class AsyncFrameWriter:
+    """Pipelined frame output: PNG encodes and writes run on a small thread
+    pool so the render loop never blocks on the disk (zlib and file IO
+    release the GIL, so threads overlap). Use as a context manager; exit
+    joins all pending writes and re-raises the first failure."""
+
+    def __init__(self, workers: int = 2):
+        from concurrent.futures import ThreadPoolExecutor
+        self._pool = ThreadPoolExecutor(max_workers=workers,
+                                        thread_name_prefix="frame-writer")
+        self._pending = []
+
+    def write(self, path, img):
+        """Queue one PNG write. A device tensor is copied to the host here,
+        so the queued frame is the one given."""
+        arr = _host(img)
+        self._pending.append(self._pool.submit(write_png, path, arr))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        errs = [f.exception() for f in self._pending]
+        self._pool.shutdown(wait=True)
+        self._pending.clear()
+        # A failure in the with-body (a render error mid-animation) is the
+        # primary error: log the writer's failures and let the body's
+        # exception propagate; raise them only on a clean exit.
+        for e in errs:
+            if e is not None:
+                if exc_val is not None:
+                    from .metrics import get_logger
+                    get_logger().error(
+                        "pending frame write also failed: %s: %s",
+                        type(e).__name__, e)
+                    return False
+                raise e
+        return False
