@@ -3,8 +3,9 @@
 (serving) and the forward+backward render and fit (training), for the
 single-channel medium and for the 4-channel reference medium, without and
 with shadows (BASELINE config 4's light volume), in float32 and in the
-bfloat16 stream mode, the preset front end (`cli render`, `cli info`) and
-the viewer front end (`serve`, `cli animate`).
+bfloat16 stream mode, the preset front end (`cli render`, `cli info`), the
+viewer front end (`serve`, `cli animate`) and the slab-sharded sweep of
+BASELINE config 5 (parallel/).
 
     python3 chip_smoke.py [--out DIR]    (| tee DIR/log.txt to keep the output)
 
@@ -110,7 +111,7 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    with shadows per frame (plan reused, light volume rebuilt) and the
    shadowed forward+backward step, with a torch.profiler table of that
    step;
-16. (the results are printed last, step 22);
+16. (the results are printed last, step 23);
 17. the bfloat16 stream mode (RenderConfig(dtype="bfloat16"): texels and
    tap weights rounded to bfloat16, everything else float32) at small
    shapes: torch's rounding against the device's on seeded weights and
@@ -158,13 +159,43 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    seconds, frame 0 equal to render_image with the forced-dims plan and
    within 1 level of the plain version's), and `cli animate --preset
    reference --frames 2` (no launch: the per-ray march);
-22. prints a JSON line of kernel results (each kernel's launches on the
+22. the slab-sharded sweep (parallel/) at BASELINE config 5 (a 512^3 FBM
+   cloud at 1920x1080, emission, density 8): (a) a 1x1 mesh on NCCL
+   (world size 1, initialize_distributed on localhost): the sharded frame
+   equal to render_image on the same plan bit for bit, the same at
+   n_slices=128, three sharded train steps (loss falls, one K1 and one K2
+   launch a step); (b) the slab split in one process, no process group:
+   the per-rank body (sweep_sharded.local_sweep) on every block of 2 or 4
+   slabs x 1 or 2 data ranks, the partials composited front to back
+   (sweep_sharded.split_sweep),
+   n_slab * n_data launches of K1 (K2 on seeded cotangents), maps held to
+   the unsharded kernel's at 2e-4 with the early-stop gate off and the
+   grid gradient at rtol 1e-3, atol 1e-3 * max; the preset's gate within
+   20 eps of the unsharded frame; the same for the reference preset
+   through K4/K5 (seeded scroll) and a small shadowed case through the
+   light branch; K1/K2 held to their plain versions (gate off, maps 2e-4,
+   dG 1e-3) on config 5's whole stack and on one block of each split
+   (256 or 128 slices, 1536 or 768 base rows), K4/K5 on one reference
+   block; (c) two ranks spawned on cuda:0: NCCL's refusal of two ranks on
+   one device is probed, on that refusal alone (any other NCCL error
+   fails) the ranks run over gloo (CUDA maps exchanged through host
+   copies) and hold config 5's frame and gradient to the unsharded
+   kernels; (d) the configurations no kernel covers
+   (the reference medium with clamp or wrap, a light volume of another
+   shape) through the general sweep on the card against the CPU, and a
+   light volume with absorption through K1; no main path of the phase
+   calls the general sweep; (e) timings: config5's render_image, the
+   1x1 sharded frame and train step (with a torch.profiler table of the
+   step), each local K1 and K2 of the 4x1 and 2x2 splits with its share
+   of the bound, and the composite;
+23. prints a JSON line of kernel results (each kernel's launches on the
    main paths, error, time, plain version's time, and the least time the
    card could take for the same work, each also for the light variant and
    for the bfloat16 mode; the share of the bound; the registers of each
    instantiation and the most spilled bytes from ptxas; the tile-slices
    each kernel computed on the main paths and how many of those read
-   through global memory, which must be none for K4 and K5), with each
+   through global memory, which must be none for K4 and K5; the launches
+   on the sharded paths, `launches_sharded`), with each
    time's share of its bound logged before it, and the script's wall time
    on a line of its own, then the last line {"ok": true, "device":
    {...}}. Every main path logs its tile-slices.
@@ -211,6 +242,7 @@ from volumetricrenderer_tpu_torch.models.scene import bake_scene, \
 from volumetricrenderer_tpu_torch.ops.integrate import render_rays_sliced
 from volumetricrenderer_tpu_torch.ops.sweep import base_rays, finish_image, \
     sweep_render
+from volumetricrenderer_tpu_torch.parallel.sweep_sharded import split_sweep
 from volumetricrenderer_tpu_torch.utils.image import write_png
 
 # Forward: kernel and plain version take the same per-pixel, front-to-back
@@ -2831,6 +2863,655 @@ def front_end(dev, out_dir, gpu_line):
     return paths, errs
 
 
+# Step 22: the slab-sharded sweep (parallel/). Config 5 (config.py
+# PRESETS["config5"]: a 512^3 FBM cloud at 1920x1080, emission, density
+# 8); the in-process slab splits (slabs, data ranks); the JAX sharded
+# tests' tolerances (tests/test_sweep_sharded.py): maps 2e-4 with the
+# early-stop gate off, gradients rtol 1e-3, atol 1e-3 * max, a gated frame
+# within 20 eps.
+SHARD_SPLITS = ((2, 1), (2, 2), (4, 1), (4, 2))
+SHARD_MAP_TOL, SHARD_GRAD_TOL, SHARD_GATE_EPS = 2e-4, 1e-3, 1e-3
+SHARD_STEPS = 3
+# (n_slab, n_data, slab, data): one block of each split, held to the plain
+# versions (256 or 128 slices, 1536 or 768 base rows at config 5)
+CONFIG5_PLAIN_BLOCKS = ((2, 1, 1, 0), (2, 2, 0, 1), (4, 1, 2, 0),
+                        (4, 2, 3, 1))
+
+
+class GeneralSpy:
+    """Counts the calls of the general sweep (ops/sweep._sweep_base, as
+    ops/sweep.py and parallel/sweep_sharded.py reach it) for the time of a
+    `with` block."""
+
+    def __init__(self):
+        from volumetricrenderer_tpu_torch.ops import sweep as ops_sweep
+        from volumetricrenderer_tpu_torch.parallel import sweep_sharded
+        self.mods, self.calls = (ops_sweep, sweep_sharded), 0
+
+    def __enter__(self):
+        self.real = self.mods[0]._sweep_base
+
+        def spy(*a, **kw):
+            self.calls += 1
+            return self.real(*a, **kw)
+        for m in self.mods:
+            m._sweep_base = spy
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m._sweep_base = self.real
+
+
+def check_split(label, grid, plan, cfg, medium, n_slab, n_data, want,
+                want_grads, cts, fwd_mod, bwd_mod, scroll=None, lvol=None):
+    """One split: its frame's maps and its gradients on seeded cotangents
+    (grid, and light volume if given) against the unsharded kernels', the
+    launch counts set to 0 before the forward and before the backward and
+    read after each (n_slab * n_data launches of each kernel). Returns
+    (launches fwd, launches bwd, maps error, gradient errors)."""
+    k_f = list(KERNELS).index(fwd_mod)
+    k_b = list(KERNELS).index(bwd_mod)
+    g = grid.detach().clone().requires_grad_()
+    lv = None if lvol is None else lvol.detach().clone().requires_grad_()
+    reset_counts()
+    maps = split_sweep(g, plan, cfg, medium, n_slab, n_data, scroll, lv)
+    torch.cuda.synchronize()
+    launches_f = path_counts(f"{label} split {n_slab}x{n_data} forward")
+    reset_counts()
+    sum((m * c).sum() for m, c in zip(maps[:3], cts)).backward()
+    torch.cuda.synchronize()
+    launches_b = path_counts(f"{label} split {n_slab}x{n_data} backward")
+    n = n_slab * n_data
+    if launches_f[k_f] != n or sum(launches_f) != n \
+            or launches_b[k_b] != n or sum(launches_b) != n:
+        fail(f"{label} split {n_slab}x{n_data}: launches {launches_f} "
+             f"forward, {launches_b} backward, expected {n} of {fwd_mod} "
+             f"and of {bwd_mod}")
+    e_maps = 0.0
+    maps = [m.detach() for m in maps]
+    for got_m, want_m, name in zip(maps, want, ("acc", "trans", "wsum",
+                                                 "hit")):
+        if not torch.allclose(got_m, want_m, rtol=SHARD_MAP_TOL,
+                              atol=SHARD_MAP_TOL):
+            fail(f"{label} split {n_slab}x{n_data} {name}: max abs err "
+                 f"{max_err(got_m, want_m):.3e} against the unsharded kernel")
+        e_maps = max(e_maps, max_err(got_m, want_m))
+    e_grads = [check_grad(got.grad, w, f"{label} split {n_slab}x{n_data} "
+                          f"gradient", tol=SHARD_GRAD_TOL)[0]
+               for got, w in zip((g, lv), want_grads) if w is not None]
+    log(f"{label} split {n_slab} slabs x {n_data} data ranks: launches "
+        f"{launches_f} forward, {launches_b} backward; maps max abs err "
+        f"{e_maps:.3e}, gradients {', '.join(f'{e:.3e}' for e in e_grads)}")
+    return launches_f, launches_b, e_maps, e_grads
+
+
+def unsharded_grads(grid, plan, cfg, medium, cts, scroll=None, lvol=None):
+    """The unsharded kernels' maps, and the gradients of sum(maps * cts)
+    to the grid (and the light volume)."""
+    g = grid.detach().clone().requires_grad_()
+    lv = None if lvol is None else lvol.detach().clone().requires_grad_()
+    if g.dim() == 4:
+        maps = sweep_ref_fwd.sweep_base_ref(
+            g.permute(plan.perm + (3,)), plan, cfg, medium, scroll=scroll,
+            lperm=None if lv is None else lv.permute(plan.perm))
+    else:
+        maps = sweep_fwd.sweep_base(
+            g.permute(plan.perm), plan, cfg, medium,
+            lperm=None if lv is None else lv.permute(plan.perm))
+    sum((m * c).sum() for m, c in zip(maps[:3], cts)).backward()
+    torch.cuda.synchronize()
+    return ([m.detach() for m in maps],
+            (g.grad, None if lv is None else lv.grad))
+
+
+def hold_to_plain(name, maps, want, dg, want_dg):
+    """A kernel's maps and dG against its plain version's at step 22's
+    tolerances; returns (maps error, gradient error)."""
+    e_m = 0.0
+    for got_m, want_m, m in zip(maps, want, ("acc", "trans", "wsum", "hit")):
+        if not torch.allclose(got_m, want_m, rtol=SHARD_MAP_TOL,
+                              atol=SHARD_MAP_TOL):
+            fail(f"{name} {m}: kernel and plain version disagree, max abs "
+                 f"err {max_err(got_m, want_m):.3e}")
+        e_m = max(e_m, max_err(got_m, want_m))
+    e_g = check_grad(dg, want_dg, f"{name} gradient", tol=SHARD_GRAD_TOL)[0]
+    log(f"{name}: kernel against plain version: maps max abs err "
+        f"{e_m:.3e}, gradient {e_g:.3e}")
+    return e_m, e_g
+
+
+def plain_whole(g3, plan, cfg, medium, cts, want, want_g):
+    """The unsharded K1/K2 maps and grid gradient that every config5 split
+    is held to (unsharded_grads), against the plain versions on the whole
+    stack with the early-stop gate off (cfg)."""
+    with torch.no_grad():
+        (stack, *args), flip = sweep_fwd.sweep_inputs(g3.permute(plan.perm),
+                                                      plan, cfg, medium)
+        kw = dict(emission=cfg.emission, flip=flip,
+                  address_mode=cfg.address_mode)
+        pm = sweep_fwd.sweep_fwd_reference(stack, *args, **kw)
+        pg = sweep_bwd.sweep_bwd_reference(stack, *args, *cts, pm[1], pm[2],
+                                           **kw)
+    torch.cuda.synchronize()
+    return hold_to_plain(
+        f"config5 unsharded, {plan.slice_z.shape[0]} slices x "
+        f"{plan.base_shape[0]} rows", want, pm,
+        want_g[0].permute(plan.perm), pg)
+
+
+def plain_blocks(label, grid, plan, cfg, medium, cts, blocks, scroll=None):
+    """K1/K2 (a 3-D grid) or K4/K5 (4 channels) against their plain
+    versions on the blocks (n_slab, n_data, slab, data) that the splits
+    give them (split_inputs): the block's slices and rows, the gate off in
+    cfg, the block's rows of the seeded cotangents and the forward
+    kernel's own trans and wsum. Comparison launches, outside every
+    counted path. Returns (maps errors, gradient errors)."""
+    from volumetricrenderer_tpu_torch.parallel.sweep_sharded import \
+        split_inputs
+    lt, em = LightConfig(), cfg.emission
+    e_m, e_g = [], []
+    for n_slab, n_data, s, d in blocks:
+        with torch.no_grad():
+            stack, chan, _, lp = split_inputs(grid, plan, cfg, medium,
+                                              n_slab, s, n_data, d, scroll)
+            c = [x[lp.r0:lp.r1].contiguous() for x in cts]
+            if chan is not None:
+                offs = sweep_ref_fwd._channel_offsets(
+                    medium, scroll, plan.coord_order, device=grid.device)
+                L = (chan.flip(0) if plan.sign < 0 else chan).contiguous()
+                inputs = (L, lp.slice_z, lp.v_grid, plan.u_grid, lp.seglen,
+                          sweep_ref_fwd._params_ref(plan, cfg, medium, lt,
+                                                    offs))
+                maps = sweep_ref_fwd.launch_kernel(*inputs, em)
+                dg = sweep_ref_bwd.launch_kernel(*inputs, *c, maps[1],
+                                                 maps[2], emission=em)
+                want = sweep_ref_fwd.sweep_ref_fwd_reference(*inputs,
+                                                             emission=em)
+                want_dg = sweep_ref_bwd.sweep_ref_bwd_reference(
+                    *inputs, *c, maps[1], maps[2], emission=em)
+            else:
+                flip, wrap = plan.sign < 0, cfg.address_mode == "wrap"
+                kw = dict(emission=em, flip=flip,
+                          address_mode=cfg.address_mode)
+                inputs = (stack.contiguous(), lp.slice_z, lp.v_grid,
+                          plan.u_grid, lp.seglen,
+                          sweep_fwd._params_for(plan, cfg, medium, lt))
+                maps = sweep_fwd.launch_kernel(*inputs, em, flip, wrap)
+                dg = sweep_bwd.launch_kernel(*inputs, *c, maps[1], maps[2],
+                                             em, flip, wrap)
+                want = sweep_fwd.sweep_fwd_reference(*inputs, **kw)
+                want_dg = sweep_bwd.sweep_bwd_reference(
+                    *inputs, *c, maps[1], maps[2], **kw)
+        torch.cuda.synchronize()
+        e = hold_to_plain(
+            f"{label} split {n_slab}x{n_data} block (slab {s}, data {d}), "
+            f"{lp.slice_z.shape[0]} slices x {lp.r1 - lp.r0} rows",
+            maps.unbind(0), want, dg, want_dg)
+        e_m.append(e[0])
+        e_g.append(e[1])
+    return e_m, e_g
+
+
+def seeded_cts(plan, seed, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=plan.base_shape),
+                         dtype=torch.float32, device=dev) for _ in range(3)]
+
+
+def config5_mesh_phase(dev, grid5, cam, plan, cfg, medium, light, out_dir,
+                       gpu_line):
+    """(a) config 5 through a 1x1 NCCL mesh (world size 1): the sharded
+    frame equal to render_image bit for bit, the n_slices=128 frame, three
+    sharded train steps; (e) their timings and a torch.profiler table of
+    the step. Returns (launch tuples, timings)."""
+    from volumetricrenderer_tpu_torch.parallel import bootstrap
+    from volumetricrenderer_tpu_torch.parallel.mesh import make_mesh
+    from volumetricrenderer_tpu_torch.parallel.sweep_sharded import (
+        make_sweep_train_step, sweep_render_sharded)
+    import torch.distributed as dist
+    paths, t = [], {}
+    if not bootstrap.initialize_distributed(
+            coordinator_address=f"localhost:{free_port()}", num_processes=1,
+            process_id=0, retries=1, device=dev.type):
+        fail("initialize_distributed started no process group")
+    try:
+        mesh = make_mesh(1, 1, device=dev.type)
+        log(f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}, backend "
+            f"{dist.get_backend()}, {bootstrap.process_summary()}")
+        frames = []
+        for label, p in (("config5 1x1 sharded frame", plan),
+                         ("config5 1x1 sharded frame, 128 slices",
+                          plan_for(cam, grid5.shape[:3], cfg, n_slices=128,
+                                   device=dev))):
+            reset_counts()
+            img = sweep_render_sharded(grid5, p, mesh, cfg, medium, light)
+            torch.cuda.synchronize()
+            launches = path_counts(label)
+            if launches != (1, 0, 0, 0):
+                fail(f"{label}: launches {launches}, expected (1, 0, 0, 0)")
+            paths.append(launches)
+            want = render_image(grid5, cam, cfg, medium, light, plan=p)
+            if tuple(img.shape) != (cam.height, cam.width, 4) or \
+                    not bool(torch.isfinite(img).all()) or \
+                    not float(img[..., 3].max()) > 0.0:
+                fail(f"{label}: shape {tuple(img.shape)}, not finite or "
+                     "empty")
+            if not torch.equal(img, want):
+                fail(f"{label}: not render_image's frame bit for bit, max "
+                     f"abs err {max_err(img, want):.3e}")
+            log(f"{label}: base {p.base_shape}, {p.slice_z.shape[0]} slices, "
+                f"axis {p.axis} sign {p.sign:+d}: equal to render_image bit "
+                f"for bit; alpha mean {float(img[..., 3].mean()):.4f}")
+            frames.append(img)
+        g = torch.full(grid5.shape[:3], 0.1, device=dev)
+        step, _ = make_sweep_train_step(mesh, plan, cfg, medium, g, light,
+                                        learning_rate=FIT_LR)
+        target = frames[0][..., :3].contiguous()
+        reset_counts()
+        losses = [step(target) for _ in range(SHARD_STEPS)]
+        torch.cuda.synchronize()
+        launches = path_counts("config5 1x1 sharded train step")
+        if launches != (SHARD_STEPS, SHARD_STEPS, 0, 0):
+            fail(f"config5 sharded train step: launches {launches}, expected "
+                 f"({SHARD_STEPS}, {SHARD_STEPS}, 0, 0)")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            fail(f"config5 sharded train step did not descend: {losses}")
+        paths.append(launches)
+        log(f"config5 1x1 sharded train step: losses "
+            f"{[f'{x:.6e}' for x in losses]}, launches {launches}, grid in "
+            f"[{float(g.detach().min()):.4f}, "
+            f"{float(g.detach().max()):.4f}]")
+        t["render_ms"] = cuda_ms(lambda: render_image(grid5, cam, cfg, medium,
+                                                      light, plan=plan))
+        t["sharded_ms"] = cuda_ms(lambda: sweep_render_sharded(
+            grid5, plan, mesh, cfg, medium, light))
+        t["step_ms"] = cuda_ms(lambda: step(target))
+        rays = cam.width * cam.height
+        log(f"[{gpu_line}] config5 512^3 at {cam.width}x{cam.height}, base "
+            f"{plan.base_shape}, {plan.slice_z.shape[0]} slices:")
+        log(f"  render_image (unsharded)        {t['render_ms']:.3f} ms = "
+            f"{rays / (t['render_ms'] * 1e-3):.4g} forward rays/s")
+        log(f"  sweep_render_sharded, 1x1 mesh  {t['sharded_ms']:.3f} ms "
+            f"({t['sharded_ms'] / t['render_ms']:.4f} of unsharded)")
+        log(f"  sharded train step (Adam, clamp) {t['step_ms']:.3f} ms")
+        profile_fwdbwd(lambda: step(target), out_dir,
+                       "chip_smoke_profile_config5.txt")
+    finally:
+        dist.destroy_process_group()
+        bootstrap._initialized = False
+    return paths, t
+
+
+def split_timings(grid5, plan, cfg, medium, gpu_line):
+    """(e) each local K1 and K2 of the (4, 1) and (2, 2) splits at config5
+    and their shares of the bound, beside the unsharded kernels; the
+    composite of two base-map tuples."""
+    from volumetricrenderer_tpu_torch.ops.sweep import composite_base_maps
+    from volumetricrenderer_tpu_torch.parallel.sweep_sharded import \
+        split_inputs
+    from volumetricrenderer_tpu_torch.kernels.sweep_fwd import _params_for
+    params = _params_for(plan, cfg, medium, LightConfig())
+    cts = seeded_cts(plan, 21, grid5.device)
+    flip = plan.sign < 0
+
+    def timed(stack, p, lp_slice, v, seglen, rows):
+        stack = stack.contiguous()
+        args = (stack, lp_slice, v, p.u_grid, seglen, params)
+        maps = sweep_fwd.launch_kernel(*args, cfg.emission, flip, False)
+        c = [x[rows] for x in cts]
+        f_ms = cuda_ms(lambda: sweep_fwd.launch_kernel(*args, cfg.emission,
+                                                       flip, False))
+        b_ms = cuda_ms(lambda: sweep_bwd.launch_kernel(
+            *args, *c, maps[1], maps[2], cfg.emission, flip, False))
+        local = dataclasses.replace(p, slice_z=lp_slice, v_grid=v)
+        samples, lines = inbox_samples(local)
+        b_f = bound("sweep_fwd", samples, lines, (*args, maps))[0]
+        b_b = bound("sweep_bwd", samples, lines,
+                    (*args, c[1], c[2], maps[1], maps[2], stack))[0]
+        return f_ms, b_ms, b_f, b_b, maps
+
+    g3 = grid5[..., 0]
+    whole = timed(g3.permute(plan.perm), plan, plan.slice_z, plan.v_grid,
+                  plan.seglen, slice(None))
+    log(f"[{gpu_line}] config5 unsharded K1 {whole[0]:.3f} ms (share of its "
+        f"bound {whole[2] / whole[0]:.4f}), K2 {whole[1]:.3f} ms "
+        f"({whole[3] / whole[1]:.4f})")
+    out = {"k1_ms": whole[0], "k2_ms": whole[1]}
+    for n_slab, n_data in ((4, 1), (2, 2)):
+        f_sum = b_sum = 0.0
+        for d in range(n_data):
+            for s in range(n_slab):
+                stack, _, _, lp = split_inputs(g3, plan, cfg, medium, n_slab,
+                                               s, n_data, d)
+                f_ms, b_ms, b_f, b_b, _ = timed(
+                    stack, plan, lp.slice_z, lp.v_grid, lp.seglen,
+                    slice(lp.r0, lp.r1))
+                f_sum, b_sum = f_sum + f_ms, b_sum + b_ms
+                log(f"[{gpu_line}] config5 split {n_slab}x{n_data} block "
+                    f"(slab {s}, data {d}): K1 {f_ms:.3f} ms (share "
+                    f"{b_f / f_ms:.4f}), K2 {b_ms:.3f} ms (share "
+                    f"{b_b / b_ms:.4f})")
+        log(f"[{gpu_line}] config5 split {n_slab}x{n_data}: local K1 sum "
+            f"{f_sum:.3f} ms ({f_sum / whole[0]:.4f} of unsharded), local "
+            f"K2 sum {b_sum:.3f} ms ({b_sum / whole[1]:.4f})")
+        out[f"k1_sum_{n_slab}x{n_data}"] = f_sum
+        out[f"k2_sum_{n_slab}x{n_data}"] = b_sum
+    maps = tuple(whole[4].unbind(0))
+    out["composite_ms"] = cuda_ms(lambda: composite_base_maps(maps, maps))
+    log(f"[{gpu_line}] composite_base_maps of two {plan.base_shape} map "
+        f"tuples: {out['composite_ms']:.3f} ms")
+    return out
+
+
+def repaired_on_the_card(dev):
+    """(d) The configurations the port once refused, at small shapes, on the
+    card against the same call on the CPU: the general sweep launches no
+    kernel; a light volume with absorption is dropped and the kernel
+    sweeps. Returns the errors."""
+    rng = np.random.default_rng(31)
+    grid4 = rng.uniform(0.1, 1.0, (16, 16, 16, 4)).astype(np.float32)
+    scroll = rng.uniform(-1.5, 1.5, (4, 3)).astype(np.float32)
+    lvol = rng.uniform(0.0, 1.0, (16, 16, 16)).astype(np.float32)
+    cases = [
+        ("reference, clamp", grid4, RenderConfig(
+            emission=True, quadrature="sliced", address_mode="clamp"),
+         MediumConfig(density=4.0), scroll, None, True),
+        ("reference, wrap", grid4, RenderConfig(
+            emission=True, quadrature="sliced", address_mode="wrap"),
+         MediumConfig(density=4.0), scroll, None, True),
+        ("light volume of another shape", grid4[..., 0].copy(),
+         RenderConfig(emission=True, quadrature="sliced"),
+         MediumConfig(combine="single", density=8.0), None,
+         lvol[2:14, :, 3:13].copy(), True),
+        ("absorption with a light volume", grid4[..., 0].copy(),
+         RenderConfig(emission=False, quadrature="sliced"),
+         MediumConfig(combine="single", density=8.0), None, lvol, False),
+    ]
+    errs = []
+    cam = make_camera(CameraConfig(eye=SMALL_EYES[0][0], width=96,
+                                   height=64))
+    for name, grid, cfg, medium, sc, lv, general in cases:
+        def call(d):
+            def t(x):
+                return None if x is None else torch.from_numpy(x).to(d)
+            p = plan_for(cam, grid.shape[:3], cfg, device=d)
+            return sweep_render(t(grid), p, cfg, medium, scroll=t(sc),
+                                light_volume=t(lv))
+        with GeneralSpy() as spy:
+            reset_counts()
+            got = call(dev)
+            torch.cuda.synchronize()
+            launches = counts()
+        want = call("cpu")
+        if bool(spy.calls) != general or sum(launches) != (0 if general
+                                                           else 1):
+            fail(f"repaired {name}: {spy.calls} general sweeps, launches "
+                 f"{launches}")
+        e = max_err(got.cpu(), want)
+        if not torch.allclose(got.cpu(), want, rtol=RTOL, atol=1e-4):
+            fail(f"repaired {name}: the card's frame and the CPU's differ by "
+                 f"{e:.3e}")
+        errs.append(e)
+        log(f"repaired {name}: {'general sweep' if general else 'kernel'} "
+            f"({spy.calls} general sweeps, launches {launches}); the card's "
+            f"frame against the CPU's: max abs err {e:.3e}")
+    return errs
+
+
+# Step 22c: two ranks sharing the one card. NCCL refuses two ranks on one
+# device (a probe, run first, shows whether this build does); on that
+# refusal alone the ranks then run on gloo, which exchanges the CUDA maps
+# through host copies that parallel/mesh.py makes.
+SHARED_CARD_RANKS = 2
+SHARED_CARD_TIMEOUT_S = 240
+NCCL_REFUSAL = "Duplicate GPU detected"
+
+
+def _shared_card_rank(rank, world, backend, init_file, out_file):
+    """One rank of a (1, world) mesh on cuda:0: config 5's frame and the
+    gradient of sum(rgb^2) to its slab block, sweep_render_sharded through
+    K1 and K2 on the block; rank 0 holds them to the unsharded kernels'
+    (gate off: 2e-4 and 1e-3 of the maximum) and writes the result."""
+    import torch.distributed as dist
+    from volumetricrenderer_tpu_torch import get_preset
+    from volumetricrenderer_tpu_torch.parallel.mesh import make_mesh
+    from volumetricrenderer_tpu_torch.parallel.sweep_sharded import \
+        sweep_render_sharded
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        probe = torch.ones(4, device=dev)
+        if backend == "nccl":
+            dist.all_reduce(probe)
+            torch.cuda.synchronize()
+        mesh = make_mesh(1, world, device="cuda" if backend == "nccl"
+                         else "cpu")
+        preset = get_preset("config5")
+        cfg = dataclasses.replace(preset.render,
+                                  early_stop_transmittance=-1.0)
+        medium = preset.medium
+        grid = build_volume(preset.volume, device=dev)[..., 0]
+        torch.cuda.empty_cache()
+        cam = make_camera(preset.camera)
+        plan = plan_for(cam, grid.shape, cfg, device=dev)
+        depth = grid.shape[0] // world
+        block = grid[rank * depth:(rank + 1) * depth].clone() \
+            .requires_grad_()
+        reset_counts()
+        t0 = time.perf_counter()
+        img = sweep_render_sharded(block, plan, mesh, cfg, medium)
+        (img[..., :3] ** 2).sum().backward()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts()
+        rows = [None] * world
+        dist.all_gather_object(rows, launches)
+        if rank == 0:
+            g = grid.clone().requires_grad_()
+            want = render_image(g, cam, cfg, medium, plan=plan)
+            (want[..., :3] ** 2).sum().backward()
+            scale = float(g.grad.abs().max())
+            res = {"launches": rows, "seconds": seconds,
+                   "image_err": max_err(img.detach(), want.detach()),
+                   "grad_err": max_err(block.grad, g.grad[:depth]),
+                   "grad_scale": scale,
+                   "image_ok": bool(torch.allclose(
+                       img.detach(), want.detach(), rtol=SHARD_MAP_TOL,
+                       atol=SHARD_MAP_TOL)),
+                   "grad_ok": bool(torch.allclose(
+                       block.grad, g.grad[:depth], rtol=SHARD_GRAD_TOL,
+                       atol=SHARD_GRAD_TOL * scale))}
+            with open(out_file, "w") as f:
+                json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_shared_card(backend, tmp):
+    """Spawn SHARED_CARD_RANKS ranks of _shared_card_rank on `backend`;
+    returns (result dict or None, the error text or None). The ranks are
+    ended after SHARED_CARD_TIMEOUT_S."""
+    import torch.multiprocessing as mp
+    init_file = os.path.join(tmp, f"init-{backend}")
+    out_file = os.path.join(tmp, f"out-{backend}.json")
+    ctx = mp.start_processes(
+        _shared_card_rank, args=(SHARED_CARD_RANKS, backend, init_file,
+                                 out_file),
+        nprocs=SHARED_CARD_RANKS, join=False, start_method="spawn")
+    deadline = time.perf_counter() + SHARED_CARD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                return None, (f"no result after {SHARED_CARD_TIMEOUT_S} s; "
+                              "ranks ended")
+    except Exception as e:  # a rank raised: its traceback is the message
+        return None, str(e)
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    with open(out_file) as f:
+        return json.load(f), None
+
+
+def shared_card_phase(out_dir):
+    """(c) Two ranks on the one card: the NCCL probe, then, only if NCCL
+    refused two ranks on one device (NCCL_REFUSAL), the ranks on gloo (a
+    required phase: it fails the script on any other NCCL error, at the
+    time limit, or if the ranks do not agree with the unsharded kernels).
+    Returns the launch tuples of the ranks' path."""
+    import tempfile
+    # The ranks build config 5's volume on the card together (~22 GB each
+    # at its peak): this process gives back the blocks its cache holds.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        res, err = run_shared_card("nccl", tmp)
+        if res is None:
+            # Only NCCL's refusal of two ranks on one device sends the
+            # ranks to gloo; any other fault (or the time limit) fails.
+            if NCCL_REFUSAL not in err:
+                fail(f"shared card on NCCL: {err}")
+            line = next(ln for ln in err.splitlines() if NCCL_REFUSAL in ln)
+            log(f"shared card, NCCL with {SHARED_CARD_RANKS} ranks on "
+                f"cuda:0 refused: {line.strip()}")
+            res, err = run_shared_card("gloo", tmp)
+            backend = "gloo (host copies)"
+            if res is None:
+                fail(f"shared card on gloo: {err}")
+        else:
+            backend = "nccl"
+    want = [(1, 1, 0, 0)] * SHARED_CARD_RANKS
+    if [tuple(r) for r in res["launches"]] != want or not res["image_ok"] \
+            or not res["grad_ok"]:
+        fail(f"shared card on {backend}: {res}")
+    log(f"shared card, {SHARED_CARD_RANKS} ranks on cuda:0 over {backend}: "
+        f"config5 frame and backward in {res['seconds']:.3f} s (rank 0's "
+        f"host clock), launches per rank {res['launches']}, frame max abs "
+        f"err {res['image_err']:.3e}, gradient {res['grad_err']:.3e} at "
+        f"max {res['grad_scale']:.3e}")
+    return [tuple(r) for r in res["launches"]]
+
+
+def sharded_phase(dev, out_dir, gpu_line):
+    """Step 22: the slab-sharded sweep (parallel/) on the card. Returns
+    ([launch tuples of the counted paths], {kernel: [errors]}, timings)."""
+    from volumetricrenderer_tpu_torch import get_preset
+    t_phase = time.perf_counter()
+    preset = get_preset("config5")
+    cfg, medium, light = preset.render, preset.medium, preset.light
+    t0 = time.perf_counter()
+    grid5 = build_volume(preset.volume, device=dev)
+    torch.cuda.synchronize()
+    log(f"config5 volume {tuple(grid5.shape)}: {time.perf_counter() - t0:.2f}"
+        " s")
+    cam = make_camera(preset.camera)
+    t0 = time.perf_counter()
+    plan = plan_for(cam, grid5.shape[:3], cfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"config5 plan: {time.perf_counter() - t0:.3f} s of host")
+    errs = {name: [] for name in KERNELS}
+    with GeneralSpy() as spy:
+        # (a) the 1x1 NCCL mesh at full width
+        paths, t = config5_mesh_phase(dev, grid5, cam, plan, cfg, medium,
+                                      light, out_dir, gpu_line)
+        # (b) the slab split in one process: config 5
+        cfg_off = dataclasses.replace(cfg, early_stop_transmittance=-1.0)
+        g3 = grid5[..., 0]
+        cts = seeded_cts(plan, 17, dev)
+        want, want_g = unsharded_grads(g3, plan, cfg_off, medium, cts)
+        # K1/K2 against their plain versions at the shapes of this path:
+        # the whole stack the splits are held to, one block of each split
+        e_m, e_g = plain_whole(g3, plan, cfg_off, medium, cts, want, want_g)
+        errs["sweep_fwd"].append(e_m)
+        errs["sweep_bwd"].append(e_g)
+        e_m, e_g = plain_blocks("config5", g3, plan, cfg_off, medium, cts,
+                                CONFIG5_PLAIN_BLOCKS)
+        errs["sweep_fwd"] += e_m
+        errs["sweep_bwd"] += e_g
+        for n_slab, n_data in SHARD_SPLITS:
+            lf, lb, e_m, e_g = check_split(
+                "config5", g3, plan, cfg_off, medium, n_slab, n_data, want,
+                want_g, cts, "sweep_fwd", "sweep_bwd")
+            paths += [lf, lb]
+            errs["sweep_fwd"].append(e_m)
+            errs["sweep_bwd"] += e_g
+        # the preset's own gate: within 20 eps of the unsharded frame
+        reset_counts()
+        with torch.no_grad():
+            maps = split_sweep(g3, plan, cfg, medium, 4, 1)
+        torch.cuda.synchronize()
+        paths.append(path_counts("config5 split 4x1, the preset's gate"))
+        gated = finish_image(maps, plan, cfg, medium, light)
+        whole = render_image(grid5, cam, cfg, medium, light, plan=plan)
+        e_gate = max_err(gated, whole)
+        if not e_gate < 20 * SHARD_GATE_EPS:
+            fail(f"config5 gated split: max abs err {e_gate:.3e} against the "
+                 f"unsharded frame, above 20 eps")
+        log(f"config5 split 4x1 with the gate at "
+            f"{cfg.early_stop_transmittance}: frame max abs err "
+            f"{e_gate:.3e} against the unsharded frame (bound 20 eps = "
+            f"{20 * SHARD_GATE_EPS})")
+        # the reference preset through K4/K5, a seeded scroll
+        grid4 = build_volume(VolumeConfig(), device=dev)
+        cfg4 = RenderConfig(emission=True, quadrature="sliced",
+                            early_stop_transmittance=-1.0)
+        med4 = MediumConfig()
+        cam4 = make_camera(CameraConfig(width=REF_WIDTH, height=REF_HEIGHT))
+        plan4 = plan_for(cam4, grid4.shape[:3], cfg4, device=dev)
+        scroll = seeded_scroll(REF_SCROLL_SEEDS[0], dev)
+        cts4 = seeded_cts(plan4, 18, dev)
+        want4, want4_g = unsharded_grads(grid4, plan4, cfg4, med4, cts4,
+                                         scroll)
+        e_m, e_g = plain_blocks("reference preset", grid4, plan4, cfg4, med4,
+                                cts4, ((4, 2, 1, 1),), scroll)
+        errs["sweep_ref_fwd"] += e_m
+        errs["sweep_ref_bwd"] += e_g
+        for n_slab, n_data in ((2, 1), (4, 2)):
+            lf, lb, e_m, e_g = check_split(
+                "reference preset", grid4, plan4, cfg4, med4, n_slab, n_data,
+                want4, want4_g, cts4, "sweep_ref_fwd", "sweep_ref_bwd",
+                scroll)
+            paths += [lf, lb]
+            errs["sweep_ref_fwd"].append(e_m)
+            errs["sweep_ref_bwd"] += e_g
+        # a small shadowed case through the kernels' light branch
+        gs = cloud_volume(32, 7, device=dev)
+        lt = LightConfig(shadow_steps=16)
+        lvol = light_transmittance_volume(gs, lt, cfg_off, medium)
+        ps = plan_for(make_camera(CameraConfig(eye=SMALL_EYES[4][0],
+                                               width=96, height=64)),
+                      gs.shape, cfg_off, device=dev)
+        ctss = seeded_cts(ps, 19, dev)
+        wants, wants_g = unsharded_grads(gs, ps, cfg_off, medium, ctss,
+                                         lvol=lvol)
+        lf, lb, e_m, e_g = check_split(
+            "shadowed 32^3", gs, ps, cfg_off, medium, 2, 2, wants, wants_g,
+            ctss, "sweep_fwd", "sweep_bwd", lvol=lvol)
+        paths += [lf, lb]
+        errs["sweep_fwd"].append(e_m)
+        errs["sweep_bwd"] += e_g
+    if spy.calls:
+        fail(f"the sharded main paths called the general sweep {spy.calls} "
+             "times")
+    log("sharded main paths: 0 calls of the general sweep")
+    # (c) two ranks sharing the card
+    paths += shared_card_phase(out_dir)
+    # (d) the repaired configurations
+    errs_d = repaired_on_the_card(dev)
+    log(f"repaired configurations on the card: max abs err {max(errs_d):.3e}")
+    # (e) timings of the split
+    t.update(split_timings(grid5, plan, cfg, medium, gpu_line))
+    log(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
+    return paths, errs, t
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None,
@@ -3204,7 +3885,11 @@ def main(argv=None):
     low_errs.append({"sweep_fwd": e_front, "sweep_bwd": [],
                      "sweep_ref_fwd": [], "sweep_ref_bwd": []})
 
-    # 22. Results. No single PyTorch call marches a carried, gated slice
+    # 22. The slab-sharded sweep (parallel/): config 5.
+    shard_paths, e_shard, shard_t = sharded_phase(dev, out_dir, gpu_line)
+    low_errs.append(e_shard)
+
+    # 23. Results. No single PyTorch call marches a carried, gated slice
     # sweep (grid_sample does one slice's taps only), so library_ms is null.
     times = {"sweep_fwd": (kernel_ms, plain_ms),
              "sweep_bwd": (bwd_ms, bwd_plain_ms),
@@ -3220,14 +3905,15 @@ def main(argv=None):
         launches_low = sum(path[k] for path in low_paths)
         launches_preset = sum(path[k] for path in preset_paths)
         launches_front = sum(path[k] for path in front_paths)
+        launches_sharded = sum(path[k] for path in shard_paths)
         launches_f32 = sum(path[k] for path in main_paths) + launches_light
         launches = launches_f32 + launches_low + launches_preset \
-            + launches_front
+            + launches_front + launches_sharded
         if launches_f32 - launches_light < 1 or launches_light < 1 \
-                or launches_low < 1:
+                or launches_low < 1 or launches_sharded < 1:
             fail(f"{name}: no launch on a main path ({launches} in all, "
                  f"{launches_light} with a light volume, {launches_low} in "
-                 "bfloat16)")
+                 f"bfloat16, {launches_sharded} on the sharded paths)")
         bound_ms, bound_by, flops, nbytes = bound(name, *work[name])
         ms, plain = times[name]
         log(f"[{gpu_line}] {name}: {ms:.3f} ms against a bound of "
@@ -3252,7 +3938,8 @@ def main(argv=None):
             f"{bound_low_l:.4f} ms ({by_low_l}: {flops_l:.4g} float "
             f"operations, {nbytes_l:.4g} bytes); {launches_low} launches on "
             f"the bfloat16 main paths, {launches_preset} on the presets', "
-            f"{launches_front} on serve's and animate's")
+            f"{launches_front} on serve's and animate's, {launches_sharded} "
+            "on the sharded paths (parallel/)")
         log(f"[{gpu_line}] {name} share of its bound: float32 "
             f"{bound_ms / ms:.4f}, with light {bound_l / ms_l:.4f}, bfloat16 "
             f"{bound_low / lt['ms']:.4f}, bfloat16 with light "
@@ -3292,6 +3979,7 @@ def main(argv=None):
             "bound_by_light": by_l,
             "launches_bf16": launches_low,
             "launches_front_end": launches_front,
+            "launches_sharded": launches_sharded,
             "ms_bf16": lt["ms"],
             "ms_bf16_light": lt["ms_light"],
             "plain_ms_bf16": lt["plain_ms"],
@@ -3305,6 +3993,11 @@ def main(argv=None):
             "tile_slices": tiles[0],
             "tile_slices_global": tiles[1],
         })
+    log(f"[{gpu_line}] config5 (parallel/): render_image "
+        f"{shard_t['render_ms']:.3f} ms, 1x1 sharded frame "
+        f"{shard_t['sharded_ms']:.3f} ms, sharded train step "
+        f"{shard_t['step_ms']:.3f} ms, K1 {shard_t['k1_ms']:.3f} ms, K2 "
+        f"{shard_t['k2_ms']:.3f} ms")
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1579,3 +1579,152 @@ def test_cli_animate_on_the_card_writes_render_image_frames(cuda, tmp_path):
         want = torch.clamp(img * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
         assert np.array_equal(_read_png(out / f"frame_{i:05d}.png"),
                               want.cpu().numpy()), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eye", [EYES[0][0], EYES[4][0]])
+@pytest.mark.parametrize("n_slab,n_data", [(2, 1), (4, 2), (2, 2)])
+@pytest.mark.parametrize("combine", ["single", "reference"])
+def test_slab_split_matches_the_unsharded_kernels(cuda, eye, n_slab, n_data,
+                                                  combine):
+    """The sharded sweep's per-rank body on every block (split_sweep: K1/K2
+    or K4/K5 on local blocks, n_slab * n_data launches of each), against
+    the unsharded kernels: maps at 2e-4 (gate off), the grid gradient on
+    seeded cotangents at rtol 1e-3, atol 1e-3 * max (the JAX sharded
+    tests' tolerances)."""
+    from volumetricrenderer_tpu_torch.parallel.sweep_sharded import \
+        split_sweep
+    cfg = RenderConfig(emission=True, quadrature="sliced",
+                       early_stop_transmittance=-1.0)
+    rng = np.random.default_rng(1)
+    scroll = None
+    if combine == "single":
+        grid = torch.tensor(rng.uniform(0.2, 1.0, (16, 16, 16)),
+                            dtype=torch.float32, device=cuda)
+        medium, mods = MediumConfig(combine="single", density=8.0), \
+            (sweep_fwd, sweep_bwd)
+    else:
+        grid = torch.tensor(rng.uniform(0.1, 1.0, (16, 16, 16, 4)),
+                            dtype=torch.float32, device=cuda)
+        scroll = torch.tensor(rng.uniform(-1.5, 1.5, (4, 3)),
+                              dtype=torch.float32, device=cuda)
+        medium, mods = MediumConfig(density=4.0), (sweep_ref_fwd,
+                                                   sweep_ref_bwd)
+    plan = plan_for(make_camera(CameraConfig(eye=eye, width=96, height=64)),
+                    grid.shape[:3], cfg, device=cuda)
+    cts = [torch.tensor(rng.normal(size=plan.base_shape), dtype=torch.float32,
+                        device=cuda) for _ in range(3)]
+
+    def run(split):
+        g = grid.clone().requires_grad_()
+        perm = plan.perm + ((3,) if g.dim() == 4 else ())
+        before = [m.launches for m in mods]
+        if split:
+            maps = split_sweep(g, plan, cfg, medium, n_slab, n_data, scroll)
+        elif combine == "single":
+            maps = sweep_fwd.sweep_base(g.permute(perm), plan, cfg, medium)
+        else:
+            maps = sweep_ref_fwd.sweep_base_ref(g.permute(perm), plan, cfg,
+                                                medium, scroll=scroll)
+        sum((m * c).sum() for m, c in zip(maps[:3], cts)).backward()
+        torch.cuda.synchronize()
+        return maps, g.grad, [m.launches - b for m, b in zip(mods, before)]
+
+    got, dg, launches = run(True)
+    want, dg_want, _ = run(False)
+    assert launches == [n_slab * n_data] * 2
+    for g, w, n in zip(got, want, NAMES):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4, msg=n)
+    scale = float(dg_want.abs().max())
+    torch.testing.assert_close(dg, dg_want, rtol=1e-3, atol=1e-3 * scale)
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_equals_render_image(cuda):
+    """initialize_distributed starts a one-process NCCL group (tcp on
+    localhost); sweep_render_sharded on its 1x1 mesh equals
+    render_image on the same plan bit for bit, with one K1 launch; its
+    train step launches K1 and K2 once a step."""
+    import torch.distributed as dist
+
+    from volumetricrenderer_tpu_torch import cloud_volume, render_image
+    from volumetricrenderer_tpu_torch.parallel.bootstrap import \
+        initialize_distributed
+    from volumetricrenderer_tpu_torch.parallel.mesh import make_mesh
+    from volumetricrenderer_tpu_torch.parallel.sweep_sharded import (
+        make_sweep_train_step, sweep_render_sharded)
+    import socket
+
+    from volumetricrenderer_tpu_torch.parallel import bootstrap
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    assert initialize_distributed(coordinator_address=f"localhost:{port}",
+                                  num_processes=1, process_id=0, retries=1)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(device="cuda")
+        grid = cloud_volume(32, 7, device=cuda)
+        cam = make_camera(CameraConfig(width=96, height=64))
+        cfg = RenderConfig(emission=True, quadrature="sliced")
+        medium = MediumConfig(combine="single", density=8.0)
+        plan = plan_for(cam, grid.shape, cfg, device=cuda)
+        before = sweep_fwd.launches
+        img = sweep_render_sharded(grid, plan, mesh, cfg, medium)
+        assert sweep_fwd.launches == before + 1
+        assert torch.equal(img, render_image(grid, cam, cfg, medium,
+                                             plan=plan))
+        g = torch.full_like(grid, 0.1)
+        step, _ = make_sweep_train_step(mesh, plan, cfg, medium, g,
+                                        learning_rate=5e-2)
+        before = (sweep_fwd.launches, sweep_bwd.launches)
+        losses = [step(img[..., :3]) for _ in range(3)]
+        assert (sweep_fwd.launches, sweep_bwd.launches) == \
+            (before[0] + 3, before[1] + 3)
+        assert losses[-1] < losses[0]
+    finally:
+        dist.destroy_process_group()
+        bootstrap._initialized = False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["reference clamp", "reference wrap",
+                                  "light of another shape",
+                                  "absorption with light"])
+def test_repaired_configurations_on_the_card(cuda, case):
+    """The configurations no kernel covers take the general sweep on the
+    card too (no kernel launch) and equal the same call on the CPU; a
+    light volume with absorption is dropped and K1 sweeps."""
+    from volumetricrenderer_tpu_torch.ops.sweep import sweep_render
+    rng = np.random.default_rng(2)
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    grid = rng.uniform(0.1, 1.0, (16, 16, 16, 4)).astype(np.float32)
+    medium, scroll, lvol = MediumConfig(density=4.0), \
+        rng.uniform(-1.5, 1.5, (4, 3)).astype(np.float32), None
+    if case.startswith("reference"):
+        cfg = RenderConfig(emission=True, quadrature="sliced",
+                           address_mode=case.split()[1])
+    else:
+        medium, scroll, grid = MediumConfig(combine="single", density=8.0), \
+            None, grid[..., 0].copy()
+        lvol = rng.uniform(0.0, 1.0, (12, 20, 10) if "shape" in case
+                           else (16, 16, 16)).astype(np.float32)
+        if "absorption" in case:
+            cfg = RenderConfig(emission=False, quadrature="sliced")
+    plan = plan_for(make_camera(CameraConfig(eye=EYES[0][0], width=96,
+                                             height=64)),
+                    grid.shape[:3], cfg, device="cpu")
+    plan_gpu = plan_for(make_camera(CameraConfig(eye=EYES[0][0], width=96,
+                                                 height=64)),
+                        grid.shape[:3], cfg, device=cuda)
+
+    def call(dev, p):
+        def t(x):
+            return None if x is None else torch.from_numpy(x).to(dev)
+        return sweep_render(t(grid), p, cfg, medium, scroll=t(scroll),
+                            light_volume=t(lvol))
+    before = sweep_fwd.launches + sweep_ref_fwd.launches
+    got = call(cuda, plan_gpu).cpu()
+    launched = sweep_fwd.launches + sweep_ref_fwd.launches - before
+    assert launched == (1 if "absorption" in case else 0)
+    torch.testing.assert_close(got, call("cpu", plan), rtol=RTOL, atol=1e-4)

@@ -27,6 +27,10 @@ def test_sources_import_no_jax():
             "volumetricrenderer_tpu_torch/utils/sanitize.py",
             "volumetricrenderer_tpu_torch/serve.py",
             "volumetricrenderer_tpu_torch/utils/video.py",
+            "volumetricrenderer_tpu_torch/parallel/mesh.py",
+            "volumetricrenderer_tpu_torch/parallel/bootstrap.py",
+            "volumetricrenderer_tpu_torch/parallel/sweep_sharded.py",
+            "volumetricrenderer_tpu_torch/parallel/render_sharded.py",
             "chip_smoke.py", "kernel_ab.py"} <= names
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -119,6 +123,24 @@ def test_port_imports_and_renders_without_jax():
             camera=dataclasses.replace(p.camera, width=12, height=8))
         frame = InteractiveRenderer(p, probe=1, device="cpu").render_frame()
         assert frame.shape == (8, 12, 3) and frame.dtype.name == "uint8"
+        # parallel/: a sharded frame and train step on a one-process gloo
+        # mesh
+        import torch.distributed as dist
+        from volumetricrenderer_tpu_torch.parallel import sweep_sharded
+        from volumetricrenderer_tpu_torch.parallel.mesh import make_mesh
+        dist.init_process_group("gloo", init_method="file://" + out + "/pg",
+                                rank=0, world_size=1)
+        cfg = T.RenderConfig(emission=True, quadrature="sliced")
+        med = T.MediumConfig(combine="single", density=8.0)
+        mesh = make_mesh(device="cpu")
+        plan = T.plan_for(cam, grid.shape, cfg, device="cpu")
+        img = sweep_sharded.sweep_render_sharded(grid, plan, mesh, cfg, med)
+        assert torch.equal(img, T.render_image(grid, cam, cfg, med,
+                                               plan=plan))
+        step, _ = sweep_sharded.make_sweep_train_step(
+            mesh, plan, cfg, med, torch.full_like(grid, 0.4))
+        assert step(img[..., :3]) > 0.0
+        dist.destroy_process_group()
         assert not any(k in ("jax", "optax")
                        or k.startswith(("jax.", "jaxlib", "optax."))
                        for k, v in sys.modules.items() if v is not None)

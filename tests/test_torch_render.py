@@ -107,13 +107,11 @@ def test_render_backends_and_errors(cloud):
         T.render_image(grid[..., None], tcam, tcfg, tmed, plan=plan), auto,
         rtol=0, atol=0)
     grid4 = grid[..., None].expand(-1, -1, -1, 4)
-    # a light volume must have the grid's spatial shape, and needs emission
+    # a light volume must be 3-D (one of another shape, or one with
+    # absorption, renders: test_repaired_configurations_match_jax)
     with pytest.raises(NotImplementedError, match="light volume"):
         T.render_image(grid4, tcam, tcfg, T.MediumConfig(), plan=plan,
-                       light_volume=grid[:-1])
-    with pytest.raises(NotImplementedError, match="light volume"):
-        T.render_image(grid, tcam, dataclasses.replace(tcfg, emission=False),
-                       tmed, plan=plan, light_volume=grid)
+                       light_volume=grid4)
     # bfloat16 is a stream mode of the sweep now; no other type is
     with pytest.raises(NotImplementedError, match="float16"):
         T.render_image(grid4, tcam,
@@ -130,6 +128,35 @@ def test_render_backends_and_errors(cloud):
                               light=T.LightConfig(shadow_steps=4))
     assert bool((shadowed[..., :3] <= marched[..., :3] + 1e-6).all())
     assert float((marched[..., :3] - shadowed[..., :3]).max()) > 1e-3
+
+
+@pytest.mark.parametrize("case", ["reference, light of another shape",
+                                  "absorption with a light volume"])
+def test_repaired_configurations_match_jax(cloud, case):
+    """Two configurations the port once refused and the JAX package
+    renders: the reference medium shaded by a light volume of another shape
+    than the grid's (the general sweep), and a light volume with
+    absorption (never read). Frame against the JAX render_image on the same
+    grid, camera and light volume."""
+    jcfg, jmed, jcam, tcfg, tmed, tcam = _configs(True)
+    lvol = cloud[:-1].copy()
+    grid = cloud[..., None].repeat(4, axis=-1).copy()
+    jmed, tmed = J.MediumConfig(density=4.0), T.MediumConfig(density=4.0)
+    if case.startswith("absorption"):
+        jcfg = dataclasses.replace(jcfg, emission=False)
+        tcfg = dataclasses.replace(tcfg, emission=False)
+        grid, lvol = cloud.copy(), cloud.copy()
+        jmed = J.MediumConfig(combine="single", density=8.0)
+        tmed = T.MediumConfig(combine="single", density=8.0)
+    jplan = jsweep.plan_sweep(jcam, cloud.shape, jcfg)
+    want = np.asarray(jsweep.sweep_render(
+        jnp.asarray(grid), jplan, jcfg, jmed, light_volume=jnp.asarray(lvol),
+        use_pallas=False))
+    got = T.render_image(torch.from_numpy(grid), tcam, tcfg, tmed,
+                         plan=torch_plan(jplan),
+                         light_volume=torch.from_numpy(lvol))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    assert float(got[..., 3].max()) > 0.0
 
 
 def _grid4(seed=0, d=16):

@@ -34,6 +34,7 @@ from volumetricrenderer_tpu.ops.camera import make_camera
 from volumetricrenderer_tpu.ops.integrate import \
     reference_media_scroll as jscroll
 from volumetricrenderer_tpu.ops.sweep import _sweep_base, plan_sweep
+from volumetricrenderer_tpu.ops.sweep import sweep_render as jsweep_render
 from volumetricrenderer_tpu_torch.config import LightConfig, MediumConfig, \
     RenderConfig
 from volumetricrenderer_tpu_torch.kernels import build, sweep_fwd, \
@@ -294,25 +295,52 @@ def test_supported_gate_reference():
 
 
 def test_unported_reference_options_raise():
+    """What the port still refuses: a light volume that is not 3-D, the
+    float16 type and a 3-D grid with the reference combine (the
+    configurations it once refused besides are held to JAX by
+    test_repaired_reference_options_match_jax)."""
     grid, _, _, _, tcfg, tplan, tmed = _setup(True)
     g = torch.from_numpy(grid)
-    # a light volume needs emission and the grid's spatial shape
-    with pytest.raises(NotImplementedError, match="light volume"):
-        sweep_render(g, tplan, dataclasses.replace(tcfg, emission=False),
-                     tmed, light_volume=g[..., 0])
-    with pytest.raises(NotImplementedError, match="light volume"):
-        sweep_render(g, tplan, tcfg, tmed, light_volume=g[:-1, :, :, 0])
     with pytest.raises(NotImplementedError, match="light volume"):
         sweep_render(g, tplan, tcfg, tmed, light_volume=g)
     with pytest.raises(NotImplementedError, match="float16"):
         sweep_render(g, tplan, dataclasses.replace(tcfg, dtype="float16"),
                      tmed)
-    with pytest.raises(NotImplementedError, match="mirror"):
-        sweep_render(g, tplan, dataclasses.replace(tcfg,
-                                                   address_mode="clamp"),
-                     tmed)
     with pytest.raises(NotImplementedError):
         sweep_render(g[..., 0], tplan, tcfg, tmed)
+
+
+@pytest.mark.parametrize("case", ["absorption with a light volume",
+                                  "light volume of another shape",
+                                  "clamp addressing"])
+def test_repaired_reference_options_match_jax(case):
+    """The reference-medium configurations the port once refused, against
+    the JAX jnp sweep's frame on the same plan: a light volume with
+    absorption (never read), one of another shape than the grid's, and
+    clamp addressing (both through the general sweep)."""
+    grid, jcfg, jplan, jmed, tcfg, tplan, tmed = _setup(True)
+    lvol = grid[..., 0].copy()
+    if case.startswith("absorption"):
+        jcfg = dataclasses.replace(jcfg, emission=False)
+        tcfg = dataclasses.replace(tcfg, emission=False)
+    elif case.startswith("light"):
+        lvol = lvol[:-1].copy()
+    else:
+        jcfg = dataclasses.replace(jcfg, address_mode="clamp")
+        tcfg = dataclasses.replace(tcfg, address_mode="clamp")
+        lvol = None
+    scroll = np.random.default_rng(5).uniform(-1.5, 1.5, (4, 3)) \
+        .astype(np.float32)
+    want = np.asarray(jsweep_render(
+        jnp.asarray(grid), jplan, jcfg, jmed, scroll=jnp.asarray(scroll),
+        light_volume=None if lvol is None else jnp.asarray(lvol),
+        use_pallas=False))
+    got = sweep_render(torch.from_numpy(grid), tplan, tcfg, tmed,
+                       scroll=torch.from_numpy(scroll),
+                       light_volume=None if lvol is None
+                       else torch.from_numpy(lvol))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    assert float(got[..., 3].max()) > 0.0
 
 
 def test_reference_media_scroll_matches_jax():

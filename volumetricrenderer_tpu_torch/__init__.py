@@ -3,16 +3,17 @@ volumetricrenderer_tpu, for NVIDIA Hopper GPUs.
 
 The JAX package beside it stays the reference: every module here has a
 counterpart there under the same relative path, and the tests
-(tests/test_torch_*.py) run both on the same inputs. Ported so far: the
-forward render (configs, noise, the FBM cloud and the reference preset's
-4-channel volume, cameras, the sweep plan, the screen warp, render_image,
-PNG output), the training path (fit_grid, the per-ray oracle), the
-slice sweep as four hand-written CUDA kernels, each with its plain PyTorch
-version: forward and backward of the single-channel medium and of the
-4-channel reference medium, and the shadows of BASELINE config 4 (the
-light-transmittance volume and the kernels' light branch), the bfloat16
-stream mode of all four kernels (RenderConfig(dtype="bfloat16")), and the
-preset front end (render_preset, render_scene, `cli render` and `info`).
+(tests/test_torch_*.py) run both on the same inputs. The port does all
+that the JAX package does: the forward render and its training path
+(configs, noise, volumes and scenes, cameras, the sweep plan, the screen
+warp, render_image, fit_grid, the per-ray oracle), the slice sweep as four
+hand-written CUDA kernels, each with its plain PyTorch version (forward
+and backward of the single-channel medium and of the 4-channel reference
+medium, with BASELINE config 4's light volume, in float32 and in the
+bfloat16 stream mode), the general PyTorch sweep for what no kernel covers,
+the preset and viewer front ends (render_preset, render_scene, serve,
+`cli render | fit | info | serve | animate`), and the slab-sharded sweep
+and train step over torch.distributed (parallel/, BASELINE config 5).
 This package never imports jax.
 """
 
@@ -27,7 +28,13 @@ from .config import (  # noqa: F401
     VolumeConfig,
     get_preset,
 )
-from .models.scene import build_volume, cloud_volume  # noqa: F401
+from .models.scene import (  # noqa: F401
+    Volume,
+    build_volume,
+    cloud_volume,
+    smoke_volume,
+    two_volume_grid,
+)
 from .ops.camera import (  # noqa: F401
     Camera,
     camera_rays,
@@ -35,7 +42,11 @@ from .ops.camera import (  # noqa: F401
     make_camera,
     orbit_camera,
 )
-from .ops.integrate import reference_media_scroll  # noqa: F401
+from .ops.integrate import (  # noqa: F401
+    reference_media_scroll,
+    render_rays,
+    transform_rays,
+)
 from .ops.lighting import light_transmittance_volume  # noqa: F401
 from .ops.media import materialize_sigma  # noqa: F401
 from .render import (  # noqa: F401

@@ -57,8 +57,8 @@ from .build import (N_PARAMS, NCH, TileTally, build_library,
 from .sweep_fwd import _layer_lerp_stack, _params_for
 
 __all__ = ["sweep_ref_inputs", "sweep_ref_light_slabs", "sweep_base_ref",
-           "sweep_ref_fwd_reference", "build_kernel", "launch_kernel",
-           "launches", "tiles"]
+           "sweep_ref_apply", "sweep_ref_fwd_reference", "build_kernel",
+           "launch_kernel", "launches", "tiles"]
 
 launches = 0  # kernel launches since import (or since a caller reset it)
 tiles = TileTally()  # tile-slices (computed, read through global memory)
@@ -321,20 +321,34 @@ def sweep_base_ref(gperm4, plan, cfg: RenderConfig, medium: MediumConfig,
     if gperm4.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sweep_base_ref: no sweep for device "
                          f"{gperm4.device}")
-    L, *args = sweep_ref_inputs(gperm4, plan, cfg, medium, light, scroll)
-    lt = light if light is not None else LightConfig()
-    slabs = stage = None
+    L, slice_z, v_grid, _, seglen, params = sweep_ref_inputs(
+        gperm4, plan, cfg, medium, light, scroll)
+    slabs = None
     if lperm is not None:
         if lperm.shape != gperm4.shape[:3]:
             raise ValueError(
                 f"sweep_base_ref: the light volume must have the grid's "
                 f"shape {tuple(gperm4.shape[:3])}, got {tuple(lperm.shape)}")
         slabs = sweep_ref_light_slabs(lperm, plan, cfg)
-    if gperm4.device.type == "cuda":
-        # From the plan's own params and the medium: no read per scroll.
-        stage = ref_stage_for(plan.slice_z, plan.v_grid, plan.u_grid,
+    return sweep_ref_apply(L, slabs, slice_z, v_grid, seglen, params, plan,
+                           cfg, medium, light)
+
+
+def sweep_ref_apply(L, slabs, slice_z, v_grid, seglen, params, plan,
+                    cfg: RenderConfig, medium: MediumConfig, light=None):
+    """The sweep node on channel slabs L (S, 4, A, B) and optional light
+    slabs (S, A, B), both in slice_z order, over the base rows v_grid (and
+    their seglen) of plan; params: _params_ref's. On CUDA tensors the
+    kernels, with a stage sized from the plan's own params and the medium
+    (no read per scroll), once per plan, slices and rows; on CPU tensors
+    the plain versions."""
+    lt = light if light is not None else LightConfig()
+    stage = None
+    if L.device.type == "cuda":
+        stage = ref_stage_for(slice_z, v_grid, plan.u_grid,
                               _params_for(plan, cfg, medium, lt),
                               L.shape[2], L.shape[3],
                               medium.channel_coord_scale, slabs is not None)
-    return _SweepRef.apply(L, slabs, *args, cfg.emission,
-                           cfg.dtype == "bfloat16", stage)
+    return _SweepRef.apply(L, slabs, slice_z, v_grid, plan.u_grid, seglen,
+                           params, cfg.emission, cfg.dtype == "bfloat16",
+                           stage)

@@ -2,7 +2,8 @@
 volumetricrenderer_tpu/models/scene.py): noise -> min-max normalize ->
 invert -> sharpen per channel, the FBM cloud that the flagship render
 sweeps, the smoke column, and BASELINE config 3's two-volume scene baked
-onto one grid (the target of the config-3 fit)."""
+onto one grid (the target of the config-3 fit), or summed in place
+(two_volume_grid)."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,7 +15,8 @@ from ..config import VolumeConfig
 from ..ops import noise as noise_ops
 
 __all__ = ["build_channel", "build_volume", "cloud_volume", "smoke_volume",
-           "Volume", "translate_w2l", "bake_scene", "config3_scene"]
+           "Volume", "translate_w2l", "bake_scene", "config3_scene",
+           "two_volume_grid"]
 
 
 def build_channel(kind, size, frequency, seed, octaves=1, sharpen_power=1,
@@ -139,3 +141,13 @@ def config3_scene(size, cloud_seed=7, smoke_seed=23, device="cuda"):
                    translate_w2l(0.0, 0.0, -round(0.3 / half) * half,
                                  device=device))
     return [cloud, smoke]
+
+
+def two_volume_grid(size, cloud_seed=7, smoke_seed=23, device="cuda"):
+    """BASELINE config 3's cloud + smoke scene summed on one (size, size,
+    size) grid in place, with no transforms: clip(cloud + 0.7 * smoke,
+    0, 1). Built on `device`, "cuda" unless the caller asks for another:
+    without a GPU the default raises torch's own error."""
+    cloud = cloud_volume(size, seed=cloud_seed, device=device)
+    smoke = smoke_volume(size, seed=smoke_seed, device=device)
+    return torch.clamp(cloud + smoke * 0.7, 0.0, 1.0)

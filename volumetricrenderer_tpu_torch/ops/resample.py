@@ -1,5 +1,6 @@
 """Linear resampling as banded weight matrices (port of
-volumetricrenderer_tpu/ops/resample.py's linear_resample_matrix).
+volumetricrenderer_tpu/ops/resample.py's linear_resample_matrix), and the
+gather-based bilinear sample of a 2-D image (sample_bilinear_2d).
 
 `W @ line` linearly interpolates `line` at the given normalized positions
 (texel i centered at (i+0.5)/n_in) under a sampler address mode. The sweep's
@@ -11,7 +12,7 @@ import torch
 
 from .sampling import apply_address_mode
 
-__all__ = ["linear_taps", "linear_resample_matrix"]
+__all__ = ["linear_taps", "linear_resample_matrix", "sample_bilinear_2d"]
 
 
 def linear_taps(u01: torch.Tensor, n_in: int, address_mode: str = "mirror",
@@ -62,3 +63,28 @@ def linear_resample_matrix(u01: torch.Tensor, n_in: int,
         inr = ((u01 >= 0.0) & (u01 <= 1.0)).to(dtype)
         W = W * inr[:, None]
     return W
+
+
+def sample_bilinear_2d(img, rows01, cols01, address_mode="clamp"):
+    """Bilinear sample of an (H, W) or (H, W, C) image at normalized
+    positions rows01, cols01 (same shape, texel-center convention as
+    sample_trilinear) by four gathers. Differentiable in img."""
+    squeeze = img.dim() == 2
+    if squeeze:
+        img = img[..., None]
+    H, W, _ = img.shape
+    py = rows01.to(torch.float32) * H - 0.5
+    px = cols01.to(torch.float32) * W - 0.5
+    y0f, x0f = torch.floor(py), torch.floor(px)
+    fy, fx = (py - y0f)[..., None], (px - x0f)[..., None]
+    y0, x0 = y0f.to(torch.int64), x0f.to(torch.int64)
+    y0w = apply_address_mode(y0, H, address_mode)
+    y1w = apply_address_mode(y0 + 1, H, address_mode)
+    x0w = apply_address_mode(x0, W, address_mode)
+    x1w = apply_address_mode(x0 + 1, W, address_mode)
+    c00, c01 = img[y0w, x0w], img[y0w, x1w]
+    c10, c11 = img[y1w, x0w], img[y1w, x1w]
+    c0 = c00 + fx * (c01 - c00)
+    c1 = c10 + fx * (c11 - c10)
+    out = c0 + fy * (c1 - c0)
+    return out[..., 0] if squeeze else out

@@ -3,14 +3,14 @@ apply_address_mode and sample_trilinear from
 volumetricrenderer_tpu/ops/sampling.py): mirror (Vulkan MIRRORED_REPEAT),
 clamp-to-edge and wrap, applied to integer texel indices, and the
 texel-center linear filter (texel i covers [i/N, (i+1)/N), so a normalized
-position x samples at x*N - 0.5). Also clip_unit, the clip to [0, 1] with
+position x samples at x*N - 0.5), and dequantize_uint8. Also clip_unit, the clip to [0, 1] with
 jnp.clip's subgradient, which shades the light-transmittance sample."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["apply_address_mode", "sample_trilinear", "clip_unit",
-           "clip_unit_grad"]
+__all__ = ["apply_address_mode", "dequantize_uint8", "sample_trilinear",
+           "clip_unit", "clip_unit_grad"]
 
 
 def apply_address_mode(idx: torch.Tensor, size: int, mode: str) -> torch.Tensor:
@@ -28,6 +28,13 @@ def apply_address_mode(idx: torch.Tensor, size: int, mode: str) -> torch.Tensor:
     if mode == "wrap":
         return torch.remainder(idx, size)
     raise ValueError(f"unknown address mode {mode!r}")
+
+
+def dequantize_uint8(grid_u8):
+    """uint8 unorm -> float32 in [0, 1], x * (1 / 255) as the Vulkan sampler
+    reads VK_FORMAT_R8G8B8A8_UNORM."""
+    return grid_u8.to(torch.float32) * torch.tensor(1.0 / 255.0,
+                                                    dtype=torch.float32)
 
 
 def sample_trilinear(grid, coords, address_mode="mirror"):

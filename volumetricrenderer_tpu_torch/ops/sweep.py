@@ -10,7 +10,12 @@ Rendering onto a regular (v, u) base grid therefore makes every slice's
 resampling separable, and the volume integral becomes a front-to-back loop
 over slices (kernels/sweep_fwd.py) followed by one projective warp from the
 base grid to the screen pixels (warp_base_to_pixels). The 4-channel
-reference medium sweeps the same way (kernels/sweep_ref_fwd.py).
+reference medium sweeps the same way (kernels/sweep_ref_fwd.py). What no
+kernel covers (the reference medium with clamp or wrap addressing, a light
+volume of another shape than the grid's) takes the general sweep
+(_sweep_base), plain PyTorch like the JAX package's jnp sweep; the
+compositing monoid composite_base_maps joins the base maps of consecutive
+slice ranges (parallel/sweep_sharded.py).
 
 The plan is built on the host in numpy, as in the JAX package, and its
 arrays are placed on the requested device. Of the JAX plan's fields, only
@@ -27,14 +32,19 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LightConfig, MediumConfig, RenderConfig
 from ..kernels import sweep_fwd, sweep_ref_fwd
+from ..kernels.build import bf16_round
+from ..utils.metrics import get_logger
 from .camera import Camera
+from .resample import linear_resample_matrix
+from .sampling import apply_address_mode, clip_unit
 
 __all__ = ["SweepPlan", "plan_sweep", "plan_base_dims", "base_rays",
            "sweep_render", "warp_base_to_pixels", "warp_inputs",
-           "postwarp_pixels", "finish_image"]
+           "postwarp_pixels", "finish_image", "composite_base_maps"]
 
 
 # Grid dims are (z, y, x) = dims (0, 1, 2); coord axes are (x, y, z).
@@ -394,6 +404,228 @@ def finish_image(base_maps, plan: SweepPlan, cfg: RenderConfig,
     return postwarp_pixels(out, cfg, medium, light)
 
 
+def _layer_lerp(gperm, qk, depth, address_mode):
+    """The two layers of gperm (D, A, B[, C]) bracketing the normalized
+    sweep coordinate qk (a 0-dim tensor), lerped."""
+    p = qk * depth - 0.5
+    i0f = torch.floor(p)
+    f = p - i0f
+    i0 = i0f.to(torch.int64)
+    l0 = apply_address_mode(i0, depth, address_mode)
+    l1 = apply_address_mode(i0 + 1, depth, address_mode)
+    g0 = torch.index_select(gperm, 0, l0.reshape(1))[0]
+    g1 = torch.index_select(gperm, 0, l1.reshape(1))[0]
+    return g0 + f * (g1 - g0)
+
+
+def _resample_slice(g2d, a01, b01, address_mode, low):
+    """Wa @ g2d @ Wb^T with the banded matrices of ops/resample.py. The
+    matrices are plan geometry, never differentiated. low (the bfloat16
+    mode, as the JAX package's jnp sweep takes it): the matrices, the slab
+    and the product between the two matmuls rounded to bfloat16, products
+    summed in float32."""
+    A, B = g2d.shape
+    Wa = linear_resample_matrix(a01.detach(), A, address_mode)
+    Wb = linear_resample_matrix(b01.detach(), B, address_mode)
+    g2d = g2d.to(torch.float32)
+    if low:
+        Wa, Wb, g2d = bf16_round(Wa), bf16_round(Wb), bf16_round(g2d)
+    t = Wa @ g2d
+    if low:
+        t = bf16_round(t)
+    return t @ Wb.T
+
+
+def _combine_reference_inplane(channel_slab, a01, b01, medium, offs,
+                               address_mode, low):
+    """The reference combine's in-plane half: per channel, the separable
+    resample of its (already sweep-axis lerped) 2-D slab channel_slab(c) at
+    its scaled and scrolled coordinates, then (s1*s2)*(s3+s4)*scale.
+    offs: sweep_ref_fwd._channel_offsets' (k, a, b) offsets per channel."""
+    samples = []
+    for c in range(4):
+        sc = medium.channel_coord_scale[c]
+        _, off_a, off_b = offs[c]
+        samples.append(_resample_slice(channel_slab(c), a01 * sc + off_a,
+                                       b01 * sc + off_b, address_mode, low))
+    s1, s2, s3, s4 = samples
+    return (s1 * s2) * (s3 + s4) * medium.sample_scale
+
+
+def _sigma_general(gperm, z_s, a01, b01, medium, offs, address_mode, low):
+    """Per-slice extinction (Hb, Wb) for either combine mode, any coordinate
+    scale and scroll: ops/integrate.sample_sigma with the trilinear sample
+    split into the sweep-axis layer lerp and the separable in-plane
+    resample."""
+    depth = gperm.shape[0]
+    if medium.combine == "reference":
+        def lerped_channel(c):
+            sc = medium.channel_coord_scale[c]
+            return _layer_lerp(gperm[..., c], z_s * sc + offs[c][0], depth,
+                               address_mode)
+        return _combine_reference_inplane(lerped_channel, a01, b01, medium,
+                                          offs, address_mode, low)
+    if medium.combine == "single":
+        g = gperm[..., 0] if gperm.dim() == 4 else gperm
+        g = _layer_lerp(g, z_s, depth, address_mode)
+        return _resample_slice(g, a01, b01, address_mode, low) \
+            * medium.sample_scale
+    raise ValueError(f"unknown combine mode {medium.combine!r}")
+
+
+def _sweep_base(gperm, lperm, slice_z, v_grid, u_grid, seglen,
+                plan: SweepPlan, cfg: RenderConfig, medium: MediumConfig,
+                light: Optional[LightConfig], scroll, chan_slabs=None,
+                light_slabs=None):
+    """The general sweep: front-to-back composited base maps (acc, trans,
+    wsum, hit), each (len(v_grid), len(u_grid)) float32, over an explicit
+    slice subset and base-row subset, in plain PyTorch (the port of the JAX
+    package's jnp sweep, ops/sweep.py _sweep_base).
+
+    gperm: the grid permuted so the sweep axis is dim 0 (D, A, B[, C]),
+    read through _layer_lerp at each slice; lperm: an optional light
+    volume in the same layout, of any shape (its own depth, and its own A,
+    B for the in-plane resample); read only with emission. chan_slabs:
+    optional (S, C, A, B) pre-lerped channel slabs of the reference combine
+    in slice order, in place of gperm; light_slabs: optional (S, A', B')
+    pre-lerped light layers in slice order, in place of lperm. With them a
+    slab-local block of slices sweeps on its own
+    (parallel/sweep_sharded.py); a slab's partial maps combine with
+    composite_base_maps.
+
+    Memory: the slices run in chunks of about sqrt(S), each under
+    torch.utils.checkpoint, so the backward keeps O(sqrt(S)) base images
+    (the JAX package's two-level checkpointed scan)."""
+    low = cfg.dtype == "bfloat16"
+    Hb, Wb = v_grid.shape[0], u_grid.shape[0]
+    e_k, e_a, e_b = plan.eye01[0], plan.eye01[1], plan.eye01[2]
+    lt = light if light is not None else LightConfig()
+    offs = None
+    if medium.combine == "reference":
+        offs = sweep_ref_fwd._channel_offsets(medium, scroll,
+                                              plan.coord_order,
+                                              device=v_grid.device)
+    S = slice_z.shape[0]
+    chunk = max(1, int(round(math.sqrt(S))))
+
+    def slices(s0, s1, acc, trans, wsum, hit):
+        for s in range(s0, s1):
+            z_s = slice_z[s]
+            delta = z_s - e_k
+            a01 = e_a + delta * v_grid
+            b01 = e_b + delta * u_grid
+            front = (delta * plan.sign) > 0.0
+            maskf = (_in01(a01)[:, None] & _in01(b01)[None, :]
+                     & front).to(torch.float32)
+            if chan_slabs is not None:
+                chan_s = chan_slabs[s]
+                sigma = _combine_reference_inplane(
+                    lambda c: chan_s[c], a01, b01, medium, offs,
+                    cfg.address_mode, low)
+            else:
+                sigma = _sigma_general(gperm, z_s, a01, b01, medium, offs,
+                                       cfg.address_mode, low)
+            sigma = sigma * maskf
+            if cfg.emission:
+                live = (trans > cfg.early_stop_transmittance).to(
+                    torch.float32)
+                alpha = live * (1.0 - torch.exp(-medium.density * sigma
+                                                * seglen))
+                shade = 1.0
+                lT = None
+                if light_slabs is not None:
+                    lT = light_slabs[s]
+                elif lperm is not None:
+                    lT = _layer_lerp(lperm, z_s, lperm.shape[0],
+                                     cfg.address_mode)
+                if lT is not None:
+                    lT = _resample_slice(lT, a01, b01, cfg.address_mode, low)
+                    shade = lt.ambient + (1.0 - lt.ambient) * clip_unit(lT)
+                wsum = wsum + trans * alpha * shade
+                trans = trans * (1.0 - alpha)
+            else:
+                acc = acc + sigma * seglen
+                hit = torch.maximum(hit, maskf)
+        return acc, trans, wsum, hit
+
+    kw = dict(dtype=torch.float32, device=v_grid.device)
+    carry = (torch.zeros((Hb, Wb), **kw), torch.ones((Hb, Wb), **kw),
+             torch.zeros((Hb, Wb), **kw), torch.zeros((Hb, Wb), **kw))
+    for s0 in range(0, S, chunk):
+        s1 = min(s0 + chunk, S)
+        if torch.is_grad_enabled():
+            carry = checkpoint(slices, s0, s1, *carry, use_reentrant=False)
+        else:
+            carry = slices(s0, s1, *carry)
+    return carry
+
+
+def composite_base_maps(near, far):
+    """Front-to-back combination of two composited base-map tuples, the
+    associative (not commutative) monoid that makes a split of the slices
+    exact: acc = acc1 + acc2, T = T1 * T2, wsum = w1 + T1 * w2, hit =
+    max(h1, h2)."""
+    acc1, t1, w1, h1 = near
+    acc2, t2, w2, h2 = far
+    return (acc1 + acc2, t1 * t2, w1 + t1 * w2, torch.maximum(h1, h2))
+
+
+_GENERAL_WARNED = set()
+
+
+def _general_sweep_reason(shape, cfg: RenderConfig, medium: MediumConfig,
+                          light_volume, scroll):
+    """Why no kernel covers this configuration on a grid of `shape` (the
+    JAX package's Pallas gate, sweep_pallas.supported, refuses the same
+    ones) when the general sweep does; None when the kernels cover it.
+    Raises NotImplementedError for what neither covers."""
+    ndim, lshape = len(shape), (None if light_volume is None
+                                else tuple(light_volume.shape))
+    if sweep_fwd.supported(cfg, medium, light_volume, scroll, ndim) \
+            and lshape in (None, shape[:3]):
+        return None
+    ok = (cfg.dtype in ("float32", "bfloat16")
+          and (lshape is None or len(lshape) == 3)
+          and ((medium.combine == "single" and ndim == 3)
+               or (medium.combine == "reference" and ndim == 4
+                   and shape[-1] >= 4)))
+    if not ok:
+        raise NotImplementedError(
+            "the torch sweep covers combine='single' (channel 0, no scroll) "
+            "and combine='reference' with a (D, H, W, 4) grid and an "
+            "optional (4, 3) scroll, in float32 or bfloat16, with an "
+            "optional 3-D light volume; got combine="
+            f"{medium.combine!r}, grid.shape={shape}, "
+            f"dtype={cfg.dtype!r}, light volume shape={lshape}")
+    if lshape is not None and lshape != shape[:3]:
+        return f"a light volume of shape {lshape} on a grid of {shape[:3]}"
+    return (f"combine={medium.combine!r} with address_mode="
+            f"{cfg.address_mode!r}")
+
+
+def sweep_config(grid, cfg: RenderConfig, medium: MediumConfig, scroll,
+                 light_volume, shape=None):
+    """The configuration as the sweeps take it: (grid, scroll,
+    light_volume, general). Combine "single" reads channel 0 and no
+    scroll; with absorption a light volume is never read (nor
+    differentiated, as in the JAX package), so it is dropped. general:
+    why no kernel covers the rest (the general sweep takes it), or None.
+    shape: the whole grid's shape when `grid` is a block of it
+    (parallel/sweep_sharded.py); by default grid's own. Raises
+    NotImplementedError for what neither the kernels nor the general
+    sweep cover."""
+    shape = tuple(grid.shape if shape is None else shape)
+    if medium.combine == "single":
+        if grid.dim() == 4:
+            grid, shape = grid[..., 0], shape[:3]
+        scroll = None
+    if light_volume is not None and light_volume.dim() == 3 \
+            and not cfg.emission:
+        light_volume = None
+    general = _general_sweep_reason(shape, cfg, medium, light_volume, scroll)
+    return grid, scroll, light_volume, general
+
+
 def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
                  medium: MediumConfig, light: Optional[LightConfig] = None,
                  scroll=None, light_volume=None):
@@ -410,42 +642,42 @@ def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
     grids take the single-channel kernels. The JAX package sends that form
     to its general jnp sweep, which computes the same function on another
     route.
-    light_volume: optional (D, H, W) light-transmittance grid of the
-    grid's spatial shape (ops/lighting.py): with emission every sample is
+    light_volume: optional 3-D light-transmittance grid (ops/lighting.py),
+    the grid's spatial shape or another: with emission every sample is
     shaded by its clipped trilinear sample, and the frame is
     differentiable in it too.
     cfg.dtype "bfloat16" sweeps in the kernels' bfloat16 stream mode
     (kernels/sweep_fwd.py): texels and tap weights in bfloat16, everything
     else and the gradient in float32.
-    Configurations the kernels do not cover raise NotImplementedError: what
-    else the JAX package's general jnp sweep served (clamp or wrap
-    addressing with "reference", a light volume with absorption or of
-    another shape) is not ported."""
-    if medium.combine == "single":
-        if grid.dim() == 4:
-            grid = grid[..., 0]
-        scroll = None
-    ok = (sweep_fwd.supported(cfg, medium, light_volume, scroll, grid.dim())
-          and (light_volume is None
-               or light_volume.shape == grid.shape[:3]))
-    if not ok:
-        raise NotImplementedError(
-            "the torch sweep covers combine='single' (channel 0, no scroll)"
-            " with mirror/clamp/wrap addressing, and combine='reference' "
-            "with a 4-D grid and mirror addressing, either in float32 or "
-            "bfloat16 and with emission and a 3-D light volume of the "
-            f"grid's spatial shape; got combine={medium.combine!r}, "
-            f"grid.shape={tuple(grid.shape)}, scroll={scroll is not None}, "
-            f"address_mode={cfg.address_mode!r}, emission={cfg.emission}, "
-            f"dtype={cfg.dtype!r}, light_volume="
-            f"{None if light_volume is None else tuple(light_volume.shape)}")
+    The kernels take every configuration the JAX package's Pallas gate
+    takes. The rest goes to the general sweep (_sweep_base), as in the JAX
+    package: combine="reference" with clamp or wrap addressing, and a
+    light volume of another shape than the grid's (sampled at its own
+    resolution); that choice depends on the configuration only, and on a
+    CUDA grid it is logged once per configuration. With absorption a light
+    volume is never read (nor differentiated), so it is dropped and the
+    kernels sweep. A float16 dtype, a 3-D grid with "reference" and a light
+    volume that is not 3-D raise NotImplementedError."""
+    grid, scroll, light_volume, general = sweep_config(
+        grid, cfg, medium, scroll, light_volume)
+    perm = plan.perm + ((3,) if grid.dim() == 4 else ())
     lperm = (light_volume.permute(plan.perm) if light_volume is not None
              else None)
-    if medium.combine == "reference":
+    if general is not None:
+        if grid.device.type == "cuda" and general not in _GENERAL_WARNED:
+            _GENERAL_WARNED.add(general)
+            get_logger().warning(
+                "sweep: no kernel covers %s; this frame takes the general "
+                "PyTorch sweep (a loop of matmuls per slice, far slower)",
+                general)
+        base_maps = _sweep_base(grid.permute(perm), lperm, plan.slice_z,
+                                plan.v_grid, plan.u_grid, plan.seglen, plan,
+                                cfg, medium, light, scroll)
+    elif medium.combine == "reference":
         base_maps = sweep_ref_fwd.sweep_base_ref(
-            grid.permute(plan.perm + (3,)), plan, cfg, medium, light, scroll,
+            grid.permute(perm), plan, cfg, medium, light, scroll,
             lperm=lperm)
     else:
-        base_maps = sweep_fwd.sweep_base(grid.permute(plan.perm), plan, cfg,
+        base_maps = sweep_fwd.sweep_base(grid.permute(perm), plan, cfg,
                                          medium, light, lperm=lperm)
     return finish_image(base_maps, plan, cfg, medium, light=light)
