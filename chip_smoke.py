@@ -47,10 +47,13 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    grid to the 1024x1024 render of the baked cloud+smoke scene for 5
    steps (the loss must fall, no step skipped, 5 launches of each kernel);
 8. timing with CUDA events (median after warm-up): both kernels and their
-   plain versions, the warp and finish forward and backward, render_image,
-   and the flagship forward+backward step; the fit step on the host clock;
-   a torch.profiler table of the forward+backward step with the device's
-   busy and idle share;
+   plain versions, the warp (ops/sweep.py _WarpBilinear, whose backward is
+   the 4-tap splat) alone and with the finish, forward and backward,
+   render_image, and the flagship forward+backward step; the fit step on
+   the host clock; a torch.profiler table of the forward+backward step
+   with the device's busy and idle share, which fails if the step ran an
+   index_put_ backward (the scatter autograd derives for a gather; every
+   step profile below is held to the same);
 9. the 4-channel reference-combine kernels against their plain versions
    at small shapes (16^3 x 4, 96x64): five eyes x emission/absorption x
    scroll in {none, reference_media_scroll(1.7), a seeded random (4, 3)
@@ -78,9 +81,9 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    the plain backward on the same cotangents; the launch counts are set to
    0 before each of the two paths and read after;
 11. timing of that path (both kernels, their plain versions, the channel
-   slab build forward and backward, render_image, the forward+backward
-   step) at the preset and, timing only, at 256^3 x 4 and 1920x1080, with a
-   torch.profiler table of the preset's step;
+   slab build forward and backward, the warp, render_image, the
+   forward+backward step) at the preset and, timing only, at 256^3 x 4
+   and 1920x1080, with a torch.profiler table of the preset's step;
 12. the light branch of the four kernels at small shapes (16^3, 96x64):
    five eyes x mirror/wrap x the real light volume (exactly 1.0 where
    fully lit: the clip's tie) and that volume stretched to [-0.2, 1.3]
@@ -108,9 +111,9 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
 15. timing of the shadowed paths: light_transmittance_volume forward and
    forward+backward at 256^3, materialize_sigma at 128^3 x 4, the four
    kernels with a light volume and their plain versions, render_image
-   with shadows per frame (plan reused, light volume rebuilt) and the
-   shadowed forward+backward step, with a torch.profiler table of that
-   step;
+   with shadows per frame (plan reused, light volume rebuilt), the warp
+   and the shadowed forward+backward step, with a torch.profiler table of
+   that step;
 16. (the results are printed last, step 23);
 17. the bfloat16 stream mode (RenderConfig(dtype="bfloat16"): texels and
    tap weights rounded to bfloat16, everything else float32) at small
@@ -186,8 +189,8 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    light volume with absorption through K1; no main path of the phase
    calls the general sweep; (e) timings: config5's render_image, the
    1x1 sharded frame and train step (with a torch.profiler table of the
-   step), each local K1 and K2 of the 4x1 and 2x2 splits with its share
-   of the bound, and the composite;
+   step), the warp, each local K1 and K2 of the 4x1 and 2x2 splits with
+   its share of the bound, and the composite;
 23. prints a JSON line of kernel results (each kernel's launches on the
    main paths, error, time, plain version's time, and the least time the
    card could take for the same work, each also for the light variant and
@@ -241,7 +244,7 @@ from volumetricrenderer_tpu_torch.models.scene import bake_scene, \
     config3_scene
 from volumetricrenderer_tpu_torch.ops.integrate import render_rays_sliced
 from volumetricrenderer_tpu_torch.ops.sweep import base_rays, finish_image, \
-    sweep_render
+    sweep_render, warp_base_to_pixels, warp_inputs
 from volumetricrenderer_tpu_torch.parallel.sweep_sharded import split_sweep
 from volumetricrenderer_tpu_torch.utils.image import write_png
 
@@ -590,9 +593,17 @@ def ref_both(grid4, plan, cfg, medium, scroll, rng, autograd=True):
     return maps.unbind(0), want_maps, got, want, own, auto
 
 
+# Names in a torch.profiler trace of autograd deriving a gradient through
+# advanced indexing: index_put_ with accumulate, the sort-based scatter that
+# the warp's written-out adjoint (ops/sweep.py _WarpBilinear) replaces.
+SCATTER_NAMES = ("indexing_backward_kernel", "IndexBackward",
+                 "IndexPutBackward")
+
+
 def profile_fwdbwd(step, out_dir, name="chip_smoke_profile.txt", n=3):
     """torch.profiler over n forward+backward steps: prints the device
-    time by kernel and the device's busy share of the wall clock."""
+    time by kernel and the device's busy share of the wall clock; fails if
+    the steps ran an index_put_ backward (SCATTER_NAMES)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -614,6 +625,83 @@ def profile_fwdbwd(step, out_dir, name="chip_smoke_profile.txt", n=3):
     log(table)
     log(f"profile: device busy {busy_ms:.3f} ms per step of {wall_ms:.3f} "
         f"ms wall (idle share {1 - busy_ms / wall_ms:.3f}); table in {path}")
+    scatter = sorted({e.name for e in prof.events()
+                      if any(s in e.name for s in SCATTER_NAMES)})
+    if scatter:
+        fail(f"{name}: the step ran an index_put_ backward: {scatter}")
+    log(f"profile {name}: no index_put_ backward ({', '.join(SCATTER_NAMES)})")
+
+
+def warp_timings(maps, plan, cfg, medium, light=None, indent="  "):
+    """CUDA-event ms of the warp alone (warp_base_to_pixels with its miss
+    mask; backward from seeded normal cotangents) and of the warp with the
+    per-pixel finish (finish_image; loss sum of rgb^2), forward and
+    forward+backward, on these base maps; then splat_timings."""
+    maps = tuple(m.detach() for m in maps)
+    base, miss = warp_inputs(maps, cfg)
+    base = base.clone().requires_grad_()
+    gen = torch.Generator(device=base.device).manual_seed(23)
+    ct = torch.randn(tuple(plan.warp_rows01.shape) + base.shape[2:],
+                     generator=gen, device=base.device)
+    lin = tuple(m.clone().requires_grad_() for m in maps)
+
+    def warp_fb():
+        base.grad = None
+        warp_base_to_pixels(base, plan, miss=miss).backward(ct)
+
+    def finish_fb():
+        for m in lin:
+            m.grad = None
+        (finish_image(lin, plan, cfg, medium, light)[..., :3] ** 2).sum() \
+            .backward()
+    t = {"warp": cuda_ms(lambda: warp_base_to_pixels(base.detach(), plan,
+                                                     miss=miss)),
+         "warp_fb": cuda_ms(warp_fb),
+         "finish": cuda_ms(lambda: finish_image(maps, plan, cfg, medium,
+                                                light)),
+         "finish_fb": cuda_ms(finish_fb)}
+    log(f"{indent}warp alone forward        {t['warp']:.3f} ms")
+    log(f"{indent}warp alone fwd+bwd        {t['warp_fb']:.3f} ms (backward "
+        f"~{t['warp_fb'] - t['warp']:.3f} ms, the 4-tap splat)")
+    log(f"{indent}warp + finish forward     {t['finish']:.3f} ms")
+    log(f"{indent}warp + finish fwd+bwd     {t['finish_fb']:.3f} ms (backward "
+        f"~{t['finish_fb'] - t['finish']:.3f} ms)")
+    splat_timings(base.detach(), plan, ct, indent)
+
+
+def splat_timings(base, plan, ct, indent):
+    """The splat's four index_add_ alone (as _WarpBilinear's backward adds
+    them, taps precomputed) over every pixel, over the in-footprint pixels
+    only, and over every pixel with each out-of-footprint pixel's taps
+    moved to a texel of its own. Out of the footprint the cotangent is
+    zero, but the clamped taps add those zeros to the few edge texels, all
+    atomics on a few addresses; the three times separate that contention
+    from the count of adds."""
+    from volumetricrenderer_tpu_torch.ops.sweep import _in01, _taps
+    Hb, Wb, C = base.shape
+    r0, r1, _ = _taps(plan.warp_rows01, Hb)
+    c0, c1, _ = _taps(plan.warp_cols01, Wb)
+    idx = [(r * Wb + c).reshape(-1)
+           for r, c in ((r0, c0), (r1, c0), (r0, c1), (r1, c1))]
+    src = ct.reshape(-1, C)
+    inr = (_in01(plan.warp_rows01) & _in01(plan.warp_cols01)).reshape(-1)
+    inside = inr.nonzero()[:, 0]
+    own = torch.arange(inr.numel(), device=inr.device) % (Hb * Wb)
+    flat = base.new_zeros(Hb * Wb, C)
+
+    def splat(idx, src):
+        flat.zero_()
+        for i in idx:
+            flat.index_add_(0, i, src)
+    in_idx, in_src = [i[inside] for i in idx], src[inside]
+    own_idx = [torch.where(inr, i, own) for i in idx]
+    t = [cuda_ms(lambda: splat(idx, src)),
+         cuda_ms(lambda: splat(in_idx, in_src)),
+         cuda_ms(lambda: splat(own_idx, src))]
+    log(f"{indent}splat's 4 index_add_      {t[0]:.3f} ms over {inr.numel()} "
+        f"pixels, {int(inside.numel())} in the footprint; in-footprint "
+        f"pixels only {t[1]:.3f} ms; every pixel, the outside ones on "
+        f"texels of their own {t[2]:.3f} ms")
 
 
 def ref_small_checks(dev):
@@ -866,6 +954,7 @@ def ref_timings(grid4, cam, plan, dev, gpu_line, plain_runs=5):
             f"{rays / (t['fwdbwd'] * 1e-3):.4g} fwd+bwd rays/s (plan "
             "excluded)")
         if em:
+            warp_timings(maps.unbind(0), plan, cfg, medium, indent="    ")
             log(f"    min T {min_t:.4f} against the early-stop threshold "
                 f"{cfg.early_stop_transmittance}: "
                 + ("no ray ended early, the in-box count is the work done"
@@ -1359,6 +1448,7 @@ def light_timings(grid, cam, plan, grid4, cam4, plan4, dev, gpu_line,
         f"light volume rebuilt; unshadowed {t['render_nolight']:.3f} ms)")
     log(f"  shadowed forward+backward step       {t['fwdbwd']:.3f} ms = "
         f"{rays / (t['fwdbwd'] * 1e-3):.4g} fwd+bwd rays/s")
+    warp_timings(maps.unbind(0), plan, cfg, medium, light)
     profile_fwdbwd(fwdbwd, out_dir, "chip_smoke_profile_config4.txt")
     base = (stack, *args)
     out["sweep_fwd"] = (t["fwd"], t["fwd_plain"], samples, lines,
@@ -3136,6 +3226,10 @@ def config5_mesh_phase(dev, grid5, cam, plan, cfg, medium, light, out_dir,
         log(f"  sweep_render_sharded, 1x1 mesh  {t['sharded_ms']:.3f} ms "
             f"({t['sharded_ms'] / t['render_ms']:.4f} of unsharded)")
         log(f"  sharded train step (Adam, clamp) {t['step_ms']:.3f} ms")
+        with torch.no_grad():
+            maps = sweep_fwd.sweep_base(grid5[..., 0].permute(plan.perm),
+                                        plan, cfg, medium)
+        warp_timings(maps, plan, cfg, medium, light)
         profile_fwdbwd(lambda: step(target), out_dir,
                        "chip_smoke_profile_config5.txt")
     finally:
@@ -3762,12 +3856,6 @@ def main(argv=None):
         address_mode=cfg.address_mode), runs=5, warmup=1)
     maps = tuple(sweep_fwd.launch_kernel(*fwd_args, cfg.emission, flip,
                                          False).unbind(0))
-    finish_ms = cuda_ms(lambda: finish_image(maps, plan, cfg, medium))
-    lin = tuple(m.clone().requires_grad_() for m in maps)
-
-    def finish_fwdbwd():
-        (finish_image(lin, plan, cfg, medium)[..., :3] ** 2).sum().backward()
-    finish_fb_ms = cuda_ms(finish_fwdbwd)
     render_ms = cuda_ms(lambda: render_image(grid, cam, cfg, medium,
                                              plan=plan))
 
@@ -3787,9 +3875,7 @@ def main(argv=None):
     log(f"  sweep_fwd plain version   {plain_ms:.3f} ms")
     log(f"  sweep_bwd kernel          {bwd_ms:.3f} ms")
     log(f"  sweep_bwd plain version   {bwd_plain_ms:.3f} ms")
-    log(f"  warp + finish forward     {finish_ms:.3f} ms")
-    log(f"  warp + finish fwd+bwd     {finish_fb_ms:.3f} ms (backward "
-        f"~{finish_fb_ms - finish_ms:.3f} ms)")
+    warp_timings(maps, plan, cfg, medium)
     log(f"  render_image              {render_ms:.3f} ms = "
         f"{rays / (render_ms * 1e-3):.4g} forward rays/s (plan excluded)")
     log(f"  forward+backward step     {fwdbwd_ms:.3f} ms = "

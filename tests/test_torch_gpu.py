@@ -1728,3 +1728,92 @@ def test_repaired_configurations_on_the_card(cuda, case):
     launched = sweep_fwd.launches + sweep_ref_fwd.launches - before
     assert launched == (1 if "absorption" in case else 0)
     torch.testing.assert_close(got, call("cpu", plan), rtol=RTOL, atol=1e-4)
+
+
+# --- the screen warp's written-out adjoint (ops/sweep.py _WarpBilinear) ----
+
+def _four_gathers(base, rows01, cols01):
+    """The warp as autograd sees a plain gather: clip-then-tent taps and
+    four advanced-indexing gathers (the expression the op's forward
+    computes), whose backward is index_put_ with accumulate."""
+    def taps(q01, n):
+        p = torch.clamp(q01 * n - 0.5, 0.0, float(n - 1))
+        i0f = torch.floor(p)
+        i0 = i0f.to(torch.int64)
+        return i0, torch.clamp(i0 + 1, max=n - 1), (p - i0f)[..., None]
+    r0, r1, fr = taps(rows01, base.shape[0])
+    c0, c1, fc = taps(cols01, base.shape[1])
+    return ((1.0 - fc) * ((1.0 - fr) * base[r0, c0] + fr * base[r1, c0])
+            + fc * ((1.0 - fr) * base[r0, c1] + fr * base[r1, c1]))
+
+
+def _flagship_plan(dev):
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    cam = make_camera(CameraConfig(width=1920, height=1080))
+    return cam, cfg, plan_for(cam, (256, 256, 256), cfg, device=dev)
+
+
+@pytest.mark.gpu
+def test_warp_adjoint_at_flagship_width(cuda):
+    """At the flagship's plan (1536^2 base, 1920x1080, the two channels
+    the warp carries): the op's forward equals the four gathers bit for
+    bit, with and without the miss mask, and the base gradient through
+    warp_base_to_pixels equals autograd of the masked gathers within 1e-6
+    of the largest (the two sum a texel's taps in another order). The
+    mask gives out-of-footprint pixels a zero cotangent, as the op
+    requires: there every pixel takes an edge texel, whose sum of
+    hundreds of thousands of taps would differ by its order alone."""
+    from volumetricrenderer_tpu_torch.ops.sweep import _WarpBilinear, \
+        _in01, warp_base_to_pixels
+    _, _, plan = _flagship_plan(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    base = torch.rand(plan.base_shape + (2,), generator=gen, device=cuda)
+    ct = torch.randn(tuple(plan.warp_rows01.shape) + (2,), generator=gen,
+                     device=cuda)
+    rows, cols = plan.warp_rows01, plan.warp_cols01
+    assert torch.equal(_WarpBilinear.apply(base, rows, cols),
+                       _four_gathers(base, rows, cols))
+    inr = (_in01(rows) & _in01(cols))[..., None]
+    miss = torch.tensor((0.0, 1.0), device=cuda)
+    b1 = base.clone().requires_grad_()
+    b2 = base.clone().requires_grad_()
+    got = warp_base_to_pixels(b1, plan, miss=(0.0, 1.0))
+    want = torch.where(inr, _four_gathers(b2, rows, cols), miss)
+    assert torch.equal(got, want)
+    got.backward(ct)
+    want.backward(ct)
+    scale = float(b2.grad.abs().max())
+    assert scale > 0.0
+    torch.testing.assert_close(b1.grad, b2.grad, rtol=0.0,
+                               atol=1e-6 * scale)
+
+
+@pytest.mark.gpu
+def test_flagship_step_runs_no_index_put_backward(cuda):
+    """A profiled flagship forward+backward step (256^3 cloud, 1920x1080,
+    sum of rgb^2 to the grid) runs no indexing_backward_kernel and no
+    advanced-indexing autograd node: the warp's gradient is its splat."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from volumetricrenderer_tpu_torch import cloud_volume, render_image
+    cam, cfg, plan = _flagship_plan(cuda)
+    medium = MediumConfig(combine="single", density=8.0)
+    g = cloud_volume(256, 7, device=cuda).requires_grad_()
+
+    def step():
+        g.grad = None
+        (render_image(g, cam, cfg, medium, plan=plan)[..., :3] ** 2).sum() \
+            .backward()
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    assert any("_WarpBilinearBackward" in n for n in names), sorted(names)
+    assert not [n for n in names
+                if "indexing_backward_kernel" in n or "IndexBackward" in n
+                or "IndexPutBackward" in n]
+    assert bool(torch.isfinite(g.grad).all()) and \
+        float(g.grad.abs().max()) > 0.0

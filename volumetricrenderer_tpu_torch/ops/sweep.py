@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from ..config import LightConfig, MediumConfig, RenderConfig
@@ -342,9 +343,55 @@ def _taps(q01, n):
     return i0, torch.clamp(i0 + 1, max=n - 1), (p - i0f)[..., None]
 
 
+class _WarpBilinear(torch.autograd.Function):
+    """The bilinear warp base (Hb, Wb, C) -> (H, W, C) at the per-pixel
+    base coordinates (rows01, cols01), with its adjoint written out: the
+    port of the JAX package's custom VJP (_warp_bilinear, its
+    _warp_bilinear_fwd and _warp_bilinear_bwd, the splat _splat_windowed;
+    warp_band for one band of pixel rows in the sharded path, which here is
+    the same op on a row-sliced plan). Autograd of the gather would splat
+    with index_put_ and accumulate, a sort-based scatter.
+
+    Forward: the 4-tap gather of clip-then-tent taps (_taps). Saved: the
+    base's shape and the two coordinate maps, as in JAX; the backward
+    recomputes the taps. Backward: the pixel cotangents splatted into the
+    base with the same four weights (index_add_, atomics on CUDA, so the
+    last bits of a texel's sum follow the order its adds land in); zero
+    for the coordinates. Out-of-footprint pixels get a clamped edge sample
+    and its adjoint here; warp_base_to_pixels gives them `miss`, and so a
+    zero cotangent, outside this op, as JAX does (whose backward requires
+    that zero). Reverse mode only, as a jax.custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, base, rows01, cols01):
+        Hb, Wb = base.shape[:2]
+        r0, r1, fr = _taps(rows01, Hb)
+        c0, c1, fc = _taps(cols01, Wb)
+        ctx.save_for_backward(rows01, cols01)
+        ctx.base_shape = base.shape
+        return ((1.0 - fc) * ((1.0 - fr) * base[r0, c0] + fr * base[r1, c0])
+                + fc * ((1.0 - fr) * base[r0, c1] + fr * base[r1, c1]))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        rows01, cols01 = ctx.saved_tensors
+        Hb, Wb, C = ctx.base_shape
+        r0, r1, fr = _taps(rows01, Hb)
+        c0, c1, fc = _taps(cols01, Wb)
+        # The products in the order autograd of the forward forms them.
+        left, right = ct * (1.0 - fc), ct * fc
+        flat = ct.new_zeros(Hb * Wb, C)
+        for r, c, w in ((r0, c0, left * (1.0 - fr)), (r1, c0, left * fr),
+                        (r0, c1, right * (1.0 - fr)), (r1, c1, right * fr)):
+            flat.index_add_(0, (r * Wb + c).reshape(-1), w.reshape(-1, C))
+        return flat.view(Hb, Wb, C), None, None
+
+
 def warp_base_to_pixels(base_img, plan: SweepPlan, miss=None):
     """Resample base-grid maps (Hb, Wb[, C]) to the camera pixels
-    (H, W[, C]) as a per-pixel 4-tap bilinear gather.
+    (H, W[, C]) as a per-pixel 4-tap bilinear gather (_WarpBilinear, whose
+    backward is the explicit 4-tap splat).
 
     Pixels mapping outside the base grid's [0, 1] footprint are guaranteed
     box misses: they take the per-channel `miss` value."""
@@ -353,11 +400,7 @@ def warp_base_to_pixels(base_img, plan: SweepPlan, miss=None):
     squeeze = base_img.dim() == 2
     if squeeze:
         base_img = base_img[..., None]
-    Hb, Wb = base_img.shape[:2]
-    r0, r1, fr = _taps(plan.warp_rows01, Hb)
-    c0, c1, fc = _taps(plan.warp_cols01, Wb)
-    out = ((1.0 - fc) * ((1.0 - fr) * base_img[r0, c0] + fr * base_img[r1, c0])
-           + fc * ((1.0 - fr) * base_img[r0, c1] + fr * base_img[r1, c1]))
+    out = _WarpBilinear.apply(base_img, plan.warp_rows01, plan.warp_cols01)
     if miss is not None:
         inr = (_in01(plan.warp_rows01) & _in01(plan.warp_cols01))[..., None]
         key = miss if isinstance(miss, (int, float)) else tuple(miss)
