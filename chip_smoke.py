@@ -32,9 +32,10 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    with none (every tile-slice through global memory) and with half of it,
    K1's maps equal bit for bit across the three, both kernels held to the
    plain versions;
-5. bench.py's gradient check through the kernels: the sweep's grid
-   gradient on an identity-warp plan against the per-ray oracle's,
-   cloud_volume(24, 7) at 48x32;
+5. bench.py's gradient check through the kernels
+   (volumetricrenderer_tpu_torch/bench.py validate_gradients, which the
+   port's bench runs too): the sweep's grid gradient on an identity-warp
+   plan against the per-ray oracle's, cloud_volume(24, 7) at 48x32;
 6. serving: cloud_volume(256, 7) rendered through render_image at
    1920x1080 for the default camera and three orbit cameras, with the
    launch counts set to 0 before those four renders and read after; each
@@ -114,7 +115,7 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    with shadows per frame (plan reused, light volume rebuilt), the warp
    and the shadowed forward+backward step, with a torch.profiler table of
    that step;
-16. (the results are printed last, step 23);
+16. (the results are printed last, step 24);
 17. the bfloat16 stream mode (RenderConfig(dtype="bfloat16"): texels and
    tap weights rounded to bfloat16, everything else float32) at small
    shapes: torch's rounding against the device's on seeded weights and
@@ -191,7 +192,17 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    1x1 sharded frame and train step (with a torch.profiler table of the
    step), the warp, each local K1 and K2 of the 4x1 and 2x2 splits with
    its share of the bound, and the composite;
-23. prints a JSON line of kernel results (each kernel's launches on the
+23. the port's north-star bench as a user runs it: `python3
+   bench_torch.py` in a process of its own at full width (256^3,
+   1920x1080), on the libraries step 2 built (none may be built again); its
+   last line must hold every key, the gradient check passed, one K1 and one
+   K2 launch per headline and bfloat16 step (the kernels' counters over the
+   timed steps), no general-sweep call on those steps and some on the
+   general sweep's A/B and the exit rates, no flagship ray ending early;
+   the dense exit rate (density 200) it computes by the general sweep is
+   held to the same rate from K1's trans map here within 1e-4, beside the
+   TPU's recorded 0.0241 (not held); the line is logged whole;
+24. prints a JSON line of kernel results (each kernel's launches on the
    main paths, error, time, plain version's time, and the least time the
    card could take for the same work, each also for the light variant and
    for the bfloat16 mode; the share of the bound; the registers of each
@@ -234,6 +245,7 @@ from volumetricrenderer_tpu_torch import (CameraConfig, LightConfig,
                                           orbit_camera, plan_for,
                                           reference_media_scroll,
                                           render_image)
+from volumetricrenderer_tpu_torch import bench
 from volumetricrenderer_tpu_torch.fit import fit_grid
 from volumetricrenderer_tpu_torch.kernels import (sweep_bwd, sweep_fwd,
                                                   sweep_ref_bwd,
@@ -242,6 +254,7 @@ from volumetricrenderer_tpu_torch.kernels.round_probe import \
     round_weights_on_device
 from volumetricrenderer_tpu_torch.models.scene import bake_scene, \
     config3_scene
+from volumetricrenderer_tpu_torch.ops import sweep as ops_sweep
 from volumetricrenderer_tpu_torch.ops.integrate import render_rays_sliced
 from volumetricrenderer_tpu_torch.ops.sweep import base_rays, finish_image, \
     sweep_render, warp_base_to_pixels, warp_inputs
@@ -2969,28 +2982,15 @@ CONFIG5_PLAIN_BLOCKS = ((2, 1, 1, 0), (2, 2, 0, 1), (4, 1, 2, 0),
 
 
 class GeneralSpy:
-    """Counts the calls of the general sweep (ops/sweep._sweep_base, as
-    ops/sweep.py and parallel/sweep_sharded.py reach it) for the time of a
-    `with` block."""
-
-    def __init__(self):
-        from volumetricrenderer_tpu_torch.ops import sweep as ops_sweep
-        from volumetricrenderer_tpu_torch.parallel import sweep_sharded
-        self.mods, self.calls = (ops_sweep, sweep_sharded), 0
+    """Counts the calls of the general sweep (ops/sweep._sweep_base, by its
+    `general_calls` counter) for the time of a `with` block."""
 
     def __enter__(self):
-        self.real = self.mods[0]._sweep_base
-
-        def spy(*a, **kw):
-            self.calls += 1
-            return self.real(*a, **kw)
-        for m in self.mods:
-            m._sweep_base = spy
+        self.start, self.calls = ops_sweep.general_calls, 0
         return self
 
     def __exit__(self, *exc):
-        for m in self.mods:
-            m._sweep_base = self.real
+        self.calls = ops_sweep.general_calls - self.start
 
 
 def check_split(label, grid, plan, cfg, medium, n_slab, n_data, want,
@@ -3606,6 +3606,113 @@ def sharded_phase(dev, out_dir, gpu_line):
     return paths, errs, t
 
 
+# Step 23: the port's north-star bench as a user runs it (bench_torch.py, a
+# process of its own, at full width) on the libraries step 2 built.
+BENCH_TIMEOUT_S = 300
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "volume", "image",
+    "grad_allclose_vs_reference", "ms_per_frame_fwd_bwd",
+    "ms_per_frame_fwd_bwd_quartiles", "host_ms_per_frame_fwd_bwd",
+    "kernels_vs_general", "ms_per_frame_general", "ms_per_frame_bf16",
+    "bf16_speedup", "device", "power_limit_w", "early_exit_rate_flagship",
+    "early_exit_rate_dense", "base_shape", "timed_runs", "warmup_runs",
+    "peak_memory_gib", "launches_per_step", "general_sweep_calls",
+    "bench_total_s")
+BENCH_LAUNCHES = {"fwd_bwd": {"sweep_fwd": 1, "sweep_bwd": 1},
+                  "bf16": {"sweep_fwd": 1, "sweep_bwd": 1}}
+# The two routes to the dense exit rate (the general sweep in the bench, K1
+# here) differ in their sum order only: a pixel may cross the threshold.
+EXIT_RATE_TOL = 1e-4
+# BENCH_r05.json early_exit_rate_dense, the TPU v5e's: its general sweep ran
+# its matmuls at default (bfloat16-pass) precision, so it is shown, not held.
+TPU_DENSE_RATE = 0.0241
+
+
+def _libraries():
+    from volumetricrenderer_tpu_torch.kernels import build
+    return {f for f in os.listdir(build.BUILD_DIR) if f.endswith(".so")}
+
+
+def bench_phase(grid, plan, cfg, medium, out_dir, gpu_line):
+    """Runs `python3 bench_torch.py` with no size override in a process of
+    its own, which must load the libraries this run built (no new one may
+    appear), and holds its last line: every key, the flagship's sizes, the
+    gradient check passed, one K1 and one K2 launch per headline and
+    bfloat16 step, no general sweep on those steps and some on the general
+    sweep's A/B and the exit rates, no flagship ray ended early; and the
+    dense exit rate (the general sweep, in the bench) against the same rate
+    from K1's trans map on the same grid and plan here, within
+    EXIT_RATE_TOL. Returns the line."""
+    t0 = time.perf_counter()
+    before = _libraries()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("VOLT_BENCH_")}
+    proc = subprocess.run([sys.executable, "bench_torch.py"], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    with open(os.path.join(out_dir, "bench_torch_stderr.txt"), "w") as f:
+        f.write(proc.stderr)
+    for line in proc.stderr.strip().splitlines():
+        log(f"  bench_torch.py: {line}")
+    if proc.returncode != 0:
+        fail(f"bench_torch.py exited with {proc.returncode}")
+    built = sorted(_libraries() - before)
+    if built:
+        fail(f"bench_torch.py built {built} instead of loading this run's "
+             "libraries")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"bench_torch.py line: {json.dumps(res)}")
+    missing = [k for k in BENCH_KEYS if k not in res]
+    if missing:
+        fail(f"bench_torch.py: the line lacks {missing}")
+    if (res["volume"], res["image"]) != (VOLUME, [WIDTH, HEIGHT]) \
+            or res["device"] != torch.cuda.get_device_name(0):
+        fail(f"bench_torch.py ran {res['volume']}^3 at {res['image']} on "
+             f"{res['device']}")
+    if res["grad_allclose_vs_reference"] is not True:
+        fail("bench_torch.py: the gradient check failed")
+    if res["launches_per_step"] != BENCH_LAUNCHES:
+        fail(f"bench_torch.py launches per step {res['launches_per_step']}, "
+             f"expected {BENCH_LAUNCHES}")
+    calls = res["general_sweep_calls"]
+    if calls["fwd_bwd"] or calls["bf16"] or not calls["general"] > 0 \
+            or not calls["exit_rate"] > 0:
+        fail(f"bench_torch.py general sweep calls {calls}: none expected on "
+             "the kernels' steps, some on the A/B and the exit rates")
+    if res["early_exit_rate_flagship"] != 0.0:
+        fail("bench_torch.py: flagship rays ended early (rate "
+             f"{res['early_exit_rate_flagship']})")
+    # the dense rate from K1's trans map (a comparison launch, no main path)
+    with torch.no_grad():
+        trans = sweep_fwd.sweep_base(
+            grid.permute(plan.perm) * bench.DENSE, plan, cfg,
+            dataclasses.replace(medium, density=1.0))[1]
+    rate_k1 = float((trans <= cfg.early_stop_transmittance)
+                    .to(torch.float32).mean())
+    diff = abs(rate_k1 - res["early_exit_rate_dense"])
+    log(f"early-exit rate at density {bench.DENSE:g}: general sweep "
+        f"(bench_torch.py) {res['early_exit_rate_dense']}, K1's trans map "
+        f"{rate_k1}, |diff| {diff:.3e} (limit {EXIT_RATE_TOL:g}); the TPU's "
+        f"recorded {TPU_DENSE_RATE} (BENCH_r05.json, bfloat16-pass matmuls; "
+        "not held)")
+    if not diff <= EXIT_RATE_TOL:
+        fail(f"dense exit rate: the general sweep's and K1's differ by "
+             f"{diff:.3e}")
+    log(f"[{gpu_line}] bench_torch.py: {res['value']:.6g} rays/s fwd+bwd "
+        f"(vs_baseline {res['vs_baseline']:.4f}), "
+        f"{res['ms_per_frame_fwd_bwd']:.3f} ms a step (quartiles "
+        f"{res['ms_per_frame_fwd_bwd_quartiles']}, host clock "
+        f"{res['host_ms_per_frame_fwd_bwd']:.3f}); general sweep "
+        f"{res['ms_per_frame_general']:.3f} ms "
+        f"({res['kernels_vs_general']:.4g}x); bfloat16 {res['ms_per_frame_bf16']:.3f} ms (speedup "
+        f"{res['bf16_speedup']:.4f}); peak {res['peak_memory_gib']:.3f} GiB; "
+        f"bench {res['bench_total_s']:.1f} s, phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None,
@@ -3700,29 +3807,17 @@ def main(argv=None):
     errs += tiled["sweep_fwd"]
     bwd_errs += tiled["sweep_bwd"]
 
-    # 5. bench.py's gradient check, through the kernels.
-    cfg = RenderConfig(emission=True, quadrature="sliced")
-    cam = make_camera(CameraConfig(width=48, height=32))
-    g24 = cloud_volume(24, 7, device=dev)
-    plan = plan_for(cam, g24.shape, cfg, device=dev)
-    o, d = base_rays(plan)
-    g1 = g24.clone().requires_grad_()
-    (sweep_render(g1, dataclasses.replace(plan, identity_warp=True), cfg,
-                  medium)[..., :3] ** 2).sum().backward()
-    g2 = g24.clone().requires_grad_()
-    (render_rays_sliced(g2, o, d, plan, cfg, medium)[..., :3] ** 2).sum() \
-        .backward()
-    scale = float(g2.grad.abs().max())
-    ok = scale > 0.0 and bool(torch.allclose(g1.grad, g2.grad, rtol=1e-3,
-                                             atol=1e-3 * scale))
-    log(f"grad check: allclose={ok} max_abs_err="
-        f"{max_err(g1.grad, g2.grad):.3e} scale={scale:.3e}")
+    # 5. bench.py's gradient check, through the kernels (the port's bench
+    # runs the same function).
+    ok, err, scale = bench.validate_gradients(dev)
+    log(f"grad check: allclose={ok} max_abs_err={err:.3e} scale={scale:.3e}")
     if not ok:
         fail("bench gradient check: the kernels' grid gradient disagrees "
              "with the per-ray oracle's")
 
     # 6. Serving: the flagship forward, a few requests through
     # render_image.
+    cfg = RenderConfig(emission=True, quadrature="sliced")
     t0 = time.perf_counter()
     grid = cloud_volume(VOLUME, 7, device=dev)
     torch.cuda.synchronize()
@@ -3975,7 +4070,10 @@ def main(argv=None):
     shard_paths, e_shard, shard_t = sharded_phase(dev, out_dir, gpu_line)
     low_errs.append(e_shard)
 
-    # 23. Results. No single PyTorch call marches a carried, gated slice
+    # 23. The port's bench, bench_torch.py, in a process of its own.
+    bench_phase(grid, frames[0][1], cfg, medium, out_dir, gpu_line)
+
+    # 24. Results. No single PyTorch call marches a carried, gated slice
     # sweep (grid_sample does one slice's taps only), so library_ms is null.
     times = {"sweep_fwd": (kernel_ms, plain_ms),
              "sweep_bwd": (bwd_ms, bwd_plain_ms),

@@ -12,6 +12,8 @@ Pallas kernels to the jnp sweep: kernel and plain version take the same
 front-to-back order per pixel, so they differ by the order of the bilinear
 tap sum and expf's last bit.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1817,3 +1819,72 @@ def test_flagship_step_runs_no_index_put_backward(cuda):
                 or "IndexPutBackward" in n]
     assert bool(torch.isfinite(g.grad).all()) and \
         float(g.grad.abs().max()) > 0.0
+
+
+# --- the route switch and the port's bench (volumetricrenderer_tpu_torch/
+# bench.py) ------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combine", ["single", "reference"])
+def test_general_route_on_the_card(cuda, combine):
+    """sweep_render(use_kernels=False) on a CUDA grid launches no kernel
+    and calls the general sweep once; its frame and grid gradient equal the
+    same call on the CPU, and the kernels' frame on the card."""
+    from volumetricrenderer_tpu_torch.ops import sweep as ops_sweep
+    rng = np.random.default_rng(3)
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    if combine == "single":
+        grid, medium, scroll = rng.uniform(0.1, 1.0, (16, 16, 16)), \
+            MediumConfig(combine="single", density=8.0), None
+    else:
+        grid, medium = rng.uniform(0.1, 1.0, (16, 16, 16, 4)), \
+            MediumConfig(density=4.0)
+        scroll = rng.uniform(-1.5, 1.5, (4, 3))
+    cam = make_camera(CameraConfig(eye=EYES[2][0], width=96, height=64))
+
+    def call(dev, **kw):
+        def t(x):
+            return None if x is None else \
+                torch.tensor(x, dtype=torch.float32, device=dev)
+        g = t(grid).requires_grad_()
+        plan = plan_for(cam, grid.shape[:3], cfg, device=dev)
+        img = ops_sweep.sweep_render(g, plan, cfg, medium, scroll=t(scroll),
+                                     **kw)
+        (img[..., :3] ** 2).sum().backward()
+        return img.detach().cpu(), g.grad.cpu()
+    before = (sum(m.launches for m in (sweep_fwd, sweep_bwd, sweep_ref_fwd,
+                                       sweep_ref_bwd)),
+              ops_sweep.general_calls)
+    got, got_g = call(cuda, use_kernels=False)
+    torch.cuda.synchronize()
+    after = (sum(m.launches for m in (sweep_fwd, sweep_bwd, sweep_ref_fwd,
+                                      sweep_ref_bwd)),
+             ops_sweep.general_calls)
+    assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
+    want, want_g = call("cpu", use_kernels=False)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    _assert_grad_close(got_g, want_g)
+    kern, _ = call(cuda)
+    torch.testing.assert_close(kern, got, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_bench_line_on_the_card(cuda, monkeypatch, capsys):
+    """The bench at 16^3 / 48x32 on the card: the gradient check passes,
+    one K1 and one K2 launch per headline and bfloat16 step, the general
+    sweep only on its A/B and the exit rates, the card's name and power
+    limit in the line."""
+    from volumetricrenderer_tpu_torch import bench
+    for k, v in (("VOLT_BENCH_VOLUME", "16"), ("VOLT_BENCH_WIDTH", "48"),
+                 ("VOLT_BENCH_HEIGHT", "32")):
+        monkeypatch.setenv(k, v)
+    assert bench.main(["--runs", "3", "--warmup", "1"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    one = {"sweep_fwd": 1, "sweep_bwd": 1}
+    assert line["grad_allclose_vs_reference"] is True
+    assert line["launches_per_step"] == {"fwd_bwd": one, "bf16": one}
+    assert line["general_sweep_calls"] == {"fwd_bwd": 0, "bf16": 0,
+                                           "general": 4, "exit_rate": 2}
+    assert line["device"] == torch.cuda.get_device_name(0)
+    assert line["power_limit_w"] > 0.0 and line["peak_memory_gib"] > 0.0
+    assert line["ms_per_frame_fwd_bwd"] > 0.0

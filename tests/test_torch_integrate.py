@@ -26,6 +26,7 @@ from volumetricrenderer_tpu.ops import sampling as jsamp
 from volumetricrenderer_tpu.ops import sweep as jsweep
 from volumetricrenderer_tpu.ops.lighting import \
     light_transmittance_volume as jlight_volume
+from volumetricrenderer_tpu_torch import bench as tbench
 from volumetricrenderer_tpu_torch.ops import aabb as taabb
 from volumetricrenderer_tpu_torch.ops import integrate as tint
 from volumetricrenderer_tpu_torch.ops import sampling as tsamp
@@ -171,27 +172,15 @@ def test_render_rays_sliced_matches_jax(eye, emission):
 
 
 def test_bench_gradient_check():
-    """bench.py's validate_gradients in the port, without JAX: the sweep's
-    grid gradient on an identity-warp plan (base maps = image) against the
-    per-ray oracle on the base rays, cloud_volume(24, 7) at 48x32, with
-    bench.py's allclose(rtol=1e-3, atol=1e-3 * scale)."""
-    cfg = T.RenderConfig(emission=True, quadrature="sliced")
-    medium = T.MediumConfig(combine="single", density=8.0)
-    cam = T.make_camera(T.CameraConfig(width=48, height=32))
-    grid = T.cloud_volume(24, 7, device="cpu")
-    plan = T.plan_for(cam, grid.shape, cfg, device="cpu")
-    plan_base = dataclasses.replace(plan, identity_warp=True)
-    o, d = tsweep.base_rays(plan)
-
-    g1 = grid.clone().requires_grad_()
-    (tsweep.sweep_render(g1, plan_base, cfg, medium)[..., :3] ** 2).sum() \
-        .backward()
-    g2 = grid.clone().requires_grad_()
-    (tint.render_rays_sliced(g2, o, d, plan, cfg, medium)[..., :3] ** 2) \
-        .sum().backward()
-    scale = float(g2.grad.abs().max())
+    """bench.py's validate_gradients in the port, without JAX
+    (volumetricrenderer_tpu_torch/bench.py validate_gradients, which the
+    port's bench and chip_smoke.py run): the sweep's grid gradient on an
+    identity-warp plan (base maps = image) against the per-ray oracle on
+    the base rays, cloud_volume(24, 7) at 48x32, with bench.py's
+    allclose(rtol=1e-3, atol=1e-3 * scale)."""
+    ok, err, scale = tbench.validate_gradients(torch.device("cpu"))
     assert scale > 0.0
-    assert torch.allclose(g1.grad, g2.grad, rtol=1e-3, atol=1e-3 * scale)
+    assert ok, f"max abs err {err:.3e} at scale {scale:.3e}"
 
 
 def _scroll4(kind):

@@ -16,7 +16,8 @@ def _port_sources():
     # _build/ holds build outputs, not sources
     return sorted(p for p in PKG.rglob("*.py")
                   if "_build" not in p.relative_to(PKG).parts) \
-        + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
+           ROOT / "bench_torch.py"]
 
 
 def test_sources_import_no_jax():
@@ -31,7 +32,8 @@ def test_sources_import_no_jax():
             "volumetricrenderer_tpu_torch/parallel/bootstrap.py",
             "volumetricrenderer_tpu_torch/parallel/sweep_sharded.py",
             "volumetricrenderer_tpu_torch/parallel/render_sharded.py",
-            "chip_smoke.py", "kernel_ab.py"} <= names
+            "volumetricrenderer_tpu_torch/bench.py",
+            "chip_smoke.py", "kernel_ab.py", "bench_torch.py"} <= names
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
             names = []

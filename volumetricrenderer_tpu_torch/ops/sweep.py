@@ -516,29 +516,36 @@ def _sigma_general(gperm, z_s, a01, b01, medium, offs, address_mode, low):
     raise ValueError(f"unknown combine mode {medium.combine!r}")
 
 
+general_calls = 0  # _sweep_base calls since import (or since a reset)
+
+
 def _sweep_base(gperm, lperm, slice_z, v_grid, u_grid, seglen,
                 plan: SweepPlan, cfg: RenderConfig, medium: MediumConfig,
                 light: Optional[LightConfig], scroll, chan_slabs=None,
-                light_slabs=None):
+                light_slabs=None, chunk: Optional[int] = None):
     """The general sweep: front-to-back composited base maps (acc, trans,
     wsum, hit), each (len(v_grid), len(u_grid)) float32, over an explicit
     slice subset and base-row subset, in plain PyTorch (the port of the JAX
-    package's jnp sweep, ops/sweep.py _sweep_base).
+    package's jnp sweep, ops/sweep.py _sweep_base). Each call adds one to
+    the module's `general_calls`.
 
     gperm: the grid permuted so the sweep axis is dim 0 (D, A, B[, C]),
     read through _layer_lerp at each slice; lperm: an optional light
     volume in the same layout, of any shape (its own depth, and its own A,
     B for the in-plane resample); read only with emission. chan_slabs:
-    optional (S, C, A, B) pre-lerped channel slabs of the reference combine
-    in slice order, in place of gperm; light_slabs: optional (S, A', B')
-    pre-lerped light layers in slice order, in place of lperm. With them a
-    slab-local block of slices sweeps on its own
-    (parallel/sweep_sharded.py); a slab's partial maps combine with
-    composite_base_maps.
+    optional pre-lerped slabs in slice order, in place of gperm: (S, C, A,
+    B) channel slabs of the reference combine, or (S, A, B) layers of the
+    single combine; light_slabs: optional (S, A', B') pre-lerped light
+    layers in slice order, in place of lperm. With them a slab-local block
+    of slices sweeps on its own (parallel/sweep_sharded.py); a slab's
+    partial maps combine with composite_base_maps.
 
-    Memory: the slices run in chunks of about sqrt(S), each under
-    torch.utils.checkpoint, so the backward keeps O(sqrt(S)) base images
-    (the JAX package's two-level checkpointed scan)."""
+    Memory: the slices run in chunks of `chunk` slices (None: about
+    sqrt(S)), each under torch.utils.checkpoint, so the backward keeps
+    O(S / chunk) base images and recomputes one chunk at a time (the JAX
+    package's two-level checkpointed scan and its `chunk`)."""
+    global general_calls
+    general_calls += 1
     low = cfg.dtype == "bfloat16"
     Hb, Wb = v_grid.shape[0], u_grid.shape[0]
     e_k, e_a, e_b = plan.eye01[0], plan.eye01[1], plan.eye01[2]
@@ -549,7 +556,8 @@ def _sweep_base(gperm, lperm, slice_z, v_grid, u_grid, seglen,
                                               plan.coord_order,
                                               device=v_grid.device)
     S = slice_z.shape[0]
-    chunk = max(1, int(round(math.sqrt(S))))
+    if chunk is None:
+        chunk = max(1, int(round(math.sqrt(S))))
 
     def slices(s0, s1, acc, trans, wsum, hit):
         for s in range(s0, s1):
@@ -560,7 +568,11 @@ def _sweep_base(gperm, lperm, slice_z, v_grid, u_grid, seglen,
             front = (delta * plan.sign) > 0.0
             maskf = (_in01(a01)[:, None] & _in01(b01)[None, :]
                      & front).to(torch.float32)
-            if chan_slabs is not None:
+            if chan_slabs is not None and medium.combine == "single":
+                sigma = _resample_slice(chan_slabs[s], a01, b01,
+                                        cfg.address_mode, low) \
+                    * medium.sample_scale
+            elif chan_slabs is not None:
                 chan_s = chan_slabs[s]
                 sigma = _combine_reference_inplane(
                     lambda c: chan_s[c], a01, b01, medium, offs,
@@ -671,7 +683,8 @@ def sweep_config(grid, cfg: RenderConfig, medium: MediumConfig, scroll,
 
 def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
                  medium: MediumConfig, light: Optional[LightConfig] = None,
-                 scroll=None, light_volume=None):
+                 scroll=None, light_volume=None, chunk: Optional[int] = None,
+                 use_kernels: Optional[bool] = None):
     """Render one RGBA frame (H, W, 4) by sweeping slices front to back.
 
     grid: a (D, H, W) density grid with medium.combine "single", or a
@@ -700,14 +713,23 @@ def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
     CUDA grid it is logged once per configuration. With absorption a light
     volume is never read (nor differentiated), so it is dropped and the
     kernels sweep. A float16 dtype, a 3-D grid with "reference" and a light
-    volume that is not 3-D raise NotImplementedError."""
+    volume that is not 3-D raise NotImplementedError.
+    use_kernels (the JAX package's use_pallas): None routes as above; False
+    sends every configuration to the general sweep, on any device and
+    without the log line; True raises NotImplementedError where no kernel
+    covers the configuration. chunk: the general sweep's checkpointed
+    chunk of slices (None: about sqrt(S)); the kernels do not read it."""
     grid, scroll, light_volume, general = sweep_config(
         grid, cfg, medium, scroll, light_volume)
+    if use_kernels and general is not None:
+        raise NotImplementedError(
+            f"sweep_render(use_kernels=True): no kernel covers {general}")
     perm = plan.perm + ((3,) if grid.dim() == 4 else ())
     lperm = (light_volume.permute(plan.perm) if light_volume is not None
              else None)
-    if general is not None:
-        if grid.device.type == "cuda" and general not in _GENERAL_WARNED:
+    if general is not None or use_kernels is False:
+        if general is not None and grid.device.type == "cuda" \
+                and general not in _GENERAL_WARNED:
             _GENERAL_WARNED.add(general)
             get_logger().warning(
                 "sweep: no kernel covers %s; this frame takes the general "
@@ -715,7 +737,7 @@ def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
                 general)
         base_maps = _sweep_base(grid.permute(perm), lperm, plan.slice_z,
                                 plan.v_grid, plan.u_grid, plan.seglen, plan,
-                                cfg, medium, light, scroll)
+                                cfg, medium, light, scroll, chunk=chunk)
     elif medium.combine == "reference":
         base_maps = sweep_ref_fwd.sweep_base_ref(
             grid.permute(perm), plan, cfg, medium, light, scroll,

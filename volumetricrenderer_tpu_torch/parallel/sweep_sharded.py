@@ -130,7 +130,9 @@ def frame_rows(plan, mesh):
 
 def local_sweep(stack, chan, lstack, lp: LocalPlan, plan,
                 cfg: RenderConfig, medium: MediumConfig,
-                light: Optional[LightConfig], scroll):
+                light: Optional[LightConfig], scroll,
+                chunk: Optional[int] = None,
+                use_kernels: Optional[bool] = None):
     """One rank's sweep: the (acc, trans, wsum, hit) base maps, each
     (r1 - r0, Wb), of its block of slices and rows, before the slabs are
     composited. The per-rank body of sweep_render_sharded, with no
@@ -142,10 +144,18 @@ def local_sweep(stack, chan, lstack, lp: LocalPlan, plan,
     lstack: the light stack (S / n_slab, A, B) in k order, or None. On
     CUDA tensors the kernels run (K1/K2 or K4/K5), on CPU tensors their
     plain versions; the reference medium with clamp or wrap addressing,
-    which no kernel covers, takes the general sweep on the block."""
+    which no kernel covers, takes the general sweep on the block.
+    chunk, use_kernels: as ops/sweep.sweep_render takes them."""
     lt = light if light is not None else LightConfig()
     flip = plan.sign < 0
-    if chan is None:
+    covered = chan is None or sweep_fwd.supported(cfg, medium, lstack,
+                                                  scroll, 4)
+    if use_kernels and not covered:
+        raise NotImplementedError(
+            "local_sweep(use_kernels=True): no kernel covers combine="
+            f"{medium.combine!r} with address_mode={cfg.address_mode!r}")
+    general = use_kernels is False or not covered
+    if chan is None and not general:
         if stack.device.type == "cuda":
             stack = stack.contiguous()
             lstack = None if lstack is None else lstack.contiguous()
@@ -154,13 +164,15 @@ def local_sweep(stack, chan, lstack, lp: LocalPlan, plan,
                                _params_for(plan, cfg, medium, lt),
                                cfg.emission, flip, cfg.address_mode,
                                cfg.dtype == "bfloat16")
-    # the channel and light slabs in slice_z order
-    L = chan.flip(0) if flip else chan
+    # the channel slabs (or the single combine's layers) and the light slabs
+    # in slice_z order
+    L = stack if chan is None else chan
+    L = L.flip(0) if flip else L
     slabs = None if lstack is None else (lstack.flip(0) if flip else lstack)
-    if not sweep_fwd.supported(cfg, medium, slabs, scroll, 4):
+    if general:
         return _sweep_base(None, None, lp.slice_z, lp.v_grid, plan.u_grid,
                            lp.seglen, plan, cfg, medium, light, scroll,
-                           chan_slabs=L, light_slabs=slabs)
+                           chan_slabs=L, light_slabs=slabs, chunk=chunk)
     if L.device.type == "cuda":
         L = L.contiguous()
         slabs = None if slabs is None else slabs.contiguous()
@@ -312,7 +324,8 @@ def _finish_image_sharded(maps, plan, mesh, cfg: RenderConfig,
 def sweep_render_sharded(grid, plan, mesh, cfg: RenderConfig,
                          medium: MediumConfig,
                          light: Optional[LightConfig] = None, scroll=None,
-                         light_volume=None):
+                         light_volume=None, chunk: Optional[int] = None,
+                         use_kernels: Optional[bool] = None):
     """The sharded sweep_render: this rank's pixel rows (frame_rows) of
     the RGBA frame, float32 (h1 - h0, W, 4).
 
@@ -325,7 +338,12 @@ def sweep_render_sharded(grid, plan, mesh, cfg: RenderConfig,
     sweep axis's extent must divide by n_slab too when it is not z.
     Configurations as ops/sweep.sweep_render takes them, except a light
     volume of another shape than the grid's (ValueError, as in the JAX
-    package)."""
+    package). chunk and use_kernels (the JAX package's chunk and
+    use_pallas) go to each rank's block as ops/sweep.sweep_render reads
+    them: use_kernels=False sweeps every block with the general sweep, True
+    raises NotImplementedError where no kernel covers the configuration.
+    The JAX pallas_interpret (the TPU kernels' interpret mode) has no
+    counterpart: a CPU block runs the kernels' plain versions."""
     n_data, data_rank, n_slab, slab_rank = mesh_ranks(mesh)
     slab_group = mesh.get_group(SLAB_AXIS)
     whole = (grid.shape[0] * n_slab, *grid.shape[1:])
@@ -350,7 +368,7 @@ def sweep_render_sharded(grid, plan, mesh, cfg: RenderConfig,
     stack, chan, lstack = _block_stacks(gperm, k_block, lperm, lp, plan, cfg,
                                         medium, scroll, slab_rank)
     maps = local_sweep(stack, chan, lstack, lp, plan, cfg, medium, light,
-                       scroll)
+                       scroll, chunk, use_kernels)
     maps = _composite_slabs(maps, n_slab, plan.sign, slab_rank, slab_group)
     return _finish_image_sharded(maps, plan, mesh, cfg, medium, light, lp)
 
