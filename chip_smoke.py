@@ -46,15 +46,20 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    launched exactly once), its dG held against the plain backward on the
    same cotangents; then BASELINE config 3 at spec, fit_grid of a 256^3
    grid to the 1024x1024 render of the baked cloud+smoke scene for 5
-   steps (the loss must fall, no step skipped, 5 launches of each kernel);
+   steps through the fit runner's workload and fit
+   (tools/fit_config3.py; the loss must fall, no step skipped, 5 launches
+   of each kernel);
 8. timing with CUDA events (median after warm-up): both kernels and their
    plain versions, the warp (ops/sweep.py _WarpBilinear, whose backward is
-   the 4-tap splat) alone and with the finish, forward and backward,
-   render_image, and the flagship forward+backward step; the fit step on
-   the host clock; a torch.profiler table of the forward+backward step
-   with the device's busy and idle share, which fails if the step ran an
-   index_put_ backward (the scatter autograd derives for a gather; every
-   step profile below is held to the same);
+   the 4-tap splat) alone and with the finish, forward and backward, and
+   the splat's index_add_ (tools/measure_warp.py warp_timings, as on
+   every training path below), render_image, and the flagship
+   forward+backward step; the fit step between fit_grid's metric writes
+   (tools/fit_config3.py StepClock); a torch.profiler table of the
+   forward+backward step with the device's busy and idle share
+   (tools/trace_flagship.py profile_fwdbwd), which fails if the step ran
+   an index_put_ backward (the scatter autograd derives for a gather;
+   every step profile below is held to the same);
 9. the 4-channel reference-combine kernels against their plain versions
    at small shapes (16^3 x 4, 96x64): five eyes x emission/absorption x
    scroll in {none, reference_media_scroll(1.7), a seeded random (4, 3)
@@ -115,7 +120,7 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    with shadows per frame (plan reused, light volume rebuilt), the warp
    and the shadowed forward+backward step, with a torch.profiler table of
    that step;
-16. (the results are printed last, step 24);
+16. (the results are printed last, step 25);
 17. the bfloat16 stream mode (RenderConfig(dtype="bfloat16"): texels and
    tap weights rounded to bfloat16, everything else float32) at small
    shapes: torch's rounding against the device's on seeded weights and
@@ -202,14 +207,29 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    the dense exit rate (density 200) it computes by the general sweep is
    held to the same rate from K1's trans map here within 1e-4, beside the
    TPU's recorded 0.0241 (not held); the line is logged whole;
-24. prints a JSON line of kernel results (each kernel's launches on the
+24. the JAX repository's workload tools as the port's runners
+   (volumetricrenderer_tpu_torch/tools/), each main() in this process at
+   the JAX tool's full size (every runner's size variable unset), counted
+   from 0: fit_config3 (256^3, 1024^2, 40 steps: one K1 for the target
+   and 40 of K1 and K2, no step skipped, the loss falling at least 100x,
+   its first loss logged beside FIT_r5.json's, the TPU's), anim_config4
+   (16 frames of config 4, every K1 launch of the frames and the warm-ups
+   with the light branch), scale512 (512^3 at 512, 256 and 128 slices,
+   the forward and forward+backward phases' K1 and K2), serve_local (32
+   states of config2 at 512^2, K1 per frame of the timed and warm-up
+   rounds), measure_warp (no kernel) and trace_flagship (K1 and K2 once a
+   profiled step and among its top device ops); each line parsed, held
+   to its keys, to the card's name and to no general-sweep call, and
+   logged whole;
+25. prints a JSON line of kernel results (each kernel's launches on the
    main paths, error, time, plain version's time, and the least time the
    card could take for the same work, each also for the light variant and
    for the bfloat16 mode; the share of the bound; the registers of each
    instantiation and the most spilled bytes from ptxas; the tile-slices
    each kernel computed on the main paths and how many of those read
    through global memory, which must be none for K4 and K5; the launches
-   on the sharded paths, `launches_sharded`), with each
+   on the sharded paths, `launches_sharded`, and in the runners of step
+   24, `launches_tools`), with each
    time's share of its bound logged before it, and the script's wall time
    on a line of its own, then the last line {"ok": true, "device":
    {...}}. Every main path logs its tile-slices.
@@ -245,20 +265,21 @@ from volumetricrenderer_tpu_torch import (CameraConfig, LightConfig,
                                           orbit_camera, plan_for,
                                           reference_media_scroll,
                                           render_image)
-from volumetricrenderer_tpu_torch import bench
-from volumetricrenderer_tpu_torch.fit import fit_grid
+from volumetricrenderer_tpu_torch import bench, tools
 from volumetricrenderer_tpu_torch.kernels import (sweep_bwd, sweep_fwd,
                                                   sweep_ref_bwd,
                                                   sweep_ref_fwd)
 from volumetricrenderer_tpu_torch.kernels.round_probe import \
     round_weights_on_device
-from volumetricrenderer_tpu_torch.models.scene import bake_scene, \
-    config3_scene
+from volumetricrenderer_tpu_torch.models.scene import bake_scene
 from volumetricrenderer_tpu_torch.ops import sweep as ops_sweep
 from volumetricrenderer_tpu_torch.ops.integrate import render_rays_sliced
 from volumetricrenderer_tpu_torch.ops.sweep import base_rays, finish_image, \
-    sweep_render, warp_base_to_pixels, warp_inputs
+    sweep_render
 from volumetricrenderer_tpu_torch.parallel.sweep_sharded import split_sweep
+from volumetricrenderer_tpu_torch.tools import (fit_config3, measure_warp,
+                                                trace_flagship)
+from volumetricrenderer_tpu_torch.tools.fit_config3 import StepClock
 from volumetricrenderer_tpu_torch.utils.image import write_png
 
 # Forward: kernel and plain version take the same per-pixel, front-to-back
@@ -384,19 +405,7 @@ def check_grad(got, want, what, tol=BWD_TOL):
 
 def cuda_ms(fn, runs=TIMED_RUNS, warmup=2):
     """Median milliseconds of fn() between CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return tools.median_ms(fn, "cuda", runs, warmup)[0]
 
 
 def maps_both(grid, plan, cfg, medium):
@@ -441,17 +450,6 @@ def bwd_both(grid, plan, cfg, medium, rng):
                                         fmaps[1].detach(), fmaps[2].detach(),
                                         **kw)
     return got, want, own, auto
-
-
-class StepClock:
-    """A fit_grid metrics sink that records the host clock at each write
-    (fit_grid writes after step 0 and after the last step)."""
-
-    def __init__(self):
-        self.marks = []
-
-    def write(self, step, **metrics):
-        self.marks.append((step, time.perf_counter()))
 
 
 class BackwardSpy:
@@ -614,107 +612,15 @@ SCATTER_NAMES = ("indexing_backward_kernel", "IndexBackward",
 
 
 def profile_fwdbwd(step, out_dir, name="chip_smoke_profile.txt", n=3):
-    """torch.profiler over n forward+backward steps: prints the device
-    time by kernel and the device's busy share of the wall clock; fails if
-    the steps ran an index_put_ backward (SCATTER_NAMES)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    table = prof.key_averages().table(sort_by="self_device_time_total",
-                                      row_limit=25)
-    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA) * 1e-3 / n
-    path = os.path.join(out_dir, name)
-    with open(path, "w") as f:
-        f.write(table + "\n")
-    log(table)
-    log(f"profile: device busy {busy_ms:.3f} ms per step of {wall_ms:.3f} "
-        f"ms wall (idle share {1 - busy_ms / wall_ms:.3f}); table in {path}")
-    scatter = sorted({e.name for e in prof.events()
-                      if any(s in e.name for s in SCATTER_NAMES)})
+    """trace_flagship.profile_fwdbwd (torch.profiler over n steps: the
+    table in out_dir/name, the device's busy and idle share); fails if the
+    steps ran an index_put_ backward (SCATTER_NAMES)."""
+    prof = trace_flagship.profile_fwdbwd(step, out_dir, name, n, log=log)
+    scatter = sorted(e for e in prof["names"]
+                     if any(s in e for s in SCATTER_NAMES))
     if scatter:
         fail(f"{name}: the step ran an index_put_ backward: {scatter}")
     log(f"profile {name}: no index_put_ backward ({', '.join(SCATTER_NAMES)})")
-
-
-def warp_timings(maps, plan, cfg, medium, light=None, indent="  "):
-    """CUDA-event ms of the warp alone (warp_base_to_pixels with its miss
-    mask; backward from seeded normal cotangents) and of the warp with the
-    per-pixel finish (finish_image; loss sum of rgb^2), forward and
-    forward+backward, on these base maps; then splat_timings."""
-    maps = tuple(m.detach() for m in maps)
-    base, miss = warp_inputs(maps, cfg)
-    base = base.clone().requires_grad_()
-    gen = torch.Generator(device=base.device).manual_seed(23)
-    ct = torch.randn(tuple(plan.warp_rows01.shape) + base.shape[2:],
-                     generator=gen, device=base.device)
-    lin = tuple(m.clone().requires_grad_() for m in maps)
-
-    def warp_fb():
-        base.grad = None
-        warp_base_to_pixels(base, plan, miss=miss).backward(ct)
-
-    def finish_fb():
-        for m in lin:
-            m.grad = None
-        (finish_image(lin, plan, cfg, medium, light)[..., :3] ** 2).sum() \
-            .backward()
-    t = {"warp": cuda_ms(lambda: warp_base_to_pixels(base.detach(), plan,
-                                                     miss=miss)),
-         "warp_fb": cuda_ms(warp_fb),
-         "finish": cuda_ms(lambda: finish_image(maps, plan, cfg, medium,
-                                                light)),
-         "finish_fb": cuda_ms(finish_fb)}
-    log(f"{indent}warp alone forward        {t['warp']:.3f} ms")
-    log(f"{indent}warp alone fwd+bwd        {t['warp_fb']:.3f} ms (backward "
-        f"~{t['warp_fb'] - t['warp']:.3f} ms, the 4-tap splat)")
-    log(f"{indent}warp + finish forward     {t['finish']:.3f} ms")
-    log(f"{indent}warp + finish fwd+bwd     {t['finish_fb']:.3f} ms (backward "
-        f"~{t['finish_fb'] - t['finish']:.3f} ms)")
-    splat_timings(base.detach(), plan, ct, indent)
-
-
-def splat_timings(base, plan, ct, indent):
-    """The splat's four index_add_ alone (as _WarpBilinear's backward adds
-    them, taps precomputed) over every pixel, over the in-footprint pixels
-    only, and over every pixel with each out-of-footprint pixel's taps
-    moved to a texel of its own. Out of the footprint the cotangent is
-    zero, but the clamped taps add those zeros to the few edge texels, all
-    atomics on a few addresses; the three times separate that contention
-    from the count of adds."""
-    from volumetricrenderer_tpu_torch.ops.sweep import _in01, _taps
-    Hb, Wb, C = base.shape
-    r0, r1, _ = _taps(plan.warp_rows01, Hb)
-    c0, c1, _ = _taps(plan.warp_cols01, Wb)
-    idx = [(r * Wb + c).reshape(-1)
-           for r, c in ((r0, c0), (r1, c0), (r0, c1), (r1, c1))]
-    src = ct.reshape(-1, C)
-    inr = (_in01(plan.warp_rows01) & _in01(plan.warp_cols01)).reshape(-1)
-    inside = inr.nonzero()[:, 0]
-    own = torch.arange(inr.numel(), device=inr.device) % (Hb * Wb)
-    flat = base.new_zeros(Hb * Wb, C)
-
-    def splat(idx, src):
-        flat.zero_()
-        for i in idx:
-            flat.index_add_(0, i, src)
-    in_idx, in_src = [i[inside] for i in idx], src[inside]
-    own_idx = [torch.where(inr, i, own) for i in idx]
-    t = [cuda_ms(lambda: splat(idx, src)),
-         cuda_ms(lambda: splat(in_idx, in_src)),
-         cuda_ms(lambda: splat(own_idx, src))]
-    log(f"{indent}splat's 4 index_add_      {t[0]:.3f} ms over {inr.numel()} "
-        f"pixels, {int(inside.numel())} in the footprint; in-footprint "
-        f"pixels only {t[1]:.3f} ms; every pixel, the outside ones on "
-        f"texels of their own {t[2]:.3f} ms")
 
 
 def ref_small_checks(dev):
@@ -967,7 +873,8 @@ def ref_timings(grid4, cam, plan, dev, gpu_line, plain_runs=5):
             f"{rays / (t['fwdbwd'] * 1e-3):.4g} fwd+bwd rays/s (plan "
             "excluded)")
         if em:
-            warp_timings(maps.unbind(0), plan, cfg, medium, indent="    ")
+            measure_warp.warp_timings(maps.unbind(0), plan, cfg, medium,
+                                      indent="    ", log=log)
             log(f"    min T {min_t:.4f} against the early-stop threshold "
                 f"{cfg.early_stop_transmittance}: "
                 + ("no ray ended early, the in-box count is the work done"
@@ -1461,7 +1368,8 @@ def light_timings(grid, cam, plan, grid4, cam4, plan4, dev, gpu_line,
         f"light volume rebuilt; unshadowed {t['render_nolight']:.3f} ms)")
     log(f"  shadowed forward+backward step       {t['fwdbwd']:.3f} ms = "
         f"{rays / (t['fwdbwd'] * 1e-3):.4g} fwd+bwd rays/s")
-    warp_timings(maps.unbind(0), plan, cfg, medium, light)
+    measure_warp.warp_timings(maps.unbind(0), plan, cfg, medium, light,
+                              log=log)
     profile_fwdbwd(fwdbwd, out_dir, "chip_smoke_profile_config4.txt")
     base = (stack, *args)
     out["sweep_fwd"] = (t["fwd"], t["fwd_plain"], samples, lines,
@@ -3229,7 +3137,7 @@ def config5_mesh_phase(dev, grid5, cam, plan, cfg, medium, light, out_dir,
         with torch.no_grad():
             maps = sweep_fwd.sweep_base(grid5[..., 0].permute(plan.perm),
                                         plan, cfg, medium)
-        warp_timings(maps, plan, cfg, medium, light)
+        measure_warp.warp_timings(maps, plan, cfg, medium, light, log=log)
         profile_fwdbwd(lambda: step(target), out_dir,
                        "chip_smoke_profile_config5.txt")
     finally:
@@ -3713,6 +3621,184 @@ def bench_phase(grid, plan, cfg, medium, out_dir, gpu_line):
     return res
 
 
+# Step 24: the JAX repository's workload tools (tools/ there) as the
+# port's runners (volumetricrenderer_tpu_torch/tools/), each main() in this
+# process at the JAX tool's full size, on the libraries step 2 built.
+TOOL_SIZE_VARS = ("V", "W", "H", "K")  # trace_flagship's, as the JAX tool's
+TOOL_SIZE_PREFIXES = ("VOLT_F_", "VOLT_A_", "VOLT_S_", "VOLT_SL_", "VOLT_W_",
+                      "VOLT_TRACE_")
+TOOL_KEYS = ("device", "power_limit_w", "timed_runs", "launches",
+             "general_sweep_calls")
+TOOL_LINE_KEYS = {
+    "fit_config3": ("loss_first", "loss_last", "loss_drop_x",
+                    "losses_every_5", "losses", "skipped_steps", "fit_s",
+                    "ms_per_step", "host_ms_per_step", "setup_s"),
+    "anim_config4": ("frames", "fps_wall", "ms_per_frame_wall",
+                     "ms_per_frame", "mrays_per_s", "plan_s", "setup_s",
+                     "warmup_runs"),
+    "scale512": ("by_slices", "base_shape", "ms_per_frame_fwd",
+                 "ms_per_frame_fwd_bwd", "mrays_per_s_fwd_bwd",
+                 "peak_memory_gib", "warmup_runs"),
+    "serve_local": ("states", "iters", "init_s", "plan_build_s",
+                    "ms_per_frame_device", "fps_device_paced",
+                    "ms_per_round_all", "warmup_runs"),
+    "measure_warp": ("base_shape", "moveaxis_only", "ms_fwd", "ms_fwd_bwd",
+                     "splat_ms_all", "splat_ms_footprint", "pixels",
+                     "footprint_pixels"),
+    "trace_flagship": ("wall_ms_per_step", "busy_ms_per_step", "idle_share",
+                       "top_ops", "warmup_runs"),
+}
+# FIT_r5.json: the JAX package's config-3 fit on a TPU v5e. Its first loss
+# is logged beside the port's, not held (the two bake the same scene; the
+# TPU's matmuls ran at bfloat16-pass precision).
+TPU_FIT_LOSS_FIRST = 0.007647148799151182
+FIT_LOSS_DROP_MIN = 100.0  # over the 40 steps; FIT_r5.json recorded 943.9
+
+
+class LightSpy:
+    """Counts, for the time of a `with` block, sweep_fwd's launches that
+    were given a light stack (K1's light branch)."""
+
+    def __enter__(self):
+        self.launch, self.lit = sweep_fwd.launch_kernel, 0
+
+        def spy(*a, **kw):
+            light = kw.get("light", a[9] if len(a) > 9 else None)
+            self.lit += light is not None
+            return self.launch(*a, **kw)
+        sweep_fwd.launch_kernel = spy
+        return self
+
+    def __exit__(self, *exc):
+        sweep_fwd.launch_kernel = self.launch
+
+
+def run_tool(name, gpu_line):
+    """main([]) of one runner in this process, counted from 0, with every
+    runner's size variables unset (the JAX tools' full sizes): its progress
+    (stderr) relayed to the log, its last stdout line parsed and held to
+    its keys, the card, and no general sweep. Returns (line, launches
+    (fwd, bwd, ref_fwd, ref_bwd) of the whole run)."""
+    import contextlib
+    import importlib
+    import io
+    mod = importlib.import_module(f"volumetricrenderer_tpu_torch.tools.{name}")
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k in TOOL_SIZE_VARS or k.startswith(TOOL_SIZE_PREFIXES)}
+    out, err = io.StringIO(), io.StringIO()
+    reset_counts()
+    calls0 = ops_sweep.general_calls
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = mod.main([])
+    finally:
+        os.environ.update(saved)
+        for line in err.getvalue().strip().splitlines():
+            log(f"  {name}: {line}")
+    launches = path_counts(f"tools: {name}")
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        fail(f"tools/{name}: exit code {rc}, {len(lines)} stdout lines")
+    res = json.loads(lines[-1])
+    missing = [k for k in TOOL_KEYS + TOOL_LINE_KEYS[name] if k not in res]
+    if missing:
+        fail(f"tools/{name}: the line lacks {missing}")
+    if res["device"] != torch.cuda.get_device_name(0):
+        fail(f"tools/{name} ran on {res['device']}")
+    calls = ops_sweep.general_calls - calls0
+    if res["general_sweep_calls"] or calls:
+        fail(f"tools/{name}: {calls} general sweeps "
+             f"({res['general_sweep_calls']} in its line), none expected")
+    log(f"[{gpu_line}] tools/{name} ({time.perf_counter() - t0:.1f} s, "
+        f"launches {launches}): {json.dumps(res)}")
+    return res, launches
+
+
+def expect_launches(name, got, want):
+    if tuple(got) != tuple(want):
+        fail(f"tools/{name} launched (fwd, bwd, ref_fwd, ref_bwd) {got}, "
+             f"expected {want}")
+
+
+def line_launches(fwd=0, bwd=0):
+    """A line's "launches" field of K1 and K2 launches."""
+    return {"sweep_fwd": fwd, "sweep_bwd": bwd, "sweep_ref_fwd": 0,
+            "sweep_ref_bwd": 0}
+
+
+def tools_phase(gpu_line):
+    """Step 24: the six runners at full width, each counted from 0 and
+    held to the launches its workload makes. Returns the launches of each
+    run."""
+    t_phase = time.perf_counter()
+    paths = []
+    res, n = run_tool("fit_config3", gpu_line)
+    steps = res["steps"]
+    expect_launches("fit_config3", n, (1 + steps, steps, 0, 0))
+    if res["launches"] != line_launches(steps, steps):
+        fail(f"tools/fit_config3: launches in the fit {res['launches']}")
+    if (res["volume"], res["image"], steps) != (FIT_SIZE, FIT_IMAGE, 40):
+        fail(f"tools/fit_config3 ran {res['volume']}^3 at {res['image']}^2 "
+             f"for {steps} steps")
+    if res["skipped_steps"] or not all(map(math.isfinite, res["losses"])) \
+            or not res["loss_drop_x"] >= FIT_LOSS_DROP_MIN:
+        fail(f"tools/fit_config3: the loss fell {res['loss_drop_x']:.4g}x "
+             f"(at least {FIT_LOSS_DROP_MIN:g} asked), skipped "
+             f"{res['skipped_steps']}")
+    log(f"[{gpu_line}] config 3 fit, {steps} steps: loss "
+        f"{res['loss_first']:.7g} "
+        f"-> {res['loss_last']:.7g} ({res['loss_drop_x']:.5g}x), "
+        f"{res['ms_per_step']:.3f} ms a step; the TPU's first loss "
+        f"{TPU_FIT_LOSS_FIRST:.7g} (FIT_r5.json; not held)")
+    paths.append(n)
+
+    with LightSpy() as spy:
+        res, n = run_tool("anim_config4", gpu_line)
+    frames, warm = res["frames"], res["warmup_runs"]
+    expect_launches("anim_config4", n, (frames + warm, 0, 0, 0))
+    if spy.lit != frames + warm or res["launches"] != line_launches(frames):
+        fail(f"tools/anim_config4: {spy.lit} K1 launches with light, line "
+             f"{res['launches']}, for {frames} frames and {warm} warm-ups")
+    paths.append(n)
+
+    res, n = run_tool("scale512", gpu_line)
+    runs, warm, rows = res["timed_runs"], res["warmup_runs"], res["by_slices"]
+    expect_launches("scale512", n, (2 * len(rows) * (runs + warm),
+                                    len(rows) * (runs + warm), 0, 0))
+    for S, row in rows.items():
+        if row["launches_fwd"] != line_launches(runs) \
+                or row["launches_fwd_bwd"] != line_launches(runs, runs):
+            fail(f"tools/scale512 at {S} slices: launches "
+                 f"{row['launches_fwd']}, {row['launches_fwd_bwd']}")
+    if sorted(map(int, rows)) != [128, 256, 512] or res["volume"] != 512:
+        fail(f"tools/scale512 ran {res['volume']}^3 at slices {list(rows)}")
+    paths.append(n)
+
+    res, n = run_tool("serve_local", gpu_line)
+    k, iters = res["states"], res["iters"]
+    expect_launches("serve_local", n, (k * (iters + res["warmup_runs"]), 0,
+                                       0, 0))
+    if res["launches"] != line_launches(k * iters):
+        fail(f"tools/serve_local: line launches {res['launches']}")
+    paths.append(n)
+
+    res, n = run_tool("measure_warp", gpu_line)
+    expect_launches("measure_warp", n, (0, 0, 0, 0))
+    paths.append(n)
+
+    res, n = run_tool("trace_flagship", gpu_line)
+    steps = res["timed_runs"] + res["warmup_runs"]
+    expect_launches("trace_flagship", n, (steps, steps, 0, 0))
+    names = [op["name"] for op in res["top_ops"]]
+    for kernel in ("sweep_fwd_kernel", "sweep_bwd_kernel"):
+        if not any(kernel in op for op in names):
+            fail(f"tools/trace_flagship: no {kernel} among the top ops")
+    paths.append(n)
+    log(f"tools phase (six runners): {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None,
@@ -3904,19 +3990,14 @@ def main(argv=None):
         f"{float((g.grad != 0).float().mean()):.4f}")
 
     t0 = time.perf_counter()
-    true3 = bake_scene(config3_scene(FIT_SIZE, device=dev), FIT_SIZE, cfg)
-    cam3 = make_camera(CameraConfig(width=FIT_IMAGE, height=FIT_IMAGE))
-    with torch.no_grad():
-        target3 = render_image(true3, cam3, cfg, medium)[..., :3]
-    torch.cuda.synchronize()
+    target3, cam3, _, _ = fit_config3.workload(FIT_SIZE, FIT_IMAGE, dev)
     log(f"config 3 target: baked {FIT_SIZE}^3 cloud+smoke, rendered "
         f"{FIT_IMAGE}x{FIT_IMAGE} in {time.perf_counter() - t0:.2f} s")
     before = counts()
-    clock = StepClock()
+    clock = StepClock(dev)
     t0 = time.perf_counter()
-    res = fit_grid(target3, cam3, cfg, medium, LightConfig(),
-                   grid_size=FIT_SIZE, steps=FIT_STEPS,
-                   learning_rate=FIT_LR, metrics=clock)
+    res = fit_config3.fit(target3, cam3, cfg, medium, FIT_SIZE, FIT_STEPS,
+                          metrics=clock)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_launches = tuple(a - b for a, b in zip(counts(), before))
@@ -3931,8 +4012,7 @@ def main(argv=None):
             or not res.losses[-1] < res.losses[0]:
         fail(f"config 3 fit did not descend: losses {res.losses}, skipped "
              f"{res.skipped_steps}")
-    (s0, c0), (s1, c1) = clock.marks[0], clock.marks[-1]
-    fit_step_ms = (c1 - c0) * 1e3 / (s1 - s0)
+    fit_step_ms, fit_host_ms, fit_span = clock.per_step_ms()
     log(f"training path: launches (fwd, bwd, ref_fwd, ref_bwd) "
         f"{train_launches}")
 
@@ -3970,15 +4050,17 @@ def main(argv=None):
     log(f"  sweep_fwd plain version   {plain_ms:.3f} ms")
     log(f"  sweep_bwd kernel          {bwd_ms:.3f} ms")
     log(f"  sweep_bwd plain version   {bwd_plain_ms:.3f} ms")
-    warp_timings(maps, plan, cfg, medium)
+    measure_warp.warp_timings(maps, plan, cfg, medium, log=log)
     log(f"  render_image              {render_ms:.3f} ms = "
         f"{rays / (render_ms * 1e-3):.4g} forward rays/s (plan excluded)")
     log(f"  forward+backward step     {fwdbwd_ms:.3f} ms = "
         f"{rays / (fwdbwd_ms * 1e-3):.4g} fwd+bwd rays/s (plan excluded)")
     log(f"  plan build (host)         {plan_s * 1e3:.1f} ms")
     log(f"[{gpu_line}] config 3 fit {FIT_SIZE}^3 at {FIT_IMAGE}x"
-        f"{FIT_IMAGE}: {fit_step_ms:.3f} ms per step (host clock, steps "
-        f"{s0 + 1}-{s1}), loss {res.losses[0]:.6e} -> {res.losses[-1]:.6e}")
+        f"{FIT_IMAGE}: {fit_step_ms:.3f} ms per step (CUDA events between "
+        f"fit_grid's metric writes, over {fit_span} steps; host clock "
+        f"{fit_host_ms:.3f}), loss {res.losses[0]:.6e} -> "
+        f"{res.losses[-1]:.6e}")
     profile_fwdbwd(fwdbwd, out_dir)
     samples, lines = inbox_samples(plan)
     min_t = float(maps[1].min())
@@ -4073,7 +4155,10 @@ def main(argv=None):
     # 23. The port's bench, bench_torch.py, in a process of its own.
     bench_phase(grid, frames[0][1], cfg, medium, out_dir, gpu_line)
 
-    # 24. Results. No single PyTorch call marches a carried, gated slice
+    # 24. The runners of volumetricrenderer_tpu_torch/tools/ at full width.
+    tool_paths = tools_phase(gpu_line)
+
+    # 25. Results. No single PyTorch call marches a carried, gated slice
     # sweep (grid_sample does one slice's taps only), so library_ms is null.
     times = {"sweep_fwd": (kernel_ms, plain_ms),
              "sweep_bwd": (bwd_ms, bwd_plain_ms),
@@ -4090,9 +4175,10 @@ def main(argv=None):
         launches_preset = sum(path[k] for path in preset_paths)
         launches_front = sum(path[k] for path in front_paths)
         launches_sharded = sum(path[k] for path in shard_paths)
+        launches_tools = sum(path[k] for path in tool_paths)
         launches_f32 = sum(path[k] for path in main_paths) + launches_light
         launches = launches_f32 + launches_low + launches_preset \
-            + launches_front + launches_sharded
+            + launches_front + launches_sharded + launches_tools
         if launches_f32 - launches_light < 1 or launches_light < 1 \
                 or launches_low < 1 or launches_sharded < 1:
             fail(f"{name}: no launch on a main path ({launches} in all, "
@@ -4123,7 +4209,8 @@ def main(argv=None):
             f"operations, {nbytes_l:.4g} bytes); {launches_low} launches on "
             f"the bfloat16 main paths, {launches_preset} on the presets', "
             f"{launches_front} on serve's and animate's, {launches_sharded} "
-            "on the sharded paths (parallel/)")
+            f"on the sharded paths (parallel/), {launches_tools} in the "
+            "runners (tools/)")
         log(f"[{gpu_line}] {name} share of its bound: float32 "
             f"{bound_ms / ms:.4f}, with light {bound_l / ms_l:.4f}, bfloat16 "
             f"{bound_low / lt['ms']:.4f}, bfloat16 with light "
@@ -4164,6 +4251,7 @@ def main(argv=None):
             "launches_bf16": launches_low,
             "launches_front_end": launches_front,
             "launches_sharded": launches_sharded,
+            "launches_tools": launches_tools,
             "ms_bf16": lt["ms"],
             "ms_bf16_light": lt["ms_light"],
             "plain_ms_bf16": lt["plain_ms"],

@@ -32,6 +32,7 @@ from volumetricrenderer_tpu_torch import cli
 from volumetricrenderer_tpu_torch import fit as tfit
 from volumetricrenderer_tpu_torch.kernels import sweep_bwd, sweep_fwd
 from volumetricrenderer_tpu_torch.models import scene as tscene
+from volumetricrenderer_tpu_torch.tools import fit_config3
 from volumetricrenderer_tpu_torch.utils import checkpoint as tckpt
 
 torch.set_num_threads(1)
@@ -118,6 +119,21 @@ def test_fit_matches_jax(problem):
     assert 0.0 <= float(got.grid.min()) and float(got.grid.max()) <= 1.0
     _assert_fits_close(problem, got.losses, got.grid.numpy(), want.losses,
                        want.grid)
+
+
+def test_fit_config3_runner_matches_jax(problem):
+    """The runner tools/fit_config3.py at 16^3 / 48x48, 3 steps: its
+    workload's target (the port's baked scene rendered with its own plan,
+    held to the JAX target as tests/test_torch_render.py holds
+    render_image: rtol 2e-4, atol 1e-4) and its timed fit's losses against
+    JAX fit_grid on JAX's baked target."""
+    target, cam, cfg, med = fit_config3.workload(SIZE, IMG, "cpu")
+    np.testing.assert_allclose(target.numpy(), problem["target"], rtol=2e-4,
+                               atol=1e-4)
+    got = fit_config3.fit(target, cam, cfg, med, SIZE, 3)
+    want = _jax_fit(problem, 3)
+    assert got.skipped_steps == want.skipped_steps == 0
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-4)
 
 
 def test_fit_fixed_quadrature_matches_jax(problem):

@@ -17,7 +17,7 @@ def _port_sources():
     return sorted(p for p in PKG.rglob("*.py")
                   if "_build" not in p.relative_to(PKG).parts) \
         + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
-           ROOT / "bench_torch.py"]
+           ROOT / "bench_torch.py", ROOT / "frame_ab.py"]
 
 
 def test_sources_import_no_jax():
@@ -33,7 +33,15 @@ def test_sources_import_no_jax():
             "volumetricrenderer_tpu_torch/parallel/sweep_sharded.py",
             "volumetricrenderer_tpu_torch/parallel/render_sharded.py",
             "volumetricrenderer_tpu_torch/bench.py",
-            "chip_smoke.py", "kernel_ab.py", "bench_torch.py"} <= names
+            "volumetricrenderer_tpu_torch/tools/__init__.py",
+            "volumetricrenderer_tpu_torch/tools/fit_config3.py",
+            "volumetricrenderer_tpu_torch/tools/anim_config4.py",
+            "volumetricrenderer_tpu_torch/tools/scale512.py",
+            "volumetricrenderer_tpu_torch/tools/serve_local.py",
+            "volumetricrenderer_tpu_torch/tools/measure_warp.py",
+            "volumetricrenderer_tpu_torch/tools/trace_flagship.py",
+            "chip_smoke.py", "kernel_ab.py", "bench_torch.py",
+            "frame_ab.py"} <= names
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
             names = []

@@ -25,6 +25,7 @@ from volumetricrenderer_tpu_torch.config import PRESETS as TPRESETS
 from volumetricrenderer_tpu_torch.serve import (N_AZ, FrameLoop,
                                                 InteractiveRenderer,
                                                 PendingFrame, serve)
+from volumetricrenderer_tpu_torch.tools import serve_local
 
 SIZES = {"config2": (16, 64, 48), "config4": (16, 48, 32),
          "reference": (8, 32, 24)}
@@ -92,6 +93,18 @@ def test_render_frame_matches_jax_at_three_states(pair):
                                            jr.preset.camera.width, 3)
         assert got.dtype == np.int32 and np.abs(got - want).max() <= 1
         assert want.max() > 0x11  # the cloud is in view over the page
+
+
+def test_serve_local_walk_matches_jax(pair):
+    """tools/serve_local.py's walk (its key string until 4 distinct
+    states) visits the same (azimuth, elevation, distance) states on the
+    JAX renderer as on the port's, from the same state."""
+    jr, tr = pair
+    assert tr.state() == jr.state()
+    states = serve_local.walk(tr, 4)
+    assert serve_local.walk(jr, 4) == states
+    assert len({tuple(round(x, 6) for x in s) for s in states}) == 4
+    assert tr.state() == jr.state()
 
 
 def test_key_drag_wheel_sequence_matches_jax():

@@ -279,7 +279,19 @@ class InteractiveRenderer:
                 self.media_t += now - self._last_tick
             self._last_tick = now
             az, el, d, t = self.azim, self.elev, self.dist, self.media_t
-        plan = self._plan_cached(az, el, d)
+        frame = self.present(self._plan_cached(az, el, d), t)
+        self.frames_rendered += 1
+        if frame.device.type != "cuda":
+            return PendingFrame(frame)
+        host = torch.empty(frame.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(frame, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(frame.device))
+        return PendingFrame(host, event)
+
+    def present(self, plan, t: float) -> torch.Tensor:
+        """The device part of a frame: render at `plan` and media time t,
+        then uint8 RGB over the page background, left on the device."""
         scroll = None
         if self.medium.combine == "reference":
             scroll = reference_media_scroll(t, n_channels=self.n_ch,
@@ -292,16 +304,8 @@ class InteractiveRenderer:
                                backend="sweep")
             a = img[..., 3:4]
             rgb = img[..., :3] * a + _PAGE_BG * (1.0 - a)
-            frame = torch.clamp(rgb * 255.0 + 0.5, 0.0, 255.0).to(
+            return torch.clamp(rgb * 255.0 + 0.5, 0.0, 255.0).to(
                 torch.uint8)
-        self.frames_rendered += 1
-        if frame.device.type != "cuda":
-            return PendingFrame(frame)
-        host = torch.empty(frame.shape, dtype=torch.uint8, pin_memory=True)
-        host.copy_(frame, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(frame.device))
-        return PendingFrame(host, event)
 
     def render_frame(self) -> np.ndarray:
         """Dispatch + fetch one frame synchronously (tests, one-offs)."""
