@@ -120,7 +120,7 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    with shadows per frame (plan reused, light volume rebuilt), the warp
    and the shadowed forward+backward step, with a torch.profiler table of
    that step;
-16. (the results are printed last, step 25);
+16. (the results are printed last, step 26);
 17. the bfloat16 stream mode (RenderConfig(dtype="bfloat16"): texels and
    tap weights rounded to bfloat16, everything else float32) at small
    shapes: torch's rounding against the device's on seeded weights and
@@ -221,15 +221,31 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    profiled step and among its top device ops); each line parsed, held
    to its keys, to the card's name and to no general-sweep call, and
    logged whole;
-25. prints a JSON line of kernel results (each kernel's launches on the
+25. the sharded path's entry points and the stage profiler as the port's
+   runners, at full width with one rank per card present (tools.
+   spawn_ranks: a process per rank, NCCL, each rank's launches its own
+   counters from 0, reported in the line; this process launches none of
+   theirs): multichip (the JAX dryrun_multichip's shadowed step: a finite
+   loss, one K1 for the target and one K1 and K2 for the step on every
+   rank), sharded_step (the JAX sharded_tpu.py at 256^3/1080p: the six
+   variants' K1 and K2 per timed call, the sharded frame equal to the
+   unsharded one bit for bit at one rank, six train steps whose loss falls,
+   the 512^3 sweep at 128 slices forward+backward), scaling_rehearsal
+   (every (data, slab) shape of the cards present, VOLT_SR_SHAPES, at
+   128^3/512^2: each shape's loss falls, its K1 and K2 counted) and
+   profile_parts in this process (the flagship's stages, K1 and K2 per
+   stage, the general sweep's calls); every line parsed and held to its
+   keys, the card and its launches, and logged whole;
+26. prints a JSON line of kernel results (each kernel's launches on the
    main paths, error, time, plain version's time, and the least time the
    card could take for the same work, each also for the light variant and
    for the bfloat16 mode; the share of the bound; the registers of each
    instantiation and the most spilled bytes from ptxas; the tile-slices
    each kernel computed on the main paths and how many of those read
    through global memory, which must be none for K4 and K5; the launches
-   on the sharded paths, `launches_sharded`, and in the runners of step
-   24, `launches_tools`), with each
+   on the sharded paths, `launches_sharded`, in the runners of step 24,
+   `launches_tools`, and in step 25, `launches_runner_ranks` and
+   `launches_profile_parts`), with each
    time's share of its bound logged before it, and the script's wall time
    on a line of its own, then the last line {"ok": true, "device":
    {...}}. Every main path logs its tile-slices.
@@ -3624,9 +3640,11 @@ def bench_phase(grid, plan, cfg, medium, out_dir, gpu_line):
 # Step 24: the JAX repository's workload tools (tools/ there) as the
 # port's runners (volumetricrenderer_tpu_torch/tools/), each main() in this
 # process at the JAX tool's full size, on the libraries step 2 built.
-TOOL_SIZE_VARS = ("V", "W", "H", "K")  # trace_flagship's, as the JAX tool's
+# trace_flagship's and profile_parts's (V, W, H, K, I) and
+# scaling_rehearsal's (V, IMG, STEPS), as the JAX tools name them
+TOOL_SIZE_VARS = ("V", "W", "H", "K", "I", "IMG", "STEPS")
 TOOL_SIZE_PREFIXES = ("VOLT_F_", "VOLT_A_", "VOLT_S_", "VOLT_SL_", "VOLT_W_",
-                      "VOLT_TRACE_")
+                      "VOLT_TRACE_", "VOLT_SH_", "VOLT_SR_", "VOLT_PP_")
 TOOL_KEYS = ("device", "power_limit_w", "timed_runs", "launches",
              "general_sweep_calls")
 TOOL_LINE_KEYS = {
@@ -3647,6 +3665,22 @@ TOOL_LINE_KEYS = {
                      "footprint_pixels"),
     "trace_flagship": ("wall_ms_per_step", "busy_ms_per_step", "idle_share",
                        "top_ops", "warmup_runs"),
+    "multichip": ("n_devices", "mesh", "loss", "ok", "launches_per_rank",
+                  "total_s"),
+    "sharded_step": ("ms_per_frame", "host_ms_per_frame",
+                     "launches_per_rank", "base_fwd_sharded_vs_unsharded",
+                     "full_fwd_sharded_vs_unsharded",
+                     "full_fwdbwd_sharded_vs_unsharded", "fwd_max_abs_diff",
+                     "train_step_losses", "train_loss_ratio",
+                     "train_6steps_s", "launches_per_variant",
+                     "launches_train", "sharded_512_128slices_fwdbwd_ms",
+                     "sharded_512_first_call_s", "sharded_512_total_s",
+                     "launches_512", "ranks", "warmup_runs", "total_s"),
+    "scaling_rehearsal": ("volume", "image", "base_shape", "steps_timed",
+                          "shapes", "launches_per_rank", "total_s"),
+    "profile_parts": ("ms_per_frame", "host_ms_per_frame",
+                      "launches_per_stage", "base_shape", "slices",
+                      "warmup_runs", "total_s"),
 }
 # FIT_r5.json: the JAX package's config-3 fit on a TPU v5e. Its first loss
 # is logged beside the port's, not held (the two bake the same scene; the
@@ -3673,26 +3707,32 @@ class LightSpy:
         sweep_fwd.launch_kernel = self.launch
 
 
-def run_tool(name, gpu_line):
-    """main([]) of one runner in this process, counted from 0, with every
-    runner's size variables unset (the JAX tools' full sizes): its progress
-    (stderr) relayed to the log, its last stdout line parsed and held to
-    its keys, the card, and no general sweep. Returns (line, launches
-    (fwd, bwd, ref_fwd, ref_bwd) of the whole run)."""
+def run_tool(name, gpu_line, argv=(), env=None, general=0):
+    """main(argv) of one runner in this process, counted from 0, with every
+    runner's size variables unset (the JAX tools' full sizes) but `env`:
+    its progress (stderr) relayed to the log, its last stdout line parsed
+    and held to its keys, the card, and `general` general-sweep calls
+    (none but in profile_parts). Returns (line, launches (fwd, bwd,
+    ref_fwd, ref_bwd) of the whole run in this process: a sharded runner's
+    ranks are processes of their own, which count their own launches and
+    report them in the line)."""
     import contextlib
     import importlib
     import io
     mod = importlib.import_module(f"volumetricrenderer_tpu_torch.tools.{name}")
     saved = {k: os.environ.pop(k) for k in list(os.environ)
              if k in TOOL_SIZE_VARS or k.startswith(TOOL_SIZE_PREFIXES)}
+    os.environ.update(env or {})
     out, err = io.StringIO(), io.StringIO()
     reset_counts()
     calls0 = ops_sweep.general_calls
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = mod.main([])
+            rc = mod.main(list(argv))
     finally:
+        for k in env or {}:
+            del os.environ[k]
         os.environ.update(saved)
         for line in err.getvalue().strip().splitlines():
             log(f"  {name}: {line}")
@@ -3707,9 +3747,10 @@ def run_tool(name, gpu_line):
     if res["device"] != torch.cuda.get_device_name(0):
         fail(f"tools/{name} ran on {res['device']}")
     calls = ops_sweep.general_calls - calls0
-    if res["general_sweep_calls"] or calls:
+    if res["general_sweep_calls"] != general or calls != general:
         fail(f"tools/{name}: {calls} general sweeps "
-             f"({res['general_sweep_calls']} in its line), none expected")
+             f"({res['general_sweep_calls']} in its line), {general} "
+             "expected")
     log(f"[{gpu_line}] tools/{name} ({time.perf_counter() - t0:.1f} s, "
         f"launches {launches}): {json.dumps(res)}")
     return res, launches
@@ -3797,6 +3838,168 @@ def tools_phase(gpu_line):
     paths.append(n)
     log(f"tools phase (six runners): {time.perf_counter() - t_phase:.1f} s")
     return paths
+
+
+# Step 25: the sharded path's entry points (__graft_entry__.dryrun_multichip,
+# tools/sharded_tpu.py and tools/scaling_rehearsal.py there) and the stage
+# profiler (tools/profile_parts.py) as the port's runners, at full width on
+# every card present: one rank per card, spawned by tools.spawn_ranks. The
+# ranks' launches are their own counters (fresh processes, from 0),
+# reported in each line; this process must launch none of them.
+NO_LAUNCH = (0, 0, 0, 0)
+
+
+def kernel_tuple(d):
+    """A line's launches dict as (fwd, bwd, ref_fwd, ref_bwd)."""
+    return tuple(d[name] for name in KERNELS)
+
+
+def mesh_shapes(n):
+    """Every (data, slab) with data * slab = n: the JAX rehearsal's shapes
+    at n = 8."""
+    return [(d, n // d) for d in range(n, 0, -1) if n % d == 0]
+
+
+def expect_tuple(name, what, got, want):
+    if tuple(got) != tuple(want):
+        fail(f"tools/{name}: {what} launched (fwd, bwd, ref_fwd, ref_bwd) "
+             f"{tuple(got)}, expected {tuple(want)}")
+
+
+def rank_launches(name, res, n, want):
+    """Each of the n ranks' launches over its whole run, as the line
+    reports them (launches_per_rank; rank 0's also as launches), held to
+    `want`. Returns them as tuples."""
+    got = [kernel_tuple(x) for x in res["launches_per_rank"]]
+    if len(got) != n or kernel_tuple(res["launches"]) != got[0]:
+        fail(f"tools/{name}: launches per rank {got}, rank 0's line "
+             f"{res['launches']}, for {n} ranks")
+    for r, t in enumerate(got):
+        expect_tuple(name, f"rank {r}", t, want)
+    return got
+
+
+def falls(name, losses):
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"tools/{name}: the loss did not fall: {losses}")
+
+
+def sharded_runners_phase(gpu_line):
+    """Step 25: multichip, sharded_step and scaling_rehearsal at ranks =
+    the cards present; each line parsed and held to its keys, the K1 and
+    K2 launches its runner counts, the 1x1 frame equal to the unsharded
+    one bit for bit, every train run's loss falling. Returns the ranks'
+    launch tuples (their own counters)."""
+    import torch.distributed as dist
+    from volumetricrenderer_tpu_torch.tools import multichip, sharded_step
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    if dist.is_initialized():
+        fail("a process group is still running before the runners")
+    ranks = []
+    # the ranks build their volumes on the cards this process holds too
+    torch.cuda.empty_cache()
+
+    res, here = run_tool("multichip", gpu_line)
+    expect_tuple("multichip", "this process", here, NO_LAUNCH)
+    if (res["n_devices"], res["mesh"], res["ok"]) != \
+            (n, list(multichip.mesh_shape(n)), True) \
+            or not math.isfinite(res["loss"]):
+        fail(f"tools/multichip: {res}")
+    # each rank: the target frame (K1) and the step (K1, K2), shadowed
+    ranks += rank_launches("multichip", res, n, (2, 1, 0, 0))
+    log(f"[{gpu_line}] multichip, {n} ranks, mesh {res['mesh']}: loss "
+        f"{res['loss']:.7g}, launches per rank "
+        f"{[kernel_tuple(x) for x in res['launches_per_rank']]}")
+
+    torch.cuda.empty_cache()
+    res, here = run_tool("sharded_step", gpu_line, ["--ranks", str(n)])
+    expect_tuple("sharded_step", "this process", here, NO_LAUNCH)
+    it, warm = res["timed_runs"], res["warmup_runs"]
+    if res["ranks"] != n or (res["volume"], res["width"], res["height"]) \
+            != (VOLUME, WIDTH, HEIGHT):
+        fail(f"tools/sharded_step ran {res['ranks']} ranks at "
+             f"{res['volume']}^3, {res['width']}x{res['height']}")
+    if n == 1 and res["fwd_max_abs_diff"] != 0.0:
+        fail("tools/sharded_step: the 1x1 sharded frame is not the unsharded "
+             f"one bit for bit: max abs diff {res['fwd_max_abs_diff']}")
+    if not res["fwd_max_abs_diff"] < SHARD_MAP_TOL:
+        fail(f"tools/sharded_step: fwd_max_abs_diff {res['fwd_max_abs_diff']}")
+    for variant, got in res["launches_per_variant"].items():
+        want = (it, it if "fwdbwd" in variant else 0, 0, 0)
+        expect_tuple("sharded_step", variant, kernel_tuple(got), want)
+    steps = len(res["train_step_losses"])
+    falls("sharded_step", res["train_step_losses"])
+    expect_tuple("sharded_step", "the train steps",
+                 kernel_tuple(res["launches_train"]), (steps, steps, 0, 0))
+    n512 = 1 + max(it - 1, 2)
+    expect_tuple("sharded_step", "the 512 phase",
+                 kernel_tuple(res["launches_512"]), (n512, n512, 0, 0))
+    total = (6 * (warm + it) + 2 + steps + n512,
+             2 * (warm + it) + steps + n512, 0, 0)
+    ranks += rank_launches("sharded_step", res, n, total)
+    log(f"[{gpu_line}] sharded_step, {n} ranks: ms per frame "
+        f"{res['ms_per_frame']}; sharded/unsharded base "
+        f"{res['base_fwd_sharded_vs_unsharded']:.4f}, full fwd "
+        f"{res['full_fwd_sharded_vs_unsharded']:.4f}, fwd+bwd "
+        f"{res['full_fwdbwd_sharded_vs_unsharded']:.4f}; fwd_max_abs_diff "
+        f"{res['fwd_max_abs_diff']}; train losses "
+        f"{res['train_step_losses']}; 512^3 at 128 slices fwd+bwd "
+        f"{res['sharded_512_128slices_fwdbwd_ms']:.3f} ms")
+
+    torch.cuda.empty_cache()
+    shapes = mesh_shapes(n)
+    res, here = run_tool("scaling_rehearsal", gpu_line, env={
+        "VOLT_SR_SHAPES": ",".join(f"{d}x{s_}" for d, s_ in shapes)})
+    expect_tuple("scaling_rehearsal", "this process", here, NO_LAUNCH)
+    if [(r["mesh"]["data"], r["mesh"]["slab"]) for r in res["shapes"]] \
+            != shapes or (res["volume"], res["image"]) != (128, 512):
+        fail(f"tools/scaling_rehearsal ran {res['volume']}^3 at "
+             f"{res['image']}^2 on {[r['mesh'] for r in res['shapes']]}")
+    k = res["steps_timed"] + 1  # the first call and the timed ones
+    for row in res["shapes"]:
+        falls("scaling_rehearsal", row["losses"])
+        expect_tuple("scaling_rehearsal", f"mesh {row['mesh']}",
+                     kernel_tuple(row["launches"]), (2 * k, k, 0, 0))
+    # each rank (every shape fills the one world of n ranks): its unsharded
+    # target frame and its shapes
+    ranks += rank_launches("scaling_rehearsal", res, n,
+                           (1 + 2 * k * len(shapes), k * len(shapes), 0, 0))
+    log(f"[{gpu_line}] scaling_rehearsal, shapes {shapes}: " + "; ".join(
+        f"{r['mesh']['data']}x{r['mesh']['slab']} {r['ms_per_step']:.3f} ms a "
+        f"step, frame {r['fwd_render_ms']:.3f} ms, first step "
+        f"{r['first_step_s']:.2f} s, final loss {r['final_loss']:.7g}"
+        for r in res["shapes"]))
+    log(f"sharded runners phase: {time.perf_counter() - t_phase:.1f} s")
+    return ranks
+
+
+def profile_parts_phase(gpu_line):
+    """Step 25, last: profile_parts in this process at the flagship, each
+    stage's K1 and K2 launches and the general sweep's calls held to what
+    it counts. Returns its launch tuple."""
+    t_phase = time.perf_counter()
+    runs = 2 * 2  # K * I, the JAX tool's frames
+    res, here = run_tool("profile_parts", gpu_line,
+                         general=runs + tools.WARMUP)
+    calls = runs + res["warmup_runs"]
+    if res["timed_runs"] != runs or (res["volume"], res["width"],
+                                     res["height"]) != (VOLUME, WIDTH,
+                                                        HEIGHT):
+        fail(f"tools/profile_parts: {res['timed_runs']} timed runs at "
+             f"{res['volume']}^3, {res['width']}x{res['height']}")
+    for stage, got in res["launches_per_stage"].items():
+        fwd = stage in ("base_fwd", "full_fwd", "base_fwdbwd", "full_fwdbwd")
+        want = (runs if fwd else 0,
+                runs if stage in ("base_fwdbwd", "full_fwdbwd") else 0, 0, 0)
+        expect_tuple("profile_parts", stage, kernel_tuple(got), want)
+    # the base maps the warp stages read (K1), then the stages' calls
+    expect_tuple("profile_parts", "the run", here,
+                 (1 + 4 * calls, 2 * calls, 0, 0))
+    log(f"[{gpu_line}] profile_parts at {VOLUME}^3, {WIDTH}x{HEIGHT}: ms "
+        f"per frame {res['ms_per_frame']} ({time.perf_counter() - t_phase:.1f}"
+        " s)")
+    return here
 
 
 def main(argv=None):
@@ -4158,7 +4361,12 @@ def main(argv=None):
     # 24. The runners of volumetricrenderer_tpu_torch/tools/ at full width.
     tool_paths = tools_phase(gpu_line)
 
-    # 25. Results. No single PyTorch call marches a carried, gated slice
+    # 25. The sharded path's runners over a rank per card, and the stage
+    # profiler.
+    rank_paths = sharded_runners_phase(gpu_line)
+    parts_paths = [profile_parts_phase(gpu_line)]
+
+    # 26. Results. No single PyTorch call marches a carried, gated slice
     # sweep (grid_sample does one slice's taps only), so library_ms is null.
     times = {"sweep_fwd": (kernel_ms, plain_ms),
              "sweep_bwd": (bwd_ms, bwd_plain_ms),
@@ -4176,9 +4384,12 @@ def main(argv=None):
         launches_front = sum(path[k] for path in front_paths)
         launches_sharded = sum(path[k] for path in shard_paths)
         launches_tools = sum(path[k] for path in tool_paths)
+        launches_ranks = sum(path[k] for path in rank_paths)
+        launches_parts = sum(path[k] for path in parts_paths)
         launches_f32 = sum(path[k] for path in main_paths) + launches_light
         launches = launches_f32 + launches_low + launches_preset \
-            + launches_front + launches_sharded + launches_tools
+            + launches_front + launches_sharded + launches_tools \
+            + launches_ranks + launches_parts
         if launches_f32 - launches_light < 1 or launches_light < 1 \
                 or launches_low < 1 or launches_sharded < 1:
             fail(f"{name}: no launch on a main path ({launches} in all, "
@@ -4210,7 +4421,8 @@ def main(argv=None):
             f"the bfloat16 main paths, {launches_preset} on the presets', "
             f"{launches_front} on serve's and animate's, {launches_sharded} "
             f"on the sharded paths (parallel/), {launches_tools} in the "
-            "runners (tools/)")
+            f"runners (tools/), {launches_ranks} in the sharded runners' "
+            f"ranks, {launches_parts} in profile_parts")
         log(f"[{gpu_line}] {name} share of its bound: float32 "
             f"{bound_ms / ms:.4f}, with light {bound_l / ms_l:.4f}, bfloat16 "
             f"{bound_low / lt['ms']:.4f}, bfloat16 with light "
@@ -4252,6 +4464,8 @@ def main(argv=None):
             "launches_front_end": launches_front,
             "launches_sharded": launches_sharded,
             "launches_tools": launches_tools,
+            "launches_runner_ranks": launches_ranks,
+            "launches_profile_parts": launches_parts,
             "ms_bf16": lt["ms"],
             "ms_bf16_light": lt["ms_light"],
             "plain_ms_bf16": lt["plain_ms"],

@@ -1,9 +1,11 @@
 """The PyTorch port never imports JAX (nor optax): every module imports,
-a frame renders and a fit steps, checkpoints and resumes, in a process
-where `import jax` and `import optax` fail."""
+a frame renders, a fit steps, checkpoints and resumes, and the runners'
+launcher runs a sharded rank body in place, in a process where `import
+jax` and `import optax` fail."""
 import ast
 import os
 import pathlib
+import socket
 import subprocess
 import sys
 import textwrap
@@ -40,6 +42,10 @@ def test_sources_import_no_jax():
             "volumetricrenderer_tpu_torch/tools/serve_local.py",
             "volumetricrenderer_tpu_torch/tools/measure_warp.py",
             "volumetricrenderer_tpu_torch/tools/trace_flagship.py",
+            "volumetricrenderer_tpu_torch/tools/multichip.py",
+            "volumetricrenderer_tpu_torch/tools/sharded_step.py",
+            "volumetricrenderer_tpu_torch/tools/scaling_rehearsal.py",
+            "volumetricrenderer_tpu_torch/tools/profile_parts.py",
             "chip_smoke.py", "kernel_ab.py", "bench_torch.py",
             "frame_ab.py"} <= names
     for path in _port_sources():
@@ -151,11 +157,27 @@ def test_port_imports_and_renders_without_jax():
             mesh, plan, cfg, med, torch.full_like(grid, 0.4))
         assert step(img[..., :3]) > 0.0
         dist.destroy_process_group()
+        # the runners' launcher, in place under torchrun's names: the
+        # sharded step's rank body and profile_parts's stages
+        import os
+        from volumetricrenderer_tpu_torch.tools import (
+            profile_parts, sharded_step, spawn_ranks)
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="localhost", MASTER_PORT=port)
+        line = spawn_ranks(sharded_step.rank_body, 1, "cpu", dict(
+            volume=8, width=12, height=8, iters=1, do512=False))
+        assert line["fwd_max_abs_diff"] == 0.0
+        stages = profile_parts.stages(grid, plan, cfg, med)
+        assert all(fn() is not None for fn in stages.values())
         assert not any(k in ("jax", "optax")
                        or k.startswith(("jax.", "jaxlib", "optax."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
     """)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    script = script.replace("MASTER_PORT=port", f"MASTER_PORT={port!r}")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)

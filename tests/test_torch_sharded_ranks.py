@@ -1,5 +1,5 @@
 """Ranks of a gloo process group on the CPU for tests/test_torch_sharded.py
-(this module holds no test of its own).
+and tests/test_torch_runners.py (this module holds no test of its own).
 
 `run_world(world, jobs, tmp)` spawns `world` processes once, each joins one
 gloo group (init_method file:// in tmp, so pytest-xdist workers share no
@@ -178,6 +178,33 @@ def _rank(rank, world, init_file, out_file, jobs):
                 pickle.dump(results, f)
     finally:
         dist.destroy_process_group()
+
+
+def runner_jobs(device, jobs):
+    """The rank body of tests/test_torch_runners.py's worlds (through
+    tools.spawn_ranks): every job, {name: (runner module, function,
+    arguments)}, each function called as fn(device, *arguments) on the
+    running group; returns {name: result}."""
+    import importlib
+    out = {}
+    for name, (module, fn, args) in jobs.items():
+        mod = importlib.import_module(
+            f"volumetricrenderer_tpu_torch.tools.{module}")
+        out[name] = getattr(mod, fn)(device, *args)
+    return out
+
+
+def fail_on_rank_1(device):
+    """A rank body whose rank 1 raises while rank 0 waits at a barrier."""
+    if dist.get_rank() == 1:
+        raise RuntimeError("rank 1 fails")
+    dist.barrier()
+    return "rank 0 passed the barrier"
+
+
+def pid(device):
+    """A rank body that returns its process id."""
+    return os.getpid()
 
 
 def run_world(world, jobs, tmp):

@@ -33,16 +33,20 @@ def is_distributed() -> bool:
 def _init_process_group(coordinator_address, num_processes, process_id,
                         local_device_ids, device):
     """torch.distributed.init_process_group for `device`'s backend (NCCL
-    for "cuda", gloo for "cpu") at tcp://coordinator_address, or from the
-    environment (env://: MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK) when
-    no address is given. On "cuda", selects the device local_device_ids
-    names (LOCAL_RANK's)."""
+    for "cuda", gloo for "cpu") at tcp://coordinator_address (host:port),
+    at coordinator_address itself when it is a URL (file://path, the
+    rendezvous of ranks spawned on one host), or from the environment
+    (env://: MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK) when no address is
+    given. On "cuda", selects the device local_device_ids names
+    (LOCAL_RANK's)."""
     if device == "cuda" and local_device_ids is not None:
         torch.cuda.set_device(int(local_device_ids))
     kw = {}
     if coordinator_address is not None:
-        kw = dict(init_method=f"tcp://{coordinator_address}",
-                  world_size=num_processes, rank=process_id)
+        url = (coordinator_address if "://" in coordinator_address
+               else f"tcp://{coordinator_address}")
+        kw = dict(init_method=url, world_size=num_processes,
+                  rank=process_id)
     dist.init_process_group(BACKENDS[device], **kw)
 
 
@@ -62,7 +66,9 @@ def initialize_distributed(
     The arguments default to the names torch's launcher sets:
     coordinator_address to MASTER_ADDR:MASTER_PORT, num_processes to
     WORLD_SIZE, process_id to RANK, local_device_ids to LOCAL_RANK (the
-    CUDA device this process drives). With none of them set, set
+    CUDA device this process drives). coordinator_address may also be a
+    URL that torch takes as its init_method (file://path: ranks spawned
+    on one host, tools.spawn_ranks). With none of them set, set
     VOLT_DISTRIBUTED=1 to opt in anyway (the group then initializes from
     the environment, env://). Without the opt-in, an unconfigured
     environment, or one of a single process, is a single-process run and

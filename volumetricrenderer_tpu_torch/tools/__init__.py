@@ -6,6 +6,15 @@ ported as runners of this package, one module each:
     fit_config3     config 3's fit          anim_config4   config 4's orbit
     scale512        config 5's volume       serve_local    serve's frames
     measure_warp    the screen warp         trace_flagship per-op profile
+    profile_parts   the step's stages, one by one
+
+and the sharded path's entry points (__graft_entry__.dryrun_multichip,
+tools/sharded_tpu.py and tools/scaling_rehearsal.py there), each over one
+process per rank (spawn_ranks below; SHARDED_RUNNERS):
+
+    multichip       one shadowed train step on an n-rank (data, slab) mesh
+    sharded_step    the sharded frame and step beside the unsharded ones
+    scaling_rehearsal  the sharded frame and step per mesh shape
 
 Each takes `--device` ("cuda" by default: without a GPU the command fails
 with torch's own error; "cpu" runs the kernels' plain versions) and `--out
@@ -22,27 +31,45 @@ calibration, the `lax.scan` of many frames in one dispatch and the
 why). A timing here is CUDA events around each timed call, the median
 after warm-ups, beside the host clock of the same calls
 (bench._time_steps). This module holds what the runners share.
+
+A sharded runner's `--ranks N` starts N processes (torch.multiprocessing,
+spawn), rank r on cuda:r with NCCL (gloo ranks on the CPU with `--device
+cpu`), joined through parallel/bootstrap.initialize_distributed at a
+file:// rendezvous in a temporary directory; rank 0 prints the line. On
+CUDA, N above the visible cards fails before any process starts: one card
+per rank, no fallback to gloo, no shared card, no smaller mesh. Under
+torchrun (RANK, WORLD_SIZE and LOCAL_RANK set) the runner runs in place,
+one rank per process torchrun started, and spawns nothing:
+
+    torchrun --nproc_per_node=4 -m volumetricrenderer_tpu_torch.tools.multichip
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import pickle
 import statistics
 import sys
+import tempfile
 
 import torch
+import torch.distributed as dist
 
 from ..bench import _power_limit_w, _time_steps
 from ..kernels import sweep_bwd, sweep_fwd, sweep_ref_bwd, sweep_ref_fwd
 from ..ops import sweep as ops_sweep
+from ..parallel import bootstrap
 
-__all__ = ["RUNNERS", "WARMUP", "log", "env_int", "parse_args", "device_of",
-           "launches", "launches_since", "time_calls", "median_ms", "Counts",
-           "emit"]
+__all__ = ["RUNNERS", "SHARDED_RUNNERS", "WARMUP", "log", "env_int",
+           "parse_args", "device_of", "launches", "launches_since",
+           "time_calls", "median_ms", "Counts", "emit", "under_torchrun",
+           "world_size", "spawn_ranks"]
 
 RUNNERS = ("fit_config3", "anim_config4", "scale512", "serve_local",
            "measure_warp", "trace_flagship")
+SHARDED_RUNNERS = ("multichip", "sharded_step", "scaling_rehearsal")
+TORCHRUN_NAMES = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
 WARMUP = 2  # untimed calls before the timed ones, in every runner
 KERNELS = {"sweep_fwd": sweep_fwd, "sweep_bwd": sweep_bwd,
            "sweep_ref_fwd": sweep_ref_fwd, "sweep_ref_bwd": sweep_ref_bwd}
@@ -56,9 +83,14 @@ def env_int(name: str, default: int) -> int:
     return int(os.environ.get(name, default))
 
 
-def parse_args(doc: str, argv=None):
-    """--device and --out, the two arguments every runner takes."""
+def parse_args(doc: str, argv=None, ranks=None):
+    """--device and --out, the two arguments every runner takes, and
+    --ranks for a sharded runner (`ranks`: the help text of its default)."""
     parser = argparse.ArgumentParser(description=doc.split("\n\n")[0])
+    if ranks is not None:
+        parser.add_argument("--ranks", type=int, default=None,
+                            help=f"processes, one per card (default: "
+                                 f"{ranks}; under torchrun its WORLD_SIZE)")
     parser.add_argument("--device", default="cuda",
                         help='torch device (default "cuda": fails without '
                              'a GPU); "cpu" runs the plain PyTorch versions '
@@ -105,6 +137,14 @@ class Counts:
                 "general_sweep_calls": ops_sweep.general_calls
                 - self.general}
 
+    def read_ranks(self) -> dict:
+        """read() of this rank, and "launches_per_rank": every rank's
+        launches, gathered over the running process group."""
+        got = self.read()
+        per_rank = [None] * dist.get_world_size()
+        dist.all_gather_object(per_rank, got["launches"])
+        return {**got, "launches_per_rank": per_rank}
+
 
 def time_calls(fn, device, runs: int, warmup: int = WARMUP):
     """(device ms, host ms, launches): the times of each of `runs` timed
@@ -133,3 +173,87 @@ def emit(line: dict, out=None) -> int:
         with open(out, "w") as f:
             f.write(text + "\n")
     return 0
+
+
+def under_torchrun() -> bool:
+    """Whether torch's launcher started this process (RANK, WORLD_SIZE and
+    LOCAL_RANK set)."""
+    return all(name in os.environ for name in TORCHRUN_NAMES)
+
+
+def world_size(ranks, default: int) -> int:
+    """The number of ranks: `ranks` when given, else torchrun's WORLD_SIZE
+    under torchrun, else `default`. Raises ValueError when `ranks` differs
+    from torchrun's world."""
+    if under_torchrun():
+        world = int(os.environ["WORLD_SIZE"])
+        if ranks is not None and ranks != world:
+            raise ValueError(f"--ranks {ranks} under torchrun, whose "
+                             f"WORLD_SIZE is {world}")
+        return world
+    return default if ranks is None else ranks
+
+
+def _as_rank(fn, args, device_type: str, local: int, **join):
+    """Join the process group (parallel/bootstrap.initialize_distributed
+    with `join`, on the local card `local` on CUDA), run fn(device, *args)
+    and leave the group. Returns fn's result."""
+    cuda = device_type == "cuda"
+    if not bootstrap.initialize_distributed(
+            local_device_ids=local if cuda else None, retries=1,
+            device=device_type, **join):
+        raise RuntimeError("spawn_ranks: no process group was started")
+    try:
+        return fn(torch.device("cuda", local) if cuda
+                  else torch.device("cpu"), *args)
+    finally:
+        dist.destroy_process_group()
+        bootstrap._initialized = False
+
+
+def _rank_main(rank, world, device_type, init_file, out_file, fn, args):
+    """One spawned rank at the file:// rendezvous init_file; rank 0
+    pickles fn's result to out_file."""
+    if device_type != "cuda":
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    result = _as_rank(fn, args, device_type, rank,
+                      coordinator_address=f"file://{init_file}",
+                      num_processes=world, process_id=rank)
+    if rank == 0:
+        with open(out_file, "wb") as f:
+            pickle.dump(result, f)
+
+
+def spawn_ranks(fn, world: int, device, *args):
+    """Run fn(device, *args) on `world` ranks of one process group, rank r
+    on its own device (cuda:r, NCCL; or the CPU, gloo), and return rank 0's
+    result (None on the other ranks under torchrun). fn is a module-level
+    function (it is pickled by name into each process) that builds its
+    mesh with parallel/mesh.make_mesh over the running group.
+
+    Spawned: `world` processes by torch.multiprocessing (spawn), joined
+    at a file:// rendezvous in a temporary directory; a rank that raises
+    ends the others and raises here. On CUDA, a world above
+    torch.cuda.device_count() raises RuntimeError before any process
+    starts. Under torchrun, this process is one rank: it joins the group
+    torchrun configured (its LOCAL_RANK's card) and runs fn in place."""
+    import torch.multiprocessing as mp
+    device_type = torch.device(device).type
+    if world < 1:
+        raise ValueError(f"spawn_ranks: {world} ranks")
+    if under_torchrun():
+        result = _as_rank(fn, args, device_type,
+                          int(os.environ["LOCAL_RANK"]))
+        return result if int(os.environ["RANK"]) == 0 else None
+    if device_type == "cuda":
+        visible = torch.cuda.device_count()
+        if world > visible:
+            raise RuntimeError(f"{world} ranks need one CUDA device each: "
+                               f"{visible} visible")
+    with tempfile.TemporaryDirectory(prefix="volt-ranks-") as tmp:
+        out_file = os.path.join(tmp, "rank0.pkl")
+        mp.spawn(_rank_main, args=(world, device_type,
+                                   os.path.join(tmp, "init"), out_file, fn,
+                                   args), nprocs=world, join=True)
+        with open(out_file, "rb") as f:
+            return pickle.load(f)
