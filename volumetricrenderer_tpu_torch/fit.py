@@ -6,6 +6,11 @@ Each step renders the grid, takes the image loss, backpropagates to the
 voxels and applies one Adam update. With quadrature="sliced" the render is
 the slice sweep, which on a CUDA grid runs the forward and backward sweep
 kernels; "fixed" is the per-ray march of ops/integrate.py.
+
+Spans (utils/clock.py): each step is the root "fit.step" (its request id
+the step number), holding "fit.adam" (the update and the clamp, with its
+device interval) and two "fit.sync" (the NaN guard's check and the loss
+read back to the host: the host waiting for the device).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 from .config import LightConfig, MediumConfig, RenderConfig
 from .ops.camera import Camera, camera_rays
 from .ops.integrate import render_rays
+from .utils import clock
 from .utils.checkpoint import adam_state_from_leaves, adam_state_to_leaves
 from .utils.metrics import MetricsWriter, get_logger
 
@@ -114,26 +120,32 @@ def fit_grid(
         return FitResult(grid=grid.detach(), losses=losses, steps=steps)
     skipped = 0
     for i in range(start_step, steps):
-        optimizer.zero_grad(set_to_none=True)
-        loss = torch.mean((render(grid)[..., :3] - target) ** 2)
-        loss.backward()
-        ok = True
-        if nan_guard:
-            ok = bool(torch.isfinite(loss) & torch.isfinite(grid.grad).all())
-        if ok:
-            optimizer.step()
-            with torch.no_grad():
-                grid.clamp_(0.0, 1.0)
-        losses.append(float(loss.detach()))
-        if not ok:
-            skipped += 1
-            log.warning("fit step %d skipped: non-finite loss/gradients "
-                        "(loss=%r)", i, losses[-1])
-        if metrics is not None and (i % 10 == 0 or i == steps - 1):
-            metrics.write(step=i, loss=losses[-1])
-        if checkpoint_fn and checkpoint_every and (i + 1) % checkpoint_every == 0:
-            checkpoint_fn(i + 1, grid.detach(),
-                          adam_state_to_leaves(optimizer, grid))
+        with clock.root("fit.step", request=i):
+            optimizer.zero_grad(set_to_none=True)
+            loss = torch.mean((render(grid)[..., :3] - target) ** 2)
+            loss.backward()
+            ok = True
+            if nan_guard:
+                with clock.span("fit.sync"):
+                    ok = bool(torch.isfinite(loss)
+                              & torch.isfinite(grid.grad).all())
+            if ok:
+                with clock.span("fit.adam", device=grid):
+                    optimizer.step()
+                    with torch.no_grad():
+                        grid.clamp_(0.0, 1.0)
+            with clock.span("fit.sync"):
+                losses.append(float(loss.detach()))
+            if not ok:
+                skipped += 1
+                log.warning("fit step %d skipped: non-finite loss/gradients "
+                            "(loss=%r)", i, losses[-1])
+            if metrics is not None and (i % 10 == 0 or i == steps - 1):
+                metrics.write(step=i, loss=losses[-1])
+            if checkpoint_fn and checkpoint_every \
+                    and (i + 1) % checkpoint_every == 0:
+                checkpoint_fn(i + 1, grid.detach(),
+                              adam_state_to_leaves(optimizer, grid))
     if skipped:
         log.warning("fit: %d/%d steps skipped by the NaN guard", skipped,
                     steps - start_step)

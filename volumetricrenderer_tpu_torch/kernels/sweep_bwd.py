@@ -26,6 +26,7 @@ import torch
 
 from ..ops.resample import linear_resample_matrix
 from ..ops.sampling import clip_unit_grad
+from ..utils import clock
 from .build import (TileTally, build_library, check_sweep_inputs,
                     light_sample, stage_buffers, stage_cap, stage_for)
 
@@ -134,39 +135,43 @@ def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, ct_acc,
     stream and count the launch. Arguments as sweep_bwd_reference's (the
     stack's dtype selects the kernel's instantiation); the maps a mode does
     not read may be None. `stage` as sweep_fwd.launch_kernel's. Returns
-    float32 dG, or (dG, dL) with a light stack."""
+    float32 dG, or (dG, dL) with a light stack. Span "sweep.bwd" (the host
+    side of the launch)."""
     global launches
-    dev = stack.device
-    if light is not None and not emission:
-        raise ValueError("sweep_bwd kernel: a light volume needs emission")
-    maps = (dict(ct_trans=ct_trans, ct_wsum=ct_wsum, trans=trans, wsum=wsum)
-            if emission else dict(ct_acc=ct_acc))
-    S, A, B, Hb, Wb, elem = check_sweep_inputs(
-        "sweep_bwd", stack, slice_z, v_grid, u_grid, seglen, params, maps,
-        light=light)
-    build_kernel()
-    if stage is None:
-        stage = stage_for(slice_z, v_grid, u_grid, params, A, B, wrap)
-    cap = stage_cap(stage, stage_buffers(True, light is not None))
+    with clock.span("sweep.bwd"):
+        dev = stack.device
+        if light is not None and not emission:
+            raise ValueError("sweep_bwd kernel: a light volume needs emission")
+        maps = (dict(ct_trans=ct_trans, ct_wsum=ct_wsum, trans=trans,
+                     wsum=wsum)
+                if emission else dict(ct_acc=ct_acc))
+        S, A, B, Hb, Wb, elem = check_sweep_inputs(
+            "sweep_bwd", stack, slice_z, v_grid, u_grid, seglen, params, maps,
+            light=light)
+        build_kernel()
+        if stage is None:
+            stage = stage_for(slice_z, v_grid, u_grid, params, A, B, wrap)
+        cap = stage_cap(stage, stage_buffers(True, light is not None))
 
-    def ptr(name):
-        return maps[name].data_ptr() if name in maps else None
+        def ptr(name):
+            return maps[name].data_ptr() if name in maps else None
 
-    dstack = torch.zeros((S, A, B), dtype=torch.float32, device=dev)
-    dlight = torch.zeros_like(dstack) if light is not None else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib.sweep_bwd_launch(
-            stack.data_ptr(),
-            light.data_ptr() if light is not None else None,
-            slice_z.data_ptr(), v_grid.data_ptr(), u_grid.data_ptr(),
-            seglen.data_ptr(), params.data_ptr(), ptr("ct_acc"),
-            ptr("ct_trans"), ptr("ct_wsum"), ptr("trans"), ptr("wsum"),
-            dstack.data_ptr(),
-            dlight.data_ptr() if light is not None else None, S, A, B, Hb,
-            Wb, int(emission), int(flip), int(wrap), elem, cap,
-            tiles.tensor(dev).data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"sweep_bwd kernel launch failed: CUDA error {rc}")
-    launches += 1
-    return dstack if light is None else (dstack, dlight)
+        dstack = torch.zeros((S, A, B), dtype=torch.float32, device=dev)
+        dlight = torch.zeros_like(dstack) if light is not None else None
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = _lib.sweep_bwd_launch(
+                stack.data_ptr(),
+                light.data_ptr() if light is not None else None,
+                slice_z.data_ptr(), v_grid.data_ptr(), u_grid.data_ptr(),
+                seglen.data_ptr(), params.data_ptr(), ptr("ct_acc"),
+                ptr("ct_trans"), ptr("ct_wsum"), ptr("trans"), ptr("wsum"),
+                dstack.data_ptr(),
+                dlight.data_ptr() if light is not None else None, S, A, B, Hb,
+                Wb, int(emission), int(flip), int(wrap), elem, cap,
+                tiles.tensor(dev).data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"sweep_bwd kernel launch failed: CUDA error {rc}")
+        launches += 1
+        return dstack if light is None else (dstack, dlight)

@@ -55,6 +55,7 @@ import torch
 from ..config import LightConfig, MediumConfig, RenderConfig
 from ..ops.resample import linear_resample_matrix
 from ..ops.sampling import apply_address_mode, clip_unit
+from ..utils import clock
 from . import sweep_bwd
 from .build import (IdentityCache, TileTally, build_library,
                     check_sweep_inputs, light_sample, stage_buffers,
@@ -218,32 +219,35 @@ def launch_kernel(stack, slice_z, v_grid, u_grid, seglen, params, emission,
     v_grid and u_grid must be monotone, as plan_sweep makes them. `stage`:
     texel slots per window buffer; None sizes it from the plan
     (build.stage_for), 0 reads every tile-slice through global memory.
-    Returns the (4, Hb, Wb) float32 tensor of acc, trans, wsum, hit."""
+    Returns the (4, Hb, Wb) float32 tensor of acc, trans, wsum, hit.
+    Span "sweep.fwd" (the host side of the launch)."""
     global launches
-    dev = stack.device
-    if light is not None and not emission:
-        raise ValueError("sweep_fwd kernel: a light volume needs emission")
-    S, A, B, Hb, Wb, elem = check_sweep_inputs(
-        "sweep_fwd", stack, slice_z, v_grid, u_grid, seglen, params,
-        light=light)
-    build_kernel()
-    if stage is None:
-        stage = stage_for(slice_z, v_grid, u_grid, params, A, B, wrap)
-    cap = stage_cap(stage, stage_buffers(False, light is not None))
-    out = torch.empty((4, Hb, Wb), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib.sweep_fwd_launch(
-            stack.data_ptr(),
-            light.data_ptr() if light is not None else None,
-            slice_z.data_ptr(), v_grid.data_ptr(), u_grid.data_ptr(),
-            seglen.data_ptr(), params.data_ptr(), out.data_ptr(), S, A, B,
-            Hb, Wb, int(emission), int(flip), int(wrap), elem, cap,
-            tiles.tensor(dev).data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"sweep_fwd kernel launch failed: CUDA error {rc}")
-    launches += 1
-    return out
+    with clock.span("sweep.fwd"):
+        dev = stack.device
+        if light is not None and not emission:
+            raise ValueError("sweep_fwd kernel: a light volume needs emission")
+        S, A, B, Hb, Wb, elem = check_sweep_inputs(
+            "sweep_fwd", stack, slice_z, v_grid, u_grid, seglen, params,
+            light=light)
+        build_kernel()
+        if stage is None:
+            stage = stage_for(slice_z, v_grid, u_grid, params, A, B, wrap)
+        cap = stage_cap(stage, stage_buffers(False, light is not None))
+        out = torch.empty((4, Hb, Wb), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = _lib.sweep_fwd_launch(
+                stack.data_ptr(),
+                light.data_ptr() if light is not None else None,
+                slice_z.data_ptr(), v_grid.data_ptr(), u_grid.data_ptr(),
+                seglen.data_ptr(), params.data_ptr(), out.data_ptr(), S, A, B,
+                Hb, Wb, int(emission), int(flip), int(wrap), elem, cap,
+                tiles.tensor(dev).data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"sweep_fwd kernel launch failed: CUDA error {rc}")
+        launches += 1
+        return out
 
 
 class _SweepFwd(torch.autograd.Function):

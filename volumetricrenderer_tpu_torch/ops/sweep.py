@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import LightConfig, MediumConfig, RenderConfig
 from ..kernels import sweep_fwd, sweep_ref_fwd
 from ..kernels.build import bf16_round
+from ..utils import clock
 from ..utils.metrics import get_logger
 from .camera import Camera
 from .resample import linear_resample_matrix
@@ -245,54 +246,58 @@ def plan_sweep(
     the largest guaranteed direction component; raises ValueError when no
     axis qualifies. The host geometry is float64 numpy; like the JAX plan,
     every array is rounded to float32 first and the per-pixel maps (seglen,
-    warp coords) are computed in float32 on `device`."""
-    g = _host_geometry(camera, grid_shape, cfg, world_to_local, supersample,
-                       n_slices, max_base_dim, min_axis_component,
-                       force_base_dims)
-    c_k, c_a, c_b = g["coord_order"]
-    S = g["S"]
+    warp coords) are computed in float32 on `device`. Spans: "plan.build"
+    around it all, "plan.geometry" around the host geometry; the rest is
+    the copies of its arrays to `device` and the per-pixel maps."""
+    with clock.span("plan.build"):
+        with clock.span("plan.geometry"):
+            g = _host_geometry(camera, grid_shape, cfg, world_to_local,
+                               supersample, n_slices, max_base_dim,
+                               min_axis_component, force_base_dims)
+        c_k, c_a, c_b = g["coord_order"]
+        S = g["S"]
 
-    def f32(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+        def f32(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
-    right, up, forward = (f32(_np64(camera.right)), f32(_np64(camera.up)),
-                          f32(_np64(camera.forward)))
-    tan_half = f32(_np64(camera.tan_half_fov))
-    rng_perm = f32(g["rng_perm"])
-    eye01 = f32(g["e01_xyz"][[c_k, c_a, c_b]])
-    box_min = f32(g["box_min"][[c_k, c_a, c_b]])
-    v_grid, u_grid = f32(g["v_grid"]), f32(g["u_grid"])
-    slice_z = f32(np.ascontiguousarray(g["slice_z"]))
-    thu_lo, thu_hi, thv_lo, thv_hi = (f32(g[k]) for k in
-                                      ("thu_lo", "thu_hi", "thv_lo", "thv_hi"))
+        right, up, forward = (f32(_np64(camera.right)), f32(_np64(camera.up)),
+                              f32(_np64(camera.forward)))
+        tan_half = f32(_np64(camera.tan_half_fov))
+        rng_perm = f32(g["rng_perm"])
+        eye01 = f32(g["e01_xyz"][[c_k, c_a, c_b]])
+        box_min = f32(g["box_min"][[c_k, c_a, c_b]])
+        v_grid, u_grid = f32(g["v_grid"]), f32(g["u_grid"])
+        slice_z = f32(np.ascontiguousarray(g["slice_z"]))
+        thu_lo, thu_hi, thv_lo, thv_hi = (
+            f32(g[k]) for k in ("thu_lo", "thu_hi", "thv_lo", "thv_hi"))
 
-    seglen = (1.0 / S) * torch.sqrt(
-        rng_perm[0] ** 2
-        + (v_grid[:, None] * rng_perm[1]) ** 2
-        + (u_grid[None, :] * rng_perm[2]) ** 2)
+        seglen = (1.0 / S) * torch.sqrt(
+            rng_perm[0] ** 2
+            + (v_grid[:, None] * rng_perm[1]) ** 2
+            + (u_grid[None, :] * rng_perm[2]) ** 2)
 
-    width, height = camera.width, camera.height
-    xs = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) \
-        / width * 2.0 - 1.0
-    ys = 1.0 - (torch.arange(height, dtype=torch.float32, device=device)
-                + 0.5) / height * 2.0
-    py, px = torch.meshgrid(ys, xs, indexing="ij")
-    dirs = (px[..., None] * (right * tan_half * float(camera.aspect))
-            + py[..., None] * (up * tan_half) + forward)
-    if world_to_local is not None:
-        w2l = f32(_np64(world_to_local))
-        dirs = dirs @ w2l[:3, :3].T  # slopes are scale-invariant
-    w = dirs / f32(g["box_range"])
-    u = w[..., c_b] / w[..., c_k]
-    v = w[..., c_a] / w[..., c_k]
-    rows01 = (torch.atan(v) - thv_lo) / (thv_hi - thv_lo)
-    cols01 = (torch.atan(u) - thu_lo) / (thu_hi - thu_lo)
+        width, height = camera.width, camera.height
+        xs = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) \
+            / width * 2.0 - 1.0
+        ys = 1.0 - (torch.arange(height, dtype=torch.float32, device=device)
+                    + 0.5) / height * 2.0
+        py, px = torch.meshgrid(ys, xs, indexing="ij")
+        dirs = (px[..., None] * (right * tan_half * float(camera.aspect))
+                + py[..., None] * (up * tan_half) + forward)
+        if world_to_local is not None:
+            w2l = f32(_np64(world_to_local))
+            dirs = dirs @ w2l[:3, :3].T  # slopes are scale-invariant
+        w = dirs / f32(g["box_range"])
+        u = w[..., c_b] / w[..., c_k]
+        v = w[..., c_a] / w[..., c_k]
+        rows01 = (torch.atan(v) - thv_lo) / (thv_hi - thv_lo)
+        cols01 = (torch.atan(u) - thu_lo) / (thu_hi - thu_lo)
 
-    return SweepPlan(eye01=eye01, v_grid=v_grid, u_grid=u_grid,
-                     slice_z=slice_z, seglen=seglen, warp_rows01=rows01,
-                     warp_cols01=cols01, box_range=rng_perm, box_min=box_min,
-                     axis=g["axis"], sign=g["sign"], perm=g["perm"],
-                     coord_order=g["coord_order"])
+        return SweepPlan(eye01=eye01, v_grid=v_grid, u_grid=u_grid,
+                         slice_z=slice_z, seglen=seglen, warp_rows01=rows01,
+                         warp_cols01=cols01, box_range=rng_perm,
+                         box_min=box_min, axis=g["axis"], sign=g["sign"],
+                         perm=g["perm"], coord_order=g["coord_order"])
 
 
 def _to_xyz(perm_vec, coord_order):
@@ -360,7 +365,8 @@ class _WarpBilinear(torch.autograd.Function):
     for the coordinates. Out-of-footprint pixels get a clamped edge sample
     and its adjoint here; warp_base_to_pixels gives them `miss`, and so a
     zero cotangent, outside this op, as JAX does (whose backward requires
-    that zero). Reverse mode only, as a jax.custom_vjp."""
+    that zero). Reverse mode only, as a jax.custom_vjp. The backward is
+    the span "warp.splat", with its device interval."""
 
     @staticmethod
     def forward(ctx, base, rows01, cols01):
@@ -375,17 +381,20 @@ class _WarpBilinear(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, ct):
-        rows01, cols01 = ctx.saved_tensors
-        Hb, Wb, C = ctx.base_shape
-        r0, r1, fr = _taps(rows01, Hb)
-        c0, c1, fc = _taps(cols01, Wb)
-        # The products in the order autograd of the forward forms them.
-        left, right = ct * (1.0 - fc), ct * fc
-        flat = ct.new_zeros(Hb * Wb, C)
-        for r, c, w in ((r0, c0, left * (1.0 - fr)), (r1, c0, left * fr),
-                        (r0, c1, right * (1.0 - fr)), (r1, c1, right * fr)):
-            flat.index_add_(0, (r * Wb + c).reshape(-1), w.reshape(-1, C))
-        return flat.view(Hb, Wb, C), None, None
+        with clock.span("warp.splat", device=ct):
+            rows01, cols01 = ctx.saved_tensors
+            Hb, Wb, C = ctx.base_shape
+            r0, r1, fr = _taps(rows01, Hb)
+            c0, c1, fc = _taps(cols01, Wb)
+            # The products in the order autograd of the forward forms them.
+            left, right = ct * (1.0 - fc), ct * fc
+            flat = ct.new_zeros(Hb * Wb, C)
+            for r, c, w in ((r0, c0, left * (1.0 - fr)), (r1, c0, left * fr),
+                            (r0, c1, right * (1.0 - fr)),
+                            (r1, c1, right * fr)):
+                flat.index_add_(0, (r * Wb + c).reshape(-1),
+                                w.reshape(-1, C))
+            return flat.view(Hb, Wb, C), None, None
 
 
 def warp_base_to_pixels(base_img, plan: SweepPlan, miss=None):
@@ -441,10 +450,12 @@ def finish_image(base_maps, plan: SweepPlan, cfg: RenderConfig,
                  medium: MediumConfig, light: Optional[LightConfig] = None):
     """Warp the linear base quantities to screen pixels, then apply the
     per-pixel nonlinearities (the warp commutes with linear post-ops only).
-    Returns the (H, W, 4) RGBA image."""
-    base, miss = warp_inputs(base_maps, cfg)
-    out = warp_base_to_pixels(base, plan, miss=miss)
-    return postwarp_pixels(out, cfg, medium, light)
+    Returns the (H, W, 4) RGBA image. Span "warp.fwd", with its device
+    interval."""
+    with clock.span("warp.fwd", device=base_maps[0]):
+        base, miss = warp_inputs(base_maps, cfg)
+        out = warp_base_to_pixels(base, plan, miss=miss)
+        return postwarp_pixels(out, cfg, medium, light)
 
 
 def _layer_lerp(gperm, qk, depth, address_mode):

@@ -51,6 +51,7 @@ from .ops.integrate import (reference_media_scroll, render_rays,
 from .ops.lighting import light_transmittance_volume
 from .ops.media import materialize_sigma
 from .ops.sweep import SweepPlan, plan_sweep, sweep_render
+from .utils import clock
 from .utils.metrics import get_logger
 
 __all__ = ["render", "render_preset", "render_image", "render_scene",
@@ -94,50 +95,54 @@ def render_image(
     is None, the quadrature is "sliced", cfg.emission is set and
     light.shadow_steps > 0, it is built from the grid here, once per frame,
     and the frame's gradient reaches the grid through it too (the "fixed"
-    march casts its own shadow rays)."""
-    if backend == "pallas":
-        backend = "sweep"  # alias: the sweep kernel implements "sweep"
-    if backend not in ("auto", "sweep", "reference"):
-        # A mistyped backend must not silently select the per-ray march.
-        raise ValueError(
-            f"unknown backend {backend!r}: expected 'auto', 'sweep' "
-            "(alias 'pallas'), or 'reference'")
-    if (cfg.quadrature == "sliced" and light is not None
-            and light.shadow_steps > 0 and light_volume is None
-            and cfg.emission):
-        # Config-4 shadows: one light-propagation sweep per frame instead
-        # of a nested march per sample.
-        light_volume = light_transmittance_volume(grid, light, cfg, medium,
-                                                  scroll=scroll)
-    if cfg.quadrature == "sliced":
-        if plan is None:
-            try:
-                plan = plan_for(camera, grid.shape, cfg, world_to_local,
-                                device=grid.device)
-            except ValueError as e:
-                if backend == "sweep":
-                    raise
-                # Loud: the per-ray march is a Python loop of gathers per
-                # step, far slower than the sweep; never take it silently.
-                get_logger().warning(
-                    "no sweep axis for this camera (%s); falling back to "
-                    "the per-ray gather integrator: expect a large "
-                    "slowdown", e)
-                plan = None
-        if plan is not None:
-            if backend in ("auto", "sweep"):
-                return sweep_render(grid, plan, cfg, medium, light,
-                                    scroll=scroll, light_volume=light_volume)
-            origins, directions = _rays(camera, grid.device)
-            return render_rays_sliced(grid, origins, directions, plan, cfg,
-                                      medium, light, scroll=scroll,
-                                      light_volume=light_volume)
-        # No sweep axis (extreme field of view): the fixed-step march.
-    elif backend == "sweep":
-        raise ValueError('backend "sweep" requires quadrature "sliced"')
-    origins, directions = _rays(camera, grid.device)
-    return render_rays(grid, origins, directions, cfg, medium, light,
-                       scroll=scroll, world_to_local=world_to_local)
+    march casts its own shadow rays). The frame is the root span
+    "render.image" (utils/clock.py)."""
+    with clock.root("render.image"):
+        if backend == "pallas":
+            backend = "sweep"  # alias: the sweep kernel implements "sweep"
+        if backend not in ("auto", "sweep", "reference"):
+            # A mistyped backend must not silently select the per-ray march.
+            raise ValueError(
+                f"unknown backend {backend!r}: expected 'auto', 'sweep' "
+                "(alias 'pallas'), or 'reference'")
+        if (cfg.quadrature == "sliced" and light is not None
+                and light.shadow_steps > 0 and light_volume is None
+                and cfg.emission):
+            # Config-4 shadows: one light-propagation sweep per frame
+            # instead of a nested march per sample.
+            light_volume = light_transmittance_volume(grid, light, cfg,
+                                                      medium, scroll=scroll)
+        if cfg.quadrature == "sliced":
+            if plan is None:
+                try:
+                    plan = plan_for(camera, grid.shape, cfg, world_to_local,
+                                    device=grid.device)
+                except ValueError as e:
+                    if backend == "sweep":
+                        raise
+                    # Loud: the per-ray march is a Python loop of gathers
+                    # per step, far slower than the sweep; never take it
+                    # silently.
+                    get_logger().warning(
+                        "no sweep axis for this camera (%s); falling back to "
+                        "the per-ray gather integrator: expect a large "
+                        "slowdown", e)
+                    plan = None
+            if plan is not None:
+                if backend in ("auto", "sweep"):
+                    return sweep_render(grid, plan, cfg, medium, light,
+                                        scroll=scroll,
+                                        light_volume=light_volume)
+                origins, directions = _rays(camera, grid.device)
+                return render_rays_sliced(grid, origins, directions, plan,
+                                          cfg, medium, light, scroll=scroll,
+                                          light_volume=light_volume)
+            # No sweep axis (extreme field of view): the fixed-step march.
+        elif backend == "sweep":
+            raise ValueError('backend "sweep" requires quadrature "sliced"')
+        origins, directions = _rays(camera, grid.device)
+        return render_rays(grid, origins, directions, cfg, medium, light,
+                           scroll=scroll, world_to_local=world_to_local)
 
 
 def _rays(camera: Camera, device):

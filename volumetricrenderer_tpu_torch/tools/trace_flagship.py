@@ -99,7 +99,11 @@ def profile_steps(step, device, n: int = 3):
     agg = collections.defaultdict(lambda: [0, 0.0])
     if cuda:
         for e in events:
-            if e.device_type == DeviceType.CUDA:
+            # A host annotation (record_function: the optimizer's step, the
+            # program's "vr." spans) also shows on the device's timeline;
+            # it is no device operation.
+            if e.device_type == DeviceType.CUDA \
+                    and not getattr(e, "is_user_annotation", False):
                 agg[e.name][0] += 1
                 agg[e.name][1] += e.time_range.elapsed_us() * 1e-3
         busy_ms = sum(t for _, t in agg.values()) / n
