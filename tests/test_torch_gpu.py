@@ -1888,3 +1888,49 @@ def test_bench_line_on_the_card(cuda, monkeypatch, capsys):
     assert line["device"] == torch.cuda.get_device_name(0)
     assert line["power_limit_w"] > 0.0 and line["peak_memory_gib"] > 0.0
     assert line["ms_per_frame_fwd_bwd"] > 0.0
+
+
+GOLDEN_DEG = 180.0 * (3.0 - np.sqrt(5.0))
+PLAN_ARRAYS = ("eye01", "v_grid", "u_grid", "slice_z", "seglen",
+               "warp_rows01", "warp_cols01", "box_range", "box_min")
+# The cameras tests/test_torch_plan.py holds the CPU's plan (EYES at 96x64
+# on 16^3) or geometry (the flagship camera and 16 golden-angle config-4
+# orbit cameras, radius sqrt(27), height 3, at 1920x1080 on 256^3) to the
+# JAX package's with: (eye, width, height, grid size).
+PLAN_CAMERAS = (
+    [(eye, 96, 64, 16) for eye, _, _ in EYES]
+    + [((3.0, 3.0, 3.0), 1920, 1080, 256)]
+    + [((np.sqrt(18.0) * np.cos(np.radians(k * GOLDEN_DEG)),
+         np.sqrt(18.0) * np.sin(np.radians(k * GOLDEN_DEG)), 3.0),
+        1920, 1080, 256) for k in range(16)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eye,width,height,size", PLAN_CAMERAS)
+def test_plan_built_on_the_card_matches_the_host_plan(cuda, eye, width,
+                                                      height, size):
+    """plan_for on the card against plan_for on the CPU, which
+    tests/test_torch_plan.py holds to the JAX package: the same axis, sign,
+    permutation and base grid, every array within atol 1e-6, and the same
+    plan_base_dims; a geometry on the card adds one to
+    device_geometry_calls, one on the CPU none."""
+    from volumetricrenderer_tpu_torch.ops import sweep as ops_sweep
+    cam = make_camera(CameraConfig(eye=tuple(eye), width=width,
+                                   height=height))
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    shape = (size,) * 3
+    calls = ops_sweep.device_geometry_calls
+    host = plan_for(cam, shape, cfg, device="cpu")
+    assert ops_sweep.device_geometry_calls == calls
+    card = plan_for(cam, shape, cfg, device=cuda)
+    assert ops_sweep.device_geometry_calls == calls + 1
+    for f in ("axis", "sign", "perm", "coord_order", "identity_warp",
+              "base_shape"):
+        assert getattr(card, f) == getattr(host, f), f
+    for f in PLAN_ARRAYS:
+        got = getattr(card, f)
+        assert got.device.type == "cuda" and got.dtype == torch.float32, f
+        torch.testing.assert_close(got.cpu(), getattr(host, f), rtol=0,
+                                   atol=1e-6, msg=f)
+    assert ops_sweep.plan_base_dims(cam, shape, cfg, device=cuda) == \
+        ops_sweep.plan_base_dims(cam, shape, cfg)

@@ -1,8 +1,9 @@
 """The PyTorch port's sweep plan against the JAX plan, each built from its
 own package's camera: the same axis, sign, permutation and base grid, and
-plan arrays within atol 1e-6. The host geometry is the same float64 numpy
-in both; the per-pixel maps are float32 on the device in both, where the
-two libraries' atan and sqrt may differ in the last bit (~3e-7 in the warp
+plan arrays within atol 1e-6. The geometry is the same float64 arithmetic
+in both (numpy in the JAX plan, torch on the plan's device in the port);
+the per-pixel maps are float32 on the device in both, where the two
+libraries' atan and sqrt may differ in the last bit (~3e-7 in the warp
 coords)."""
 import numpy as np
 import pytest
@@ -117,3 +118,134 @@ def test_plan_for_defaults_to_the_gpu():
     jplan = jplan_for(jcam.make_camera(JCameraConfig(**cam_kw)), (16, 16, 16),
                       JRender(emission=True, quadrature="sliced"))
     _assert_plans_match(jplan, tplan)
+
+
+# A camera whose second slope is constant along its one row (column) of
+# pixels: every |diff(atan)| of it is filtered out, its spacing falls back
+# and its warp coordinate is NaN in both plans.
+ALL_FILTERED = [
+    dict(eye=(0.0, 0.0, 3.0), center=(0.0, 0.5, 0.0), up=(0.0, 1.0, 0.0),
+         width=9, height=1),
+    dict(eye=(0.0, 0.0, 3.0), center=(0.5, 0.0, 0.0), up=(0.0, 1.0, 0.0),
+         width=1, height=9),
+]
+
+
+@pytest.mark.parametrize("cam_kw", ALL_FILTERED)
+def test_plan_matches_with_every_spacing_filtered(cam_kw):
+    jplan, tplan = _both(cam_kw, (16, 16, 16))
+    assert tsweep.plan_base_dims(tcam.make_camera(CameraConfig(**cam_kw)),
+                                 (16, 16, 16), RenderConfig()) == \
+        jsweep.plan_base_dims(jcam.make_camera(JCameraConfig(**cam_kw)),
+                              (16, 16, 16), JRender())
+    _assert_plans_match(jplan, tplan)
+
+
+def _lower_middle(a):
+    """The lower of an even count's two middle values (torch.median's
+    rule); the median of an odd count."""
+    return np.sort(a, axis=None)[(a.size - 1) // 2]
+
+
+def _mean_of_middles(a):
+    """The mean of the two values about the middle, as if the count were
+    even; np.median's value for an even count only."""
+    s = np.sort(a, axis=None)
+    return (s[(a.size - 1) // 2] + s[(a.size + 1) // 2]) / 2
+
+
+@pytest.mark.parametrize("width,wrong", [(9, _lower_middle),
+                                         (6, _mean_of_middles)])
+def test_plan_takes_np_median_of_even_and_odd_counts(width, wrong):
+    """A 1-pixel-high camera has width - 1 angular spacings per slope (8:
+    even, 5: odd). At a supersample found where the JAX plan's base dims
+    change if its median follows `wrong`, the port's dims and plan equal
+    the JAX plan's."""
+    cam_kw = dict(eye=(3.0, 0.4, 0.3), width=width, height=1)
+    jc = jcam.make_camera(JCameraConfig(**cam_kw))
+    tc = tcam.make_camera(CameraConfig(**cam_kw))
+    shape, cfg_j, cfg_t = (16, 16, 16), JRender(), RenderConfig()
+
+    def jdims(ss):
+        return jsweep.plan_base_dims(jc, shape, cfg_j, supersample=ss)
+
+    def wrong_dims(ss):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(np, "median", wrong)
+            return jdims(ss)
+
+    ss = next(s for s in np.arange(4.0, 64.0, 0.25)
+              if jdims(s) != wrong_dims(s))
+    assert tsweep.plan_base_dims(tc, shape, cfg_t, supersample=ss) == \
+        jdims(ss)
+    _assert_plans_match(*_both(cam_kw, shape, supersample=ss))
+
+
+def test_plan_matches_rotated_transform_at_non_square_size():
+    """world_to_local with a rotation about z and a translation, at 120x56:
+    the rays turn into the volume's frame before the slopes are taken."""
+    c, s = np.cos(0.35), np.sin(0.35)
+    w2l = np.array([[c, -s, 0.0, 0.1], [s, c, 0.0, -0.05],
+                    [0.0, 0.0, 1.0, 0.2], [0.0, 0.0, 0.0, 1.0]])
+    jplan, tplan = _both(dict(eye=(0.4, 0.3, 3.0), width=120, height=56),
+                         (16, 16, 16), world_to_local=w2l)
+    _assert_plans_match(jplan, tplan)
+
+
+GOLDEN_DEG = 180.0 * (3.0 - np.sqrt(5.0))
+
+
+def orbit_eye(k):
+    """The k-th camera of a golden-angle walk on config 4's orbit (radius
+    sqrt(27), height 3, looking at the origin), as new cameras arrive."""
+    t = np.radians(k * GOLDEN_DEG)
+    return (np.sqrt(18.0) * np.cos(t), np.sqrt(18.0) * np.sin(t), 3.0)
+
+
+@pytest.mark.parametrize("eye", [(3.0, 3.0, 3.0)]
+                         + [orbit_eye(k) for k in range(16)])
+def test_geometry_matches_at_1080p(eye):
+    """The flagship camera and 16 golden-angle config-4 orbit cameras at
+    1920x1080 on a 256^3 grid: the port's float64 geometry on the CPU
+    equals the JAX package's numpy geometry, its scalars (axis, sign, base
+    dims, the slopes' atan bounds, the eye, the slice set) bit for bit and
+    its base-grid slopes (the libraries' tan) within 1e-14 relative.
+    tests/test_torch_gpu.py holds the plan built on the card to the one
+    built from this geometry on the CPU."""
+    kw = dict(eye=tuple(eye), width=1920, height=1080)
+    args = ((256, 256, 256),)
+    want = jsweep._host_geometry(jcam.make_camera(JCameraConfig(**kw)),
+                                 *args, JRender(quadrature="sliced"))
+    got = tsweep._host_geometry(tcam.make_camera(CameraConfig(**kw)),
+                                *args, RenderConfig(quadrature="sliced"))
+    for k in ("axis", "sign", "perm", "coord_order", "Hb", "Wb", "S",
+              "thu_lo", "thu_hi", "thv_lo", "thv_hi"):
+        assert got[k] == want[k], k
+    for k in ("e01_xyz", "slice_z", "box_min", "box_range", "rng_perm"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for k in ("u_grid", "v_grid"):
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=1e-14,
+                                   atol=0, err_msg=k)
+
+
+def test_plan_on_the_cpu_counts_no_device_geometry():
+    before = tsweep.device_geometry_calls
+    tsweep.plan_sweep(tcam.make_camera(CameraConfig(width=32, height=16)),
+                      (8, 8, 8), RenderConfig(quadrature="sliced"),
+                      device="cpu")
+    assert tsweep.device_geometry_calls == before
+
+
+@pytest.mark.parametrize("values", [
+    [3.0, 1.0, 2.0], [4.0, 1.0, 3.0, 2.0], [2.0, 2.0, 1.0, 5.0],
+    [1.0, 2.0, 2.0, 5.0], [7.0, 7.0, 7.0, 7.0], [9.0, np.nan, 1.0, 4.0],
+    [np.nan, np.nan], [0.5]])
+def test_np_median_of_the_values_not_nan(values):
+    """The geometry's median on the device: np.median of the values left
+    after the NaNs (which mark filtered spacings), ties included; NaN
+    where none is left."""
+    x = np.asarray(values)
+    kept = x[~np.isnan(x)]
+    got = tsweep._np_median(torch.tensor(x)).item()
+    want = np.median(kept) if kept.size else np.nan
+    assert got == want or (np.isnan(got) and np.isnan(want))

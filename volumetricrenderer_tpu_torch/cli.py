@@ -126,16 +126,17 @@ def cmd_render(args):
     return 0
 
 
-def animation_base_dims(cameras, grid_shape, cfg):
+def animation_base_dims(cameras, grid_shape, cfg, device=None):
     """The base dims every frame of an animated camera path is planned at:
-    each frame's natural dims probed on the host (plan_base_dims), the
-    largest of each taken for all, as the JAX animate plans its frames.
-    Forcing the dims changes a frame slightly (the base grid resamples its
-    rays), so the port keeps it to return the JAX package's frames. Raises
-    ValueError when a camera has no sweep axis."""
+    each frame's natural dims probed (plan_base_dims, its per-pixel
+    geometry on `device`, the CPU for None), the largest of each taken for
+    all, as the JAX animate plans its frames. Forcing the dims changes a
+    frame slightly (the base grid resamples its rays), so the port keeps it
+    to return the JAX package's frames. Raises ValueError when a camera has
+    no sweep axis."""
     from .ops.sweep import plan_base_dims
     dims = [plan_base_dims(c, grid_shape, cfg,
-                           supersample=cfg.sweep_supersample)
+                           supersample=cfg.sweep_supersample, device=device)
             for c in cameras]
     return max(d[0] for d in dims), max(d[1] for d in dims)
 
@@ -190,7 +191,7 @@ def cmd_animate(args):
         try:
             dims = animation_base_dims(
                 [camera_at(i) for i in range(args.frames)], grid.shape[:3],
-                cfg)
+                cfg, device=dev)
         except ValueError as e:
             # One wide-FOV or diagonal frame must not abort the animation:
             # match render_image's loud per-frame fallback instead.

@@ -17,11 +17,13 @@ volume of another shape than the grid's) takes the general sweep
 compositing monoid composite_base_maps joins the base maps of consecutive
 slice ranges (parallel/sweep_sharded.py).
 
-The plan is built on the host in numpy, as in the JAX package, and its
-arrays are placed on the requested device. Of the JAX plan's fields, only
-those a GPU renderer reads are kept: the warp tile tables, bands and row,
-column and scatter windows size Mosaic/XLA windows and have no counterpart
-here.
+The plan's geometry is the JAX package's float64 arithmetic, run in torch
+on the requested device: the per-pixel rays, slopes and spacing medians on
+the device, the few scalars they reduce to (axis, sign, slope range, base
+dims, slice set) on the host; its arrays are float32 on that device. Of
+the JAX plan's fields, only those a GPU renderer reads are kept: the warp
+tile tables, bands and row, column and scatter windows size Mosaic/XLA
+windows and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -73,21 +75,54 @@ def _np64(t) -> np.ndarray:
     return np.asarray(t, np.float64)
 
 
-def _camera_rays_np(cam: Camera):
-    """Host-side float64 per-pixel rays of a camera (the plan is built on
-    the host)."""
+def _unit(v):
+    """Components (x, y, z) of vectors scaled to unit length, the squares
+    summed in np.linalg.norm's order."""
+    n = torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+    return [c / n for c in v]
+
+
+def _camera_dirs(cam: Camera, device):
+    """Float64 unit ray directions of a camera's pixels on `device`, as
+    three (H, W) components (x, y, z): pixel centers, row 0 at the top, the
+    JAX package's host arithmetic in its order."""
     w, h = cam.width, cam.height
-    eye, right, up, forward = (_np64(cam.eye), _np64(cam.right),
-                               _np64(cam.up), _np64(cam.forward))
+    right, up, forward = _np64(cam.right), _np64(cam.up), _np64(cam.forward)
     tan_half = float(_np64(cam.tan_half_fov))
-    xs = (np.arange(w, dtype=np.float64) + 0.5) / w * 2.0 - 1.0
-    ys = 1.0 - (np.arange(h, dtype=np.float64) + 0.5) / h * 2.0
-    px, py = np.meshgrid(xs, ys, indexing="xy")
-    dirs = (px[..., None] * (right * tan_half * cam.aspect)
-            + py[..., None] * (up * tan_half) + forward)
-    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
-    origins = np.broadcast_to(eye, dirs.shape)
-    return origins, dirs
+    along_x, along_y = right * tan_half * cam.aspect, up * tan_half
+    xs = (torch.arange(w, dtype=torch.float64, device=device) + 0.5) \
+        / w * 2.0 - 1.0
+    ys = 1.0 - (torch.arange(h, dtype=torch.float64, device=device)
+                + 0.5) / h * 2.0
+    return _unit([xs[None, :] * float(along_x[c])
+                  + ys[:, None] * float(along_y[c]) + float(forward[c])
+                  for c in range(3)])
+
+
+def _np_median(x):
+    """np.median of x's values other than NaN, a 0-d tensor on x's device
+    (NaN where there are none): the mean of the two middle values of an
+    even count. nanmedian gives the lower; the upper is the least value
+    above it, or the lower itself where its ties reach past the middle."""
+    lo = x.nanmedian()
+    ties_past_middle = (x <= lo).sum() > (~x.isnan()).sum() // 2
+    hi = torch.where(ties_past_middle, lo,
+                     torch.where(x > lo, x, math.inf).amin())
+    return (lo + hi) / 2
+
+
+def _slope_stats(q):
+    """0-d float64 tensors on q's device: the min and max of a (H, W) slope
+    map, then for each direction with two or more pixels (rows, columns)
+    the median of |diff(atan q)| over its values above 1e-12, NaN where
+    none is left."""
+    th = torch.atan(q)
+    out = [q.min(), q.max()]
+    for ax in (0, 1):
+        if q.shape[ax] > 1:
+            d1 = torch.diff(th, dim=ax).abs()
+            out.append(_np_median(torch.where(d1 > 1e-12, d1, math.nan)))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +150,9 @@ class SweepPlan:
         return (self.v_grid.shape[0], self.u_grid.shape[0])
 
 
+device_geometry_calls = 0  # _host_geometry calls on a CUDA device
+
+
 def _host_geometry(
     camera: Camera,
     grid_shape: Tuple[int, ...],
@@ -125,38 +163,57 @@ def _host_geometry(
     max_base_dim: int = 3072,
     min_axis_component: float = 0.05,
     force_base_dims: Optional[Tuple[int, int]] = None,
+    device=None,
 ):
-    """Host-side (numpy) sweep geometry shared by plan_sweep and
-    plan_base_dims: axis choice, base-grid axes, slice set."""
-    o, d = _camera_rays_np(camera)
+    """Sweep geometry shared by plan_sweep and plan_base_dims: axis choice,
+    base-grid axes, slice set, in the JAX package's float64 arithmetic and
+    order. The per-pixel part (rays, slopes, the medians of their angular
+    spacing) runs in float64 torch on `device` (the CPU for None), and the
+    host reads its scalars back in two transfers; the slice set and the
+    base dims are host arithmetic. The base-grid slopes are float64 on
+    `device`. A call on a CUDA device adds one to the module's
+    `device_geometry_calls`."""
+    global device_geometry_calls
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda":
+        device_geometry_calls += 1
+    d = _camera_dirs(camera, device)
+    eye = _np64(camera.eye)
     if world_to_local is not None:
         m = _np64(world_to_local)
-        o = o @ m[:3, :3].T + m[:3, 3]
-        d = d @ m[:3, :3].T
-        d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        eye = eye @ m[:3, :3].T + m[:3, 3]
+        d = _unit([d[0] * float(m[r, 0]) + d[1] * float(m[r, 1])
+                   + d[2] * float(m[r, 2]) for r in range(3)])
     box_min = np.asarray(cfg.box_min, np.float64)
     box_range = np.asarray(cfg.box_max, np.float64) - box_min
-    e01_xyz = (np.asarray(o.reshape(-1, 3)[0]) - box_min) / box_range
-    w = d / box_range  # direction in normalized coords (unnormalized length)
+    e01_xyz = (eye - box_min) / box_range
+    # direction in normalized coords (unnormalized length)
+    w = [d[c] / float(box_range[c]) for c in range(3)]
 
-    # Dominant axis: maximize the minimum |w_c| over all pixels.
-    min_abs = np.abs(w).reshape(-1, 3).min(axis=0)
+    # Dominant axis: maximize the minimum |w_c| over all pixels; every ray
+    # must share the first pixel's direction sign along it.
+    first = [wc.reshape(-1)[0].sign() for wc in w]
+    probe = torch.stack(
+        [wc.abs().min() for wc in w] + first
+        + [(wc.sign() != s).any().to(torch.float64)
+           for wc, s in zip(w, first)]).tolist()
+    min_abs, first_sign, mixed = probe[:3], probe[3:6], probe[6:]
     axis = int(np.argmax(min_abs))
     if min_abs[axis] < min_axis_component:
         raise ValueError(
             f"sweep unsupported: min |w_axis| = {min_abs[axis]:.4f} < "
             f"{min_axis_component} (rays near-parallel to every axis plane)")
-    wk = w[..., axis]
-    sgn = np.sign(wk.reshape(-1)[0])
-    if not np.all(np.sign(wk) == sgn):
+    if mixed[axis]:
         raise ValueError("sweep unsupported: mixed ray direction signs "
                          "along the dominant axis")
-    sign = int(sgn)
+    sign = int(first_sign[axis])
 
     perm, coord_order = _axes_for(axis)
     c_k, c_a, c_b = coord_order
-    u = w[..., c_b] / wk  # (H, W)
-    v = w[..., c_a] / wk
+    u_stats = _slope_stats(w[c_b] / w[c_k])  # of the (H, W) slopes u, v
+    v_stats = _slope_stats(w[c_a] / w[c_k])
+    stats = torch.stack(u_stats + v_stats).tolist()
+    u_stats, v_stats = stats[:len(u_stats)], stats[len(u_stats):]
 
     # Slices at voxel layer centers of the permuted grid by default.
     depth = grid_shape[perm[0]]
@@ -171,9 +228,9 @@ def _host_geometry(
 
     # Base grid per transverse axis: the pixel slope range clipped to the
     # box's slope footprint, spaced uniformly in atan(slope).
-    def base_axis(q, e_t, n_force=None):
-        th = np.arctan(q)
-        lo, hi = float(q.min()), float(q.max())
+    def base_axis(q_stats, e_t, n_force=None):
+        q_min, q_max, *meds = q_stats
+        lo, hi = q_min, q_max
         if delta_near is not None and abs(delta_near) > 0.02:
             cand = [(b - e_t) / dd for b in (0.0, 1.0)
                     for dd in (delta_near, float(deltas[front].max()
@@ -182,18 +239,12 @@ def _host_geometry(
             lo = max(lo, min(cand))
             hi = min(hi, max(cand))
             if not lo < hi:  # camera never sees the box on this axis
-                lo, hi = float(q.min()), float(q.max())
+                lo, hi = q_min, q_max
         th_lo, th_hi = math.atan(lo), math.atan(hi)
         # Pixel angular spacing: per-direction medians, keep the larger.
-        meds = []
-        for ax in (0, 1):
-            if th.shape[ax] > 1:
-                d1 = np.abs(np.diff(th, axis=ax)).reshape(-1)
-                d1 = d1[d1 > 1e-12]
-                if d1.size:
-                    meds.append(float(np.median(d1)))
+        meds = [m for m in meds if not math.isnan(m)]
         spacing = max(meds) if meds else 0.0
-        if not spacing or not np.isfinite(spacing):
+        if not spacing or not math.isfinite(spacing):
             spacing = max(th_hi - th_lo, 1e-6) / 64
         if n_force is not None:
             n = int(n_force)
@@ -202,12 +253,13 @@ def _host_geometry(
             n = max(128, min(_round_up(n, 128), max_base_dim))
         pad = (th_hi - th_lo) / n
         th_lo, th_hi = th_lo - pad, th_hi + pad
-        centers = th_lo + (np.arange(n) + 0.5) / n * (th_hi - th_lo)
-        return np.tan(centers), th_lo, th_hi, n
+        centers = th_lo + (torch.arange(n, dtype=torch.float64, device=device)
+                           + 0.5) / n * (th_hi - th_lo)
+        return torch.tan(centers), th_lo, th_hi, n
 
     fh, fw = force_base_dims if force_base_dims is not None else (None, None)
-    u_grid, thu_lo, thu_hi, Wb = base_axis(u, e01_xyz[c_b], fw)
-    v_grid, thv_lo, thv_hi, Hb = base_axis(v, e01_xyz[c_a], fh)
+    u_grid, thu_lo, thu_hi, Wb = base_axis(u_stats, e01_xyz[c_b], fw)
+    v_grid, thv_lo, thv_hi, Hb = base_axis(v_stats, e01_xyz[c_a], fh)
 
     rng_perm = box_range[[c_k, c_a, c_b]]
     return dict(axis=axis, sign=sign, perm=perm, coord_order=coord_order,
@@ -219,12 +271,13 @@ def _host_geometry(
 
 def plan_base_dims(camera: Camera, grid_shape, cfg: RenderConfig,
                    world_to_local=None, supersample: float = 1.5,
-                   max_base_dim: int = 3072):
-    """Cheap host-only probe of a camera's base-grid dims: returns
-    (Hb, Wb, axis, sign). An animation probes every frame and passes the
-    maximum back through plan_sweep's force_base_dims."""
+                   max_base_dim: int = 3072, device=None):
+    """Cheap probe of a camera's base-grid dims: returns (Hb, Wb, axis,
+    sign). Its per-pixel geometry runs on `device`, the CPU for None. An
+    animation probes every frame and passes the maximum back through
+    plan_sweep's force_base_dims."""
     g = _host_geometry(camera, grid_shape, cfg, world_to_local, supersample,
-                       None, max_base_dim)
+                       None, max_base_dim, device=device)
     return g["Hb"], g["Wb"], g["axis"], g["sign"]
 
 
@@ -244,32 +297,33 @@ def plan_sweep(
 
     The sweep axis is the coordinate axis along which every pixel ray has
     the largest guaranteed direction component; raises ValueError when no
-    axis qualifies. The host geometry is float64 numpy; like the JAX plan,
-    every array is rounded to float32 first and the per-pixel maps (seglen,
-    warp coords) are computed in float32 on `device`. Spans: "plan.build"
-    around it all, "plan.geometry" around the host geometry; the rest is
-    the copies of its arrays to `device` and the per-pixel maps."""
+    axis qualifies. The geometry (_host_geometry) is float64, its per-pixel
+    part on `device`; like the JAX plan, every array is rounded to float32
+    first (the base-grid slopes on `device`, the host's vectors before
+    their one copy to it) and the per-pixel maps (seglen, warp coords) are
+    computed in float32 on `device`. Spans: "plan.build" around it all,
+    "plan.geometry" around the geometry; the rest is the copy and the
+    per-pixel maps."""
     with clock.span("plan.build"):
         with clock.span("plan.geometry"):
             g = _host_geometry(camera, grid_shape, cfg, world_to_local,
                                supersample, n_slices, max_base_dim,
-                               min_axis_component, force_base_dims)
+                               min_axis_component, force_base_dims, device)
         c_k, c_a, c_b = g["coord_order"]
         S = g["S"]
-
-        def f32(x):
-            return torch.as_tensor(np.asarray(x, np.float32), device=device)
-
-        right, up, forward = (f32(_np64(camera.right)), f32(_np64(camera.up)),
-                              f32(_np64(camera.forward)))
-        tan_half = f32(_np64(camera.tan_half_fov))
-        rng_perm = f32(g["rng_perm"])
-        eye01 = f32(g["e01_xyz"][[c_k, c_a, c_b]])
-        box_min = f32(g["box_min"][[c_k, c_a, c_b]])
-        v_grid, u_grid = f32(g["v_grid"]), f32(g["u_grid"])
-        slice_z = f32(np.ascontiguousarray(g["slice_z"]))
-        thu_lo, thu_hi, thv_lo, thv_hi = (
-            f32(g[k]) for k in ("thu_lo", "thu_hi", "thv_lo", "thv_hi"))
+        host = [_np64(camera.right), _np64(camera.up), _np64(camera.forward),
+                _np64(camera.tan_half_fov).reshape(1), g["rng_perm"],
+                g["e01_xyz"][[c_k, c_a, c_b]], g["box_min"][[c_k, c_a, c_b]],
+                g["slice_z"], [g["thu_lo"], g["thu_hi"], g["thv_lo"],
+                               g["thv_hi"]], g["box_range"]]
+        if world_to_local is not None:
+            host.append(_np64(world_to_local)[:3, :3].T)
+        host = [np.asarray(x, np.float32).reshape(-1) for x in host]
+        (right, up, forward, tan_half, rng_perm, eye01, box_min, slice_z,
+         (thu_lo, thu_hi, thv_lo, thv_hi), box_range, *w2l_t) = \
+            torch.as_tensor(np.concatenate(host), device=device).split(
+                [x.size for x in host])
+        v_grid, u_grid = g["v_grid"].float(), g["u_grid"].float()
 
         seglen = (1.0 / S) * torch.sqrt(
             rng_perm[0] ** 2
@@ -284,10 +338,9 @@ def plan_sweep(
         py, px = torch.meshgrid(ys, xs, indexing="ij")
         dirs = (px[..., None] * (right * tan_half * float(camera.aspect))
                 + py[..., None] * (up * tan_half) + forward)
-        if world_to_local is not None:
-            w2l = f32(_np64(world_to_local))
-            dirs = dirs @ w2l[:3, :3].T  # slopes are scale-invariant
-        w = dirs / f32(g["box_range"])
+        if w2l_t:  # world_to_local's rotation, transposed
+            dirs = dirs @ w2l_t[0].reshape(3, 3)  # slopes: scale-invariant
+        w = dirs / box_range
         u = w[..., c_b] / w[..., c_k]
         v = w[..., c_a] / w[..., c_k]
         rows01 = (torch.atan(v) - thv_lo) / (thv_hi - thv_lo)

@@ -6,7 +6,7 @@ every frame is rendered anew, served over HTTP.
 index page captures key events and streams freshly rendered frames. Camera
 state maps to a sweep plan on a discrete lattice (azimuth, elevation,
 distance), so a revisited camera reuses its plan from a cache instead of
-paying the host plan build again.
+paying the plan build again.
 
 Controls (index page):
   A/D   orbit azimuth     W/S   dolly in/out
@@ -112,7 +112,7 @@ class InteractiveRenderer:
     another; without a GPU the default raises torch's own error). Plans are
     built per new lattice state at the forced base dimensions and cached.
     Attributes read by callers: force_dims, probe_seconds (the force_dims
-    probe's host time), frames_rendered, plan_cache_misses, device."""
+    probe's wall time), frames_rendered, plan_cache_misses, device."""
 
     def __init__(self, preset: Preset, probe: int = 6, device="cuda"):
         self.log = get_logger()
@@ -160,7 +160,8 @@ class InteractiveRenderer:
             try:
                 hb, wb, _, _ = plan_base_dims(
                     cam, grid.shape[:3], self.cfg,
-                    supersample=self.cfg.sweep_supersample)
+                    supersample=self.cfg.sweep_supersample,
+                    device=self.device)
             except ValueError:
                 continue  # a pole-adjacent probe without a sweep axis
             fh, fw = max(fh, hb), max(fw, wb)

@@ -64,7 +64,7 @@ def workload(frames: int, volume: int, width: int, height: int, device):
 
 def plans_for(cams, grid, cfg, device):
     """A plan per camera, all at the orbit's animation_base_dims."""
-    dims = animation_base_dims(cams, grid.shape[:3], cfg)
+    dims = animation_base_dims(cams, grid.shape[:3], cfg, device=device)
     return [plan_sweep(c, grid.shape[:3], cfg,
                        supersample=cfg.sweep_supersample,
                        force_base_dims=dims, device=device) for c in cams]
