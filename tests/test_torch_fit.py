@@ -13,6 +13,8 @@ Tolerances:
   their loss curves (rtol=1e-4) and, on the voxels whose first-step
   |grad| exceeds 1e-2 of the maximum, by the grid (atol=1e-4).
 """
+import argparse
+import json
 import os
 
 import jax
@@ -256,6 +258,82 @@ def test_cli_fit_writes_artifacts_and_resumes(tmp_path):
     assert cli.main(args + ["--resume"]) == 0
     with pytest.raises(SystemExit, match="quadrature"):
         cli.main(args + ["--resume", "--quadrature", "fixed"])
+
+
+def _png_size(path):
+    """(width, height) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    assert head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR"
+    return int.from_bytes(head[16:20], "big"), \
+        int.from_bytes(head[20:24], "big")
+
+
+def test_cli_fit_preset_config5(tmp_path):
+    """`fit --preset config5` at a 16^3 cloud and a 32x18 target: its
+    artifacts, a non-square target and fitted image, checkpoints of the
+    preset's grid size, and a resume that continues to the new step
+    count."""
+    out = str(tmp_path / "run")
+    args = ["fit", "--preset", "config5", "--size", "16", "--width", "32",
+            "--height", "18", "--out-dir", out, "--device", "cpu"]
+    assert cli.main(args + ["--steps", "2"]) == 0
+    for name in ("target.png", "fitted.png"):
+        assert _png_size(os.path.join(out, name)) == (32, 18)
+    ckpt = os.path.join(out, "ckpt")
+    assert tckpt.latest_step(ckpt) == 2
+    step, grid, _, extra = tckpt.restore_checkpoint(ckpt)
+    assert grid.shape == (16,) * 3 and extra == {"quadrature": "sliced"}
+    assert cli.main(args + ["--steps", "4", "--resume"]) == 0
+    assert tckpt.latest_step(ckpt) == 4
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        steps = [json.loads(line)["step"] for line in f]
+    assert steps == [0, 1, 3]  # steps 0 and 1, then the resumed 2..3
+    # A preset that combines four channels has no single grid to fit.
+    with pytest.raises(SystemExit):
+        cli.main(["fit", "--preset", "reference", "--size", "8",
+                  "--steps", "1", "--out-dir", str(tmp_path / "ref"),
+                  "--device", "cpu"])
+
+
+def test_cli_fit_preset_sizes_and_default():
+    """The preset's sizes, the overrides, and without --preset the demo's
+    own problem (32^3 cloud of seed 7, 64x64, the sliced emission sweep),
+    unchanged."""
+    def problem(*argv):
+        ns = argparse.Namespace(preset=None, size=None, image_size=None,
+                                width=None, height=None, quadrature=None)
+        for k, v in zip(argv[::2], argv[1::2]):
+            setattr(ns, k, v)
+        return cli._fit_problem(ns, torch.device("cpu"))
+
+    size, cam, cfg, med, light, grid = problem("size", 8)
+    assert size == 8 and (cam.width, cam.height) == (64, 64)
+    assert cfg == T.RenderConfig(emission=True, quadrature="sliced")
+    assert med == T.MediumConfig(combine="single", density=8.0)
+    assert light == T.LightConfig()
+    torch.testing.assert_close(grid, tscene.cloud_volume(8, seed=7,
+                                                         device="cpu"),
+                               rtol=0, atol=0)
+    size, cam, cfg, *_ = problem("size", 8, "image_size", 12,
+                                 "quadrature", "fixed")
+    assert (cam.width, cam.height) == (12, 12) and cfg.quadrature == "fixed"
+    assert cfg.max_steps == 64
+    p = T.PRESETS["config5"]
+    size, cam, cfg, med, light, grid = problem("preset", "config5", "size",
+                                               8, "height", 20)
+    assert size == 8 and (cam.width, cam.height) == (1920, 20)
+    assert (cfg, med, light) == (p.render, p.medium, p.light)
+    torch.testing.assert_close(grid, tscene.cloud_volume(8, seed=7,
+                                                         device="cpu"),
+                               rtol=0, atol=0)
+    _, cam, *_ = problem("preset", "config2", "size", 8, "image_size", 10)
+    assert (cam.width, cam.height) == (10, 10)
+    # A preset with a scene fits its baked scene.
+    *_, grid = problem("preset", "config3", "size", 8)
+    cfg = T.PRESETS["config3"].render
+    torch.testing.assert_close(grid, tscene.bake_scene(
+        tscene.config3_scene(8, device="cpu"), 8, cfg), rtol=0, atol=0)
 
 
 def test_cli_fit_fixed_quadrature(tmp_path):

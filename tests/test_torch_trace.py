@@ -2,7 +2,8 @@
 inactive span records nothing and costs under a microsecond; active spans
 nest, carry parent and request ids, are recorded whole or not at all,
 take the open root as parent on another thread, and agree with the
-profiler's "vr." events; fit_grid, render_image, plan_sweep and
+profiler's "vr." events; fit_grid (its render, backward, NaN guard,
+update and syncs), render_image, plan_sweep and
 light_transmittance_volume give their spans. The file imports no JAX; its
 card test runs with
 
@@ -26,7 +27,14 @@ from volumetricrenderer_tpu_torch.utils import clock
 SIZE, W, H = 16, 24, 16
 CFG = T.RenderConfig(emission=True, quadrature="sliced")
 MED = T.MediumConfig(combine="single", density=8.0)
-FIT_SPANS = ("fit.adam", "fit.sync", "fit.sync", "warp.fwd", "warp.splat")
+# Every span a fit step records under its request id, and the spans of
+# fit_grid's own (the step's children, and the guard inside the first sync).
+FIT_SPANS = ("fit.render", "fit.backward", "fit.guard", "fit.adam",
+             "fit.sync", "fit.sync", "warp.fwd", "warp.splat")
+STEP_SPANS = ("fit.render", "fit.backward", "fit.sync", "fit.adam",
+              "fit.sync")
+DEVICE_SPANS = ("fit.render", "fit.backward", "fit.guard", "fit.adam",
+                "warp.fwd", "warp.splat")
 
 
 @pytest.fixture(autouse=True)
@@ -63,14 +71,26 @@ def test_inactive_spans_record_nothing(monkeypatch):
 
 
 def test_inactive_span_costs_under_a_microsecond():
-    # The least of up to five loops: other test workers share the cores.
-    n, best = 10 ** 6, float("inf")
+    # A fit step's spans, nested as fit_grid nests them, the tensor of a
+    # device interval passed as it passes it; the least of up to five
+    # loops: other test workers share the cores.
+    x = torch.ones(1)
+    n, best = 10 ** 6 // 6, float("inf")
     for _ in range(5):
         t0 = time.perf_counter()
         for _ in range(n):
+            with clock.span("fit.render", device=x):
+                pass
+            with clock.span("fit.backward", device=x):
+                pass
+            with clock.span("fit.sync"):
+                with clock.span("fit.guard", device=x):
+                    pass
+            with clock.span("fit.adam", device=x):
+                pass
             with clock.span("fit.sync"):
                 pass
-        best = min(best, (time.perf_counter() - t0) / n)
+        best = min(best, (time.perf_counter() - t0) / (6 * n))
         if best <= 1e-6:
             break
     assert best <= 1e-6, f"{best * 1e9:.0f} ns per inactive span"
@@ -206,16 +226,70 @@ def test_fit_grid_spans_each_step():
     steps = [s for s in spans if s.name == "fit.step"]
     assert [s.request for s in steps] == [0, 1, 2]
     for step in steps:
-        under = sorted(s.name for s in spans if s.parent == step.id)
-        assert under == sorted(FIT_SPANS)
-        assert all(s.request == step.request for s in spans
-                   if s.parent == step.id)
+        mine = [s for s in spans if s.request == step.request
+                and s is not step]
+        assert sorted(s.name for s in mine) == sorted(FIT_SPANS)
+        assert sorted(s.name for s in spans if s.parent == step.id) == \
+            sorted(STEP_SPANS)
+        by = _by_name(mine)
+        first_sync = min(by["fit.sync"], key=lambda s: s.t0_ns)
+        (guard,) = by["fit.guard"]
+        assert guard.parent == first_sync.id
+        assert first_sync.t0_ns <= guard.t0_ns <= guard.t1_ns \
+            <= first_sync.t1_ns
+        assert by["warp.fwd"][0].parent == by["fit.render"][0].id
+        # On the CPU autograd runs the backward on the calling thread.
+        assert by["warp.splat"][0].parent == by["fit.backward"][0].id
+        order = sorted(by["fit.render"] + by["fit.backward"]
+                       + by["fit.sync"] + by["fit.adam"],
+                       key=lambda s: s.t0_ns)
+        assert [s.name for s in order] == ["fit.render", "fit.backward",
+                                           "fit.sync", "fit.adam",
+                                           "fit.sync"]
+        for s in mine:
+            assert step.t0_ns <= s.t0_ns <= s.t1_ns <= step.t1_ns
     for s in spans:
-        if s.name in ("fit.adam", "warp.fwd", "warp.splat"):
+        if s.name in DEVICE_SPANS:
             assert s.device_ns == s.t1_ns - s.t0_ns > 0
+        elif s.name in ("fit.sync", "fit.step"):
+            assert s.device_ns is None
     # The call's plan, outside every step.
     assert {s.name for s in spans if s.parent is None} == {
         "fit.step", "plan.build"}
+
+
+def _reader(metric):
+    """The benchmark's reader of `metric` (benchmark/metrics/)."""
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark import harness
+    return harness.load_module(
+        os.path.join(harness.BENCH, "metrics", metric + ".py"),
+        "bench_metric_" + metric.replace(".", "_")).read
+
+
+@pytest.mark.parametrize("nan_guard", [True, False])
+def test_fit_wait_reads_the_syncs_alone(nan_guard):
+    """fit_wait_ms is the host time of the fit.sync spans per step; the
+    guard nested in the first one adds nothing to it, and the guard and
+    the other device spans are read per step by their own names."""
+    torch.manual_seed(0)
+    target = torch.rand(H, W, 3)
+    t0 = time.perf_counter()
+    with clock.tracing():
+        fit_grid(target, _camera(), CFG, MED, T.LightConfig(),
+                 grid_size=SIZE, steps=3, device="cpu", nan_guard=nan_guard)
+    run = {"t0": t0, "window_s": time.perf_counter() - t0 + 1.0}
+    by = _by_name(clock.spans())
+    assert len(by["fit.sync"]) == (6 if nan_guard else 3)
+    assert len(by.get("fit.guard", [])) == (3 if nan_guard else 0)
+    want = sum(s.t1_ns - s.t0_ns for s in by["fit.sync"]) * 1e-6 / 3
+    assert _reader("fit_wait_ms")(run) == pytest.approx(want, rel=1e-12)
+    want = sum(s.device_ns for s in by["fit.adam"]) * 1e-6 / 3
+    assert _reader("adam_ms")(run) == pytest.approx(want, rel=1e-12)
 
 
 def test_render_plan_and_light_give_their_spans():
@@ -263,13 +337,19 @@ def test_fit_step_spans_on_the_card(cuda):
     steps = [s for s in spans if s.name == "fit.step"]
     assert len(steps) == 2
     for step in steps:
-        under = [s for s in spans if s.parent == step.id]
-        assert sorted(s.name for s in under) == sorted(
+        mine = [s for s in spans if s.request == step.request
+                and s is not step]
+        assert sorted(s.name for s in mine) == sorted(
             FIT_SPANS + ("sweep.fwd", "sweep.bwd"))
-        for s in under:
-            assert s.request == step.request
-            if s.name in ("fit.adam", "warp.fwd", "warp.splat"):
+        by = _by_name(mine)
+        for s in mine:
+            if s.name in DEVICE_SPANS:
                 assert 0 < s.device_ns
-        # Autograd runs CUDA backward nodes on a thread of its own.
-        splat = next(s for s in under if s.name == "warp.splat")
-        assert splat.thread != step.thread
+        first_sync = min(by["fit.sync"], key=lambda s: s.t0_ns)
+        assert by["fit.guard"][0].parent == first_sync.id
+        assert by["sweep.fwd"][0].parent == by["fit.render"][0].id
+        # Autograd runs CUDA backward nodes on a thread of its own, whose
+        # spans take the open root as parent.
+        for name in ("warp.splat", "sweep.bwd"):
+            (s,) = by[name]
+            assert s.thread != step.thread and s.parent == step.id

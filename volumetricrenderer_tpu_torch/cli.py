@@ -9,6 +9,8 @@ Usage:
   python -m volumetricrenderer_tpu_torch serve --preset config2
   python -m volumetricrenderer_tpu_torch fit --size 32 --steps 100 \
       --out-dir fit_run/
+  python -m volumetricrenderer_tpu_torch fit --preset config5 --steps 100 \
+      --out-dir fit_run5/
   python -m volumetricrenderer_tpu_torch info
 
 Every subcommand takes --device, "cuda" by default: the sweep kernels
@@ -77,13 +79,18 @@ class _MaybeProfile:
         return False
 
 
-def _resolve_preset(args):
+def _get_preset(name):
+    """The named preset, or exit 2 naming the presets there are."""
     from .config import get_preset
     try:
-        p = get_preset(args.preset)
+        return get_preset(name)
     except KeyError as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
         raise SystemExit(2)
+
+
+def _resolve_preset(args):
+    p = _get_preset(args.preset)
     if args.width or args.height:
         cam = dataclasses.replace(
             p.camera,
@@ -276,13 +283,61 @@ def cmd_info(args):
     return 0
 
 
+def _fit_problem(args, dev):
+    """(grid size, camera, RenderConfig, MediumConfig, LightConfig, true
+    grid) of `cli fit`. With --preset: the preset's volume size, camera,
+    render, medium and light configs, and as true grid its baked scene
+    (config3) or else the FBM cloud with the seed of its volume's first
+    channel. Without: the demo's 32^3 cloud (seed 7) seen at 64x64, the
+    emission sweep at density 8. --size, --image-size (a square),
+    --width, --height and --quadrature override either."""
+    from .config import CameraConfig, LightConfig, MediumConfig, RenderConfig
+    from .models import scene as scene_mod
+    from .ops.camera import make_camera
+
+    if args.preset is None:
+        size = args.size or 32
+        if (args.quadrature or "sliced") == "sliced":
+            # The slice sweep, differentiated through the sweep kernels
+            # on a GPU; "fixed" is the per-ray march of ops/integrate.
+            cfg = RenderConfig(emission=True, quadrature="sliced")
+        else:
+            cfg = RenderConfig(max_steps=64, step_size=4.0 / 64.0,
+                               emission=True)
+        med = MediumConfig(combine="single", density=8.0)
+        light = LightConfig()
+        side = args.image_size or 64
+        cam = CameraConfig(width=side, height=side)
+        seed, scene = 7, ""
+    else:
+        p = _get_preset(args.preset)
+        if p.medium.combine != "single":
+            print(f"error: fit fits one density channel; preset {p.name!r} "
+                  f"combines {p.medium.combine!r}", file=sys.stderr)
+            raise SystemExit(2)
+        size = args.size or p.volume.size
+        cfg, med, light, cam = p.render, p.medium, p.light, p.camera
+        if args.quadrature:
+            cfg = dataclasses.replace(cfg, quadrature=args.quadrature)
+        if args.image_size:
+            cam = dataclasses.replace(cam, width=args.image_size,
+                                      height=args.image_size)
+        seed, scene = p.volume.channels[0].seed, p.scene
+    cam = dataclasses.replace(cam, width=args.width or cam.width,
+                              height=args.height or cam.height)
+    if scene:
+        true_grid = scene_mod.bake_scene(
+            getattr(scene_mod, scene)(size, device=dev), size, cfg)
+    else:
+        true_grid = scene_mod.cloud_volume(size, seed=seed, device=dev)
+    return size, make_camera(cam), cfg, med, light, true_grid
+
+
 def cmd_fit(args):
     import torch
 
-    from .config import CameraConfig, LightConfig, MediumConfig, RenderConfig
     from .fit import fit_grid
-    from .models.scene import cloud_volume
-    from .ops.camera import camera_rays, make_camera
+    from .ops.camera import camera_rays
     from .ops.integrate import render_rays
     from .render import render_image
     from .utils.checkpoint import (adam_initial_leaves, latest_step,
@@ -292,20 +347,9 @@ def cmd_fit(args):
 
     dev = torch.device(args.device)
     os.makedirs(args.out_dir, exist_ok=True)
-    # Default: the slice sweep, differentiated through the sweep kernels
-    # on a GPU; --quadrature fixed is the per-ray march of ops/integrate.
-    if args.quadrature == "sliced":
-        cfg = RenderConfig(emission=True, quadrature="sliced")
-    else:
-        cfg = RenderConfig(max_steps=64, step_size=4.0 / 64.0,
-                           emission=True)
-    med = MediumConfig(combine="single", density=8.0)
-    light = LightConfig()
-    cam = make_camera(CameraConfig(width=args.image_size,
-                                   height=args.image_size))
-
-    true_grid = cloud_volume(args.size, seed=7, device=dev)
-    if args.quadrature == "sliced":
+    size, cam, cfg, med, light, true_grid = _fit_problem(args, dev)
+    quadrature = cfg.quadrature
+    if quadrature == "sliced":
         def render(g):
             return render_image(g, cam, cfg, med, light)
     else:
@@ -323,8 +367,7 @@ def cmd_fit(args):
     start = 0
     if args.resume and latest_step(ckpt_dir) is not None:
         start, init_grid, init_opt, extra = restore_checkpoint(
-            ckpt_dir, opt_state_template=adam_initial_leaves(
-                (args.size,) * 3))
+            ckpt_dir, opt_state_template=adam_initial_leaves((size,) * 3))
         # A checkpoint written under another quadrature would continue
         # under another loss: refuse. Checkpoints without the metadata
         # resume with a warning, as in the JAX package.
@@ -332,21 +375,21 @@ def cmd_fit(args):
         if ck_quad is None:
             get_logger().warning(
                 "checkpoint has no quadrature metadata; resuming under "
-                "--quadrature %s", args.quadrature)
-        elif ck_quad != args.quadrature:
+                "--quadrature %s", quadrature)
+        elif ck_quad != quadrature:
             raise SystemExit(
                 f"checkpoint at {ckpt_dir} was written with quadrature "
-                f"{ck_quad!r} but --quadrature is {args.quadrature!r}; "
+                f"{ck_quad!r} but --quadrature is {quadrature!r}; "
                 "resuming would optimize a different loss. Re-run with "
                 f"--quadrature {ck_quad} or a fresh --out-dir.")
         get_logger().info("resuming fit from step %d (%s)", start, ckpt_dir)
         init_grid = torch.as_tensor(init_grid, device=dev)
     res = fit_grid(
-        target, cam, cfg, med, light, grid_size=args.size,
+        target, cam, cfg, med, light, grid_size=size,
         steps=args.steps, learning_rate=args.lr, metrics=metrics,
         init_grid=init_grid, init_opt_state=init_opt, start_step=start,
         checkpoint_fn=lambda s, g, st: save_checkpoint(
-            ckpt_dir, s, g, st, extra={"quadrature": args.quadrature}),
+            ckpt_dir, s, g, st, extra={"quadrature": quadrature}),
         checkpoint_every=max(args.steps // 4, 1))
     with torch.no_grad():
         final = render(res.grid)
@@ -364,15 +407,10 @@ def cmd_fit(args):
 def cmd_serve(args):
     import json
 
-    from .config import get_preset
     from .serve import serve
     from .utils.metrics import get_logger
 
-    try:
-        preset = get_preset(args.preset)
-    except KeyError as e:
-        print(f"error: {e.args[0]}", file=sys.stderr)
-        raise SystemExit(2)
+    preset = _get_preset(args.preset)
     result = serve(preset, port=args.port, frames=args.selftest_frames,
                    host=args.host, device=args.device)
     if result is not None:
@@ -409,16 +447,26 @@ def main(argv=None):
     pa.set_defaults(fn=cmd_animate)
 
     pf = sub.add_parser("fit", help="inverse-render fit demo (config 3)")
-    pf.add_argument("--size", type=int, default=32)
-    pf.add_argument("--image-size", type=int, default=64)
+    pf.add_argument("--preset", default=None,
+                    help="fit at a named preset's volume size, camera, "
+                         "render, medium and light (single-channel "
+                         "presets: config1..config5); without it the demo: "
+                         "a 32^3 cloud seen at 64x64")
+    pf.add_argument("--size", type=int, default=None,
+                    help="grid size (default 32, or the preset's)")
+    pf.add_argument("--image-size", type=int, default=None,
+                    help="a square target of this side (default 64, or "
+                         "the preset's camera)")
+    pf.add_argument("--width", type=int, default=None)
+    pf.add_argument("--height", type=int, default=None)
     pf.add_argument("--steps", type=int, default=100)
     pf.add_argument("--lr", type=float, default=5e-2)
     pf.add_argument("--out-dir", default="fit_run")
-    pf.add_argument("--quadrature", default="sliced",
+    pf.add_argument("--quadrature", default=None,
                     choices=["sliced", "fixed"],
                     help="sliced = differentiate through the slice sweep "
-                         "(the sweep kernels on a GPU; default); fixed = "
-                         "the per-ray march")
+                         "(the sweep kernels on a GPU; the default, or the "
+                         "preset's); fixed = the per-ray march")
     pf.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint in "
                          "<out-dir>/ckpt")

@@ -8,9 +8,13 @@ the slice sweep, which on a CUDA grid runs the forward and backward sweep
 kernels; "fixed" is the per-ray march of ops/integrate.py.
 
 Spans (utils/clock.py): each step is the root "fit.step" (its request id
-the step number), holding "fit.adam" (the update and the clamp, with its
-device interval) and two "fit.sync" (the NaN guard's check and the loss
-read back to the host: the host waiting for the device).
+the step number), holding "fit.render" (the forward render and the loss),
+"fit.backward" (loss.backward(): the backward sweep, the warp's splat, the
+gradient's zeroing and copies), "fit.adam" (the update and the clamp), each
+with its device interval, and two "fit.sync" (the NaN guard's check and the
+loss read back to the host: the host waiting for the device). The first
+"fit.sync" holds "fit.guard", the device interval of the guard's
+finiteness reduction over the loss and every voxel's gradient.
 """
 from __future__ import annotations
 
@@ -122,13 +126,17 @@ def fit_grid(
     for i in range(start_step, steps):
         with clock.root("fit.step", request=i):
             optimizer.zero_grad(set_to_none=True)
-            loss = torch.mean((render(grid)[..., :3] - target) ** 2)
-            loss.backward()
+            with clock.span("fit.render", device=grid):
+                loss = torch.mean((render(grid)[..., :3] - target) ** 2)
+            with clock.span("fit.backward", device=grid):
+                loss.backward()
             ok = True
             if nan_guard:
                 with clock.span("fit.sync"):
-                    ok = bool(torch.isfinite(loss)
-                              & torch.isfinite(grid.grad).all())
+                    with clock.span("fit.guard", device=grid):
+                        finite = (torch.isfinite(loss)
+                                  & torch.isfinite(grid.grad).all())
+                    ok = bool(finite)
             if ok:
                 with clock.span("fit.adam", device=grid):
                     optimizer.step()

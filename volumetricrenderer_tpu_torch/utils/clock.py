@@ -8,11 +8,12 @@ clock without a synchronize measures the enqueue. `sync` waits for the
 device a result lies on; `device_timer` brackets the calls with CUDA events
 when the result is a CUDA tensor and with the host clock otherwise.
 
-Spans (`span`, `root`) mark the program's layers: a fit step and its
-optimizer update and syncs, a frame, the sweep kernels' launch wrappers,
-the warp and its splat, the plan and the light sweep. A span is active
-only while a torch profiler runs or inside a `tracing()` block, which is
-decided when it is entered, so a span is recorded whole or not at all.
+Spans (`span`, `root`) mark the program's layers: a fit step, its render,
+backward, NaN guard, optimizer update and syncs, a frame, the sweep
+kernels' launch wrappers, the warp and its splat, the plan and the light
+sweep. A span is active only while a torch profiler runs or inside a
+`tracing()` block, which is decided when it is entered, so a span is
+recorded whole or not at all.
 An inactive span is one shared null context: no clock read, no
 allocation. An active span enters `torch.profiler.record_function("vr." +
 name)`, so it shows in the profiler's trace beside the operations, and
