@@ -15,8 +15,8 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    power limit as nvidia-smi reports them;
 2. build: compiles the four hand-written sweep kernels (kernels/csrc/
    sweep_fwd.cu, sweep_bwd.cu, sweep_ref_fwd.cu and sweep_ref_bwd.cu, one
-   nvcc each, started together) from the checkout and prints the build
-   times and ptxas reports;
+   nvcc each, started together) and the light sweep's (light_sweep.cu)
+   from the checkout and prints the build times and ptxas reports;
 3. the forward kernel against its plain PyTorch version at small shapes:
    five eyes (three sweep axes, both signs) x emission/absorption x
    mirror/clamp/wrap, plus sub-voxel slicing (n_slices != depth);
@@ -103,18 +103,23 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
 13. config 4 at full width: cloud_volume(256, 7) at 1920x1080, emission,
    density 8, LightConfig(shadow_steps=32), eight orbit cameras around the
    full circle, the light volume rebuilt each frame by render_image;
-   exactly one forward-kernel launch per frame (counts set to 0 before,
-   read after); every frame finite, alpha in [0, 1] and equal to the
-   unshadowed frame's, rgb nowhere brighter and somewhere darker; the base
+   exactly one forward-kernel launch and one light-sweep launch per frame
+   (counts set to 0 before, read after); every frame finite, alpha in
+   [0, 1] and equal to the unshadowed frame's, rgb nowhere brighter and somewhere darker; the base
    maps of two frames (one per sweep sign) held to the plain version;
    training, one forward+backward step (sum of rgb^2, gradient to the grid
    through dG and through dL and the light sweep), one launch of each
-   kernel, dG and dL held to the plain backward on the same cotangents;
+   kernel and one of the light sweep's forward and adjoint, dG and dL held
+   to the plain backward on the same cotangents;
 14. the reference medium with shadows at the preset's width (128^3 x 4,
    1280x720, emission, density 8, seeded scrolls): two frames and one forward+backward
    step through the 4-channel kernels' light branch, counted and held to
    the plain versions in the same way;
-15. timing of the shadowed paths: light_transmittance_volume forward and
+15. timing of the shadowed paths: the light sweep's kernel at config 4
+   (the forward equal bit for bit to its plain version, timed beside it as
+   a yardstick; the adjoint held to its plain version and to autograd
+   through the forward's at rtol 2e-4, atol 2e-4 * max|g|), each against
+   its bound, light_transmittance_volume forward and
    forward+backward at 256^3, materialize_sigma at 128^3 x 4, the four
    kernels with a light volume and their plain versions, render_image
    with shadows per frame (plan reused, light volume rebuilt), the warp
@@ -245,7 +250,10 @@ Drives volumetricrenderer_tpu_torch only (no JAX) through its main paths:
    through global memory, which must be none for K4 and K5; the launches
    on the sharded paths, `launches_sharded`, in the runners of step 24,
    `launches_tools`, and in step 25, `launches_runner_ranks` and
-   `launches_profile_parts`), with each
+   `launches_profile_parts`), and an entry for the light sweep's kernel
+   (its launches on the main paths, forward and adjoint, the adjoint's
+   error, forward and adjoint times and bounds, the plain version's time,
+   registers), with each
    time's share of its bound logged before it, and the script's wall time
    on a line of its own, then the last line {"ok": true, "device":
    {...}}. Every main path logs its tile-slices.
@@ -282,14 +290,15 @@ from volumetricrenderer_tpu_torch import (CameraConfig, LightConfig,
                                           reference_media_scroll,
                                           render_image)
 from volumetricrenderer_tpu_torch import bench, tools
-from volumetricrenderer_tpu_torch.kernels import (sweep_bwd, sweep_fwd,
-                                                  sweep_ref_bwd,
+from volumetricrenderer_tpu_torch.kernels import (light_sweep, sweep_bwd,
+                                                  sweep_fwd, sweep_ref_bwd,
                                                   sweep_ref_fwd)
 from volumetricrenderer_tpu_torch.kernels.round_probe import \
     round_weights_on_device
 from volumetricrenderer_tpu_torch.models.scene import bake_scene
 from volumetricrenderer_tpu_torch.ops import sweep as ops_sweep
 from volumetricrenderer_tpu_torch.ops.integrate import render_rays_sliced
+from volumetricrenderer_tpu_torch.ops.lighting import light_sweep_geometry
 from volumetricrenderer_tpu_torch.ops.sweep import base_rays, finish_image, \
     sweep_render
 from volumetricrenderer_tpu_torch.parallel.sweep_sharded import split_sweep
@@ -503,6 +512,8 @@ def reset_counts():
         mod.launches = 0
     for name in TILES:
         KERNELS[name][0].tiles.reset()
+    for kind in light_sweep.launches:
+        light_sweep.launches[kind] = 0
 
 
 # Tile-slices each kernel computed on the main paths, and of those the ones
@@ -510,14 +521,24 @@ def reset_counts():
 # name -> [computed, global].
 TILES = {name: [0, 0] for name in ("sweep_fwd", "sweep_bwd",
                                    "sweep_ref_fwd", "sweep_ref_bwd")}
+# The light sweep's launches on the main paths, forward and adjoint.
+LIGHT_SWEEP = {"forward": 0, "adjoint": 0}
 
 
 def path_counts(label):
     """counts() at the end of a main path; also takes the tile-slices each
-    kernel computed since the last reset_counts (or the last call), logs
-    them by path and adds them to TILES."""
+    kernel computed and the light sweep's launches since the last
+    reset_counts (or the last call), logs them by path and adds them to
+    TILES and LIGHT_SWEEP."""
     launches = counts()
     parts = []
+    light = dict(light_sweep.launches)
+    for kind, n in light.items():
+        LIGHT_SWEEP[kind] += n
+        light_sweep.launches[kind] = 0
+    if any(light.values()):
+        parts.append(f"light_sweep {light['forward']} forward, "
+                     f"{light['adjoint']} adjoint launches")
     for name, total in TILES.items():
         tiles = KERNELS[name][0].tiles
         done, glob = tiles.read()
@@ -1135,12 +1156,17 @@ def config4_full_width(grid, dev, out_dir):
     frames = []
     reset_counts()
     for i, (cam, plan) in enumerate(zip(cams, plans)):
-        before = sweep_fwd.launches
+        before = (sweep_fwd.launches, dict(light_sweep.launches))
         img = render_image(grid, cam, cfg, medium, light, plan=plan)
         torch.cuda.synchronize()
-        if sweep_fwd.launches != before + 1:
+        if sweep_fwd.launches != before[0] + 1:
             fail(f"config 4 frame {i}: render_image launched the sweep "
-                 f"kernel {sweep_fwd.launches - before} times, expected 1")
+                 f"kernel {sweep_fwd.launches - before[0]} times, expected 1")
+        if light_sweep.launches != {"forward": before[1]["forward"] + 1,
+                                    "adjoint": before[1]["adjoint"]}:
+            fail(f"config 4 frame {i}: the light sweep's launches went from "
+                 f"{before[1]} to {light_sweep.launches}, expected one "
+                 "forward")
         frames.append(img)
     serve_launches = path_counts("config 4 serving")
     log(f"config 4 serving path: {len(frames)} shadowed frames, launches "
@@ -1202,11 +1228,16 @@ def config4_full_width(grid, dev, out_dir):
     cam, plan = cams[0], plans[0]
     reset_counts()
     g = grid.clone().requires_grad_()
+    before = dict(light_sweep.launches)
     with BackwardSpy(sweep_bwd) as spy:
         img = render_image(g, cam, cfg, medium, light, plan=plan)
         loss = (img[..., :3] ** 2).sum()
         loss.backward()
         torch.cuda.synchronize()
+    if light_sweep.launches != {k: v + 1 for k, v in before.items()}:
+        fail(f"config 4 forward+backward: the light sweep's launches went "
+             f"from {before} to {light_sweep.launches}, expected one "
+             "forward and one adjoint")
     train_launches = path_counts("config 4 training")
     if train_launches != (1, 1, 0, 0) or len(spy.seen) != 1:
         fail(f"config 4 forward+backward launched {train_launches}, "
@@ -1304,6 +1335,58 @@ def ref_shadow_full_width(grid4, cam, plan, dev):
     return errs, serve_launches, train_launches
 
 
+def light_sweep_timings(grid, light, cfg, medium, gpu_line):
+    """Step 15, the light sweep's kernel at config 4: the forward held bit
+    for bit to its plain version; the adjoint, on the forward's L and a
+    seeded cotangent, held to the adjoint's plain version and to autograd
+    through the forward's plain version; each timed beside its bound, and
+    the plain version timed as a yardstick. Returns {"ms", "adjoint_ms",
+    "plain_ms", "bound_ms", "bound_ms_adjoint", "max_abs_err"}."""
+    sigma = grid * medium.sample_scale
+    perm, sweep = light_sweep_geometry(light, cfg, medium,
+                                       tuple(sigma.shape))
+    sigma = sigma.permute(perm).contiguous()
+    dL = torch.randn(sigma.shape, device=sigma.device,
+                     generator=torch.Generator(sigma.device).manual_seed(5))
+    got = light_sweep.launch_kernel(sigma, sweep)
+    want = light_sweep.light_sweep_reference(sigma, sweep)
+    if not torch.equal(got, want):
+        fail("light sweep kernel differs from its plain version: max abs "
+             f"{max_err(got, want):.3e}")
+    dsigma = light_sweep.launch_kernel(got, sweep, aux=dL)
+    s_ref = sigma.clone().requires_grad_()
+    light_sweep.light_sweep_reference(s_ref, sweep).backward(dL)
+    errs = []
+    for name, g_want in (
+            ("the adjoint's plain version",
+             light_sweep.light_sweep_adjoint_reference(got, dL, sweep)),
+            ("autograd through the plain version", s_ref.grad)):
+        e, scale = check_grad(dsigma, g_want,
+                              f"light sweep adjoint kernel against {name}")
+        errs.append(e)
+    t = {"ms": cuda_ms(lambda: light_sweep.launch_kernel(sigma, sweep)),
+         "adjoint_ms": cuda_ms(lambda: light_sweep.launch_kernel(
+             got, sweep, aux=dL)),
+         "plain_ms": cuda_ms(lambda: light_sweep.light_sweep_reference(
+             sigma, sweep), runs=3, warmup=1),
+         # Read sigma once and write L once, at 3.35 TB/s.
+         "bound_ms": 2 * sigma.numel() * 4 / PEAK_BYTES * 1e3,
+         # Read L and dL once and write the gradient once.
+         "bound_ms_adjoint": 3 * sigma.numel() * 4 / PEAK_BYTES * 1e3,
+         "max_abs_err": max(errs)}
+    log(f"[{gpu_line}] light sweep kernel at config 4 "
+        f"{tuple(sigma.shape)}: forward {t['ms']:.3f} ms against a bound "
+        f"of {t['bound_ms']:.4f} ms (share {t['bound_ms'] / t['ms']:.4f}; "
+        f"bytes: sigma read and L written once), equal to its plain version "
+        f"bit for bit; adjoint {t['adjoint_ms']:.3f} ms against a bound of "
+        f"{t['bound_ms_adjoint']:.4f} ms (share "
+        f"{t['bound_ms_adjoint'] / t['adjoint_ms']:.4f}; bytes: L and dL "
+        f"read, the gradient written once), max abs err {errs[0]:.3e} "
+        f"against the adjoint's plain version and {errs[1]:.3e} against "
+        f"autograd at max {scale:.3e}; plain version {t['plain_ms']:.3f} ms")
+    return t
+
+
 def light_timings(grid, cam, plan, grid4, cam4, plan4, dev, gpu_line,
                   out_dir):
     """Step 15: CUDA-event timings of the shadowed paths. Returns
@@ -1315,6 +1398,8 @@ def light_timings(grid, cam, plan, grid4, cam4, plan4, dev, gpu_line,
 
     # Config 4: the light sweep, K1 and K2 with light, frame and step.
     medium = MediumConfig(combine="single", density=8.0)
+    out["light_sweep"] = light_sweep_timings(grid, light, cfg, medium,
+                                             gpu_line)
     sweep_ms = cuda_ms(lambda: light_transmittance_volume(grid, light, cfg,
                                                           medium), runs=6)
     gl = grid.clone().requires_grad_()
@@ -4032,7 +4117,9 @@ def main(argv=None):
 
     # 2. Build.
     regs = {}
-    for name, info in build_all().items():
+    builds = build_all()
+    builds["light_sweep"] = light_sweep.build_kernel()
+    for name, info in builds.items():
         log(f"build {name}: {info['seconds']:.1f} s -> {info['path']}")
         for line in info["log"].strip().splitlines():
             log(f"  nvcc: {line}")
@@ -4484,6 +4571,37 @@ def main(argv=None):
         f"{shard_t['sharded_ms']:.3f} ms, sharded train step "
         f"{shard_t['step_ms']:.3f} ms, K1 {shard_t['k1_ms']:.3f} ms, K2 "
         f"{shard_t['k2_ms']:.3f} ms")
+    lt = light_t["light_sweep"]
+    log(f"[{gpu_line}] light_sweep: {lt['ms']:.3f} ms against a bound of "
+        f"{lt['bound_ms']:.4f} ms (share {lt['bound_ms'] / lt['ms']:.4f}), "
+        f"adjoint {lt['adjoint_ms']:.3f} ms against "
+        f"{lt['bound_ms_adjoint']:.4f} ms (share "
+        f"{lt['bound_ms_adjoint'] / lt['adjoint_ms']:.4f}); launches on the "
+        f"main paths {LIGHT_SWEEP}")
+    if min(LIGHT_SWEEP.values()) < 1:
+        fail(f"light_sweep: launches {LIGHT_SWEEP}: no forward or no "
+             "adjoint on the main paths")
+    n_regs, spill = regs["light_sweep"]
+    results.append({
+        "name": "light_sweep",
+        "route": "cuda",
+        "source": "volumetricrenderer_tpu_torch/kernels/csrc/light_sweep.cu",
+        "replaces": None,
+        "launches": sum(LIGHT_SWEEP.values()),
+        "launches_adjoint": LIGHT_SWEEP["adjoint"],
+        "max_abs_err": lt["max_abs_err"],
+        "ms": lt["ms"],
+        "adjoint_ms": lt["adjoint_ms"],
+        "plain_ms": lt["plain_ms"],
+        "bound_ms": lt["bound_ms"],
+        "bound_ms_adjoint": lt["bound_ms_adjoint"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "bound_share": lt["bound_ms"] / lt["ms"],
+        "bound_share_adjoint": lt["bound_ms_adjoint"] / lt["adjoint_ms"],
+        "registers": n_regs,
+        "spill_bytes": spill,
+    })
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1934,3 +1934,168 @@ def test_plan_built_on_the_card_matches_the_host_plan(cuda, eye, width,
                                    atol=1e-6, msg=f)
     assert ops_sweep.plan_base_dims(cam, shape, cfg, device=cuda) == \
         ops_sweep.plan_base_dims(cam, shape, cfg)
+
+
+# --- the light sweep's scan (kernels/light_sweep.py) -----------------------
+
+SWEEP_DIRECTIONS = [(0.5, 0.5, 1.0), (0.3, -0.2, -1.0), (1.0, 0.3, 0.2),
+                    (-1.0, 0.25, -0.4), (0.2, 1.0, 0.3), (0.4, -1.0, -0.1),
+                    (0.3, -0.7, 1.0), (1.0, 0.45, -0.2)]
+
+
+def _swept_sigma(dev, direction, shape, density=8.0, seed=11):
+    """sigma (seeded, in [0, 1.6]) permuted for the light's sweep, and the
+    sweep's geometry."""
+    from volumetricrenderer_tpu_torch.ops.lighting import light_sweep_geometry
+    perm, sweep = light_sweep_geometry(
+        LightConfig(direction=direction), RenderConfig(),
+        MediumConfig(combine="single", density=density), shape)
+    sigma = torch.tensor(np.random.default_rng(seed).uniform(0.0, 1.6, shape),
+                         dtype=torch.float32, device=dev)
+    return sigma.permute(perm).contiguous(), sweep
+
+
+@pytest.mark.gpu
+def test_light_sweep_kernel_bit_equal_at_config4(cuda):
+    """Config 4's 256^3 FBM cloud and light: the kernel's forward equals
+    the plain version on the card bit for bit (the same taps, roundings
+    and exp)."""
+    from volumetricrenderer_tpu_torch import cloud_volume
+    from volumetricrenderer_tpu_torch.kernels import light_sweep
+    from volumetricrenderer_tpu_torch.ops.lighting import light_sweep_geometry
+    sigma = cloud_volume(256, 7, device=cuda) * 0.2
+    perm, sweep = light_sweep_geometry(
+        LightConfig(shadow_steps=32), RenderConfig(),
+        MediumConfig(combine="single", density=8.0), tuple(sigma.shape))
+    sigma = sigma.permute(perm).contiguous()
+    got = light_sweep.launch_kernel(sigma, sweep)
+    want = light_sweep.light_sweep_reference(sigma, sweep)
+    torch.cuda.synchronize()
+    assert float(want.min()) < 0.5 and float(want.max()) == 1.0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("direction", SWEEP_DIRECTIONS)
+@pytest.mark.parametrize("shape", [(48, 48, 48), (24, 96, 40)])
+def test_light_sweep_kernel_matches_plain_version(cuda, direction, shape):
+    """Every dominant axis, both signs, oblique lights, and a grid that is
+    not a cube (shifts of several texels): held to the plain version at
+    tests/test_torch_lighting.py's tolerances."""
+    from volumetricrenderer_tpu_torch.kernels import light_sweep
+    sigma, sweep = _swept_sigma(cuda, direction, shape)
+    got = light_sweep.launch_kernel(sigma, sweep)
+    want = light_sweep.light_sweep_reference(sigma, sweep)
+    torch.cuda.synchronize()
+    assert float(want.min()) < 0.5
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("direction", [SWEEP_DIRECTIONS[0],
+                                       SWEEP_DIRECTIONS[3],
+                                       SWEEP_DIRECTIONS[7]])
+@pytest.mark.parametrize("shape", [(48, 48, 48), (24, 96, 40),
+                                   (256, 256, 256)])
+def test_light_sweep_adjoint_kernel_matches_autograd(cuda, direction, shape):
+    """The node's backward (the adjoint kernel) against autograd through
+    the plain version, and against the adjoint's plain version; one launch
+    of each kernel. 256^3 is config 4's grid, 16-row bands a CTA, with its
+    light among the directions."""
+    from volumetricrenderer_tpu_torch.kernels import light_sweep
+    sigma, sweep = _swept_sigma(cuda, direction, shape, density=3.0)
+    dL = torch.tensor(np.random.default_rng(12).normal(size=sigma.shape),
+                      dtype=torch.float32, device=cuda)
+    s_ref = sigma.clone().requires_grad_()
+    light_sweep.light_sweep_reference(s_ref, sweep).backward(dL)
+    s = sigma.clone().requires_grad_()
+    before = dict(light_sweep.launches)
+    L = light_sweep.light_sweep(s, sweep)
+    assert light_sweep.launches == {"forward": before["forward"] + 1,
+                                    "adjoint": before["adjoint"]}
+    L.backward(dL)
+    torch.cuda.synchronize()
+    assert light_sweep.launches == {"forward": before["forward"] + 1,
+                                    "adjoint": before["adjoint"] + 1}
+    scale = float(s_ref.grad.abs().max())
+    assert scale > 0.0
+    torch.testing.assert_close(s.grad, s_ref.grad, rtol=BWD_TOL,
+                               atol=BWD_TOL * scale)
+    plain = light_sweep.light_sweep_adjoint_reference(L.detach(), dL, sweep)
+    torch.testing.assert_close(s.grad, plain, rtol=BWD_TOL,
+                               atol=BWD_TOL * scale)
+
+
+@pytest.mark.gpu
+def test_light_sweep_kernel_checks_its_inputs(cuda):
+    from volumetricrenderer_tpu_torch.kernels import light_sweep
+    sigma, sweep = _swept_sigma(cuda, SWEEP_DIRECTIONS[0], (8, 8, 8))
+    before = dict(light_sweep.launches)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        light_sweep.launch_kernel(sigma.double(), sweep)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        light_sweep.launch_kernel(sigma.transpose(1, 2), sweep)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        light_sweep.launch_kernel(sigma, sweep, aux=sigma[:-1])
+    assert light_sweep.launches == before
+
+
+@pytest.mark.gpu
+def test_config4_frame_sweeps_light_in_one_launch_without_gemm(cuda):
+    """A profiled config-4 frame (256^3 FBM cloud, 1920x1080, shadows, the
+    light volume rebuilt by render_image): one light-sweep launch, one K1
+    launch, and no matrix-product kernel on the device."""
+    from torch.profiler import ProfilerActivity, profile
+    from volumetricrenderer_tpu_torch import cloud_volume, render_image
+    from volumetricrenderer_tpu_torch.config import PRESETS
+    from volumetricrenderer_tpu_torch.kernels import light_sweep
+    p = PRESETS["config4"]
+    grid = cloud_volume(256, 7, device=cuda)
+    cam = make_camera(p.camera)
+    plan = plan_for(cam, grid.shape, p.render, device=cuda)
+    render_image(grid, cam, p.render, p.medium, p.light, plan=plan)
+    torch.cuda.synchronize()
+    before = (dict(light_sweep.launches), sweep_fwd.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        img = render_image(grid, cam, p.render, p.medium, p.light, plan=plan)
+        torch.cuda.synchronize()
+    assert light_sweep.launches["forward"] == before[0]["forward"] + 1
+    assert light_sweep.launches["adjoint"] == before[0]["adjoint"]
+    assert sweep_fwd.launches == before[1] + 1
+    assert bool(torch.isfinite(img).all())
+    names = [e.key for e in prof.key_averages()]
+    assert any("light_sweep_shared" in n for n in names), names
+    assert not any("gemm" in n.lower() or "xmma" in n.lower()
+                   for n in names), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,shift_a,shift_b,sign", [
+    ((5, 512, 512), 0.5 / 5, -0.3 / 5, 1),    # too large for shared memory
+    ((9, 33, 37), -0.7 / 9, 0.45 / 9, -1),    # rows not of 16-byte pieces
+    ((12, 64, 64), 2.5 / 12, 0.0, 1)])        # several texels a step
+def test_light_sweep_kernel_paths(cuda, shape, shift_a, shift_b, sign):
+    """The kernel's two schedules on (S, A, B) stacks given directly: the
+    carry in global memory where a 512 x 512 plane overflows the cluster's
+    shared memory or B is odd, in shared memory with a shift of several
+    texels a step. Forward and adjoint against their plain versions, at
+    the tolerances above."""
+    from volumetricrenderer_tpu_torch.kernels import light_sweep
+    sweep = light_sweep.LightSweep(sign, float(np.float32(shift_a)),
+                                   float(np.float32(shift_b)), 2.0 / shape[0],
+                                   4.0)
+    rng = np.random.default_rng(13)
+    sigma = torch.tensor(rng.uniform(0.0, 1.6, shape), dtype=torch.float32,
+                         device=cuda)
+    dL = torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                      device=cuda)
+    L = light_sweep.launch_kernel(sigma, sweep)
+    g = light_sweep.launch_kernel(L, sweep, aux=dL)
+    want = light_sweep.light_sweep_reference(sigma, sweep)
+    gwant = light_sweep.light_sweep_adjoint_reference(want, dL, sweep)
+    torch.cuda.synchronize()
+    assert float(want.min()) < 0.5
+    torch.testing.assert_close(L, want, rtol=1e-5, atol=1e-6)
+    scale = float(gwant.abs().max())
+    torch.testing.assert_close(g, gwant, rtol=BWD_TOL, atol=BWD_TOL * scale)
