@@ -12,6 +12,7 @@ Pallas kernels to the jnp sweep: kernel and plain version take the same
 front-to-back order per pixel, so they differ by the order of the bilinear
 tap sum and expf's last bit.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -20,7 +21,7 @@ import torch
 
 from volumetricrenderer_tpu_torch import CameraConfig, LightConfig, \
     MediumConfig, RenderConfig, light_transmittance_volume, make_camera, \
-    plan_for
+    orbit_camera, plan_for, render_image
 from volumetricrenderer_tpu_torch.kernels import sweep_bwd, sweep_fwd, \
     sweep_ref_bwd, sweep_ref_fwd
 from volumetricrenderer_tpu_torch.kernels.round_probe import \
@@ -241,7 +242,12 @@ def _scroll(kind, dev):
         return None
     if kind == "preset":
         return reference_media_scroll(1.7, device=dev)
-    return torch.tensor(np.random.default_rng(5).uniform(-1.5, 1.5, (4, 3)),
+    return _seeded_scroll(5, dev)
+
+
+def _seeded_scroll(seed, dev):
+    return torch.tensor(np.random.default_rng(seed).uniform(-1.5, 1.5,
+                                                            (4, 3)),
                         dtype=torch.float32, device=dev)
 
 
@@ -298,6 +304,13 @@ def test_ref_kernels_sub_voxel(cuda, emission):
     want = sweep_ref_fwd.sweep_ref_fwd_reference(*inputs, emission=emission)
     for g, w, n in zip(maps, want, NAMES):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=n)
+    rng = np.random.default_rng(9)
+    cts = [torch.tensor(rng.normal(size=plan.base_shape), dtype=torch.float32,
+                        device=cuda) for _ in range(3)]
+    _assert_grad_close(sweep_ref_bwd.launch_kernel(
+        *inputs, *cts, maps[1], maps[2], emission=emission),
+        sweep_ref_bwd.sweep_ref_bwd_reference(
+            *inputs, *cts, maps[1], maps[2], emission=emission))
 
 
 @pytest.mark.gpu
@@ -438,11 +451,17 @@ def _light_case(dev, eye, mode="mirror", n_slices=None, density=8.0,
     return maps, want_maps, got, want
 
 
-def _assert_light_case(maps, want_maps, got, want, tol=BWD_TOL):
+def _assert_light_case(maps, want_maps, got, want, tol=BWD_TOL, low=False):
+    """Maps and gradients against the plain version's; on bfloat16 stacks
+    (low) also maps within 1e-6 and, but at the early stop, gradients
+    within 1e-5 of their maximum."""
     for g, w, n in zip(maps, want_maps, NAMES):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=n)
+        assert not low or float((g - w).abs().max()) <= 1e-6, n
     for g, w in zip(got, want):  # dG, dL
         _assert_grad_close(g, w, tol)
+        assert not low or tol != BWD_TOL or \
+            float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 @pytest.mark.gpu
@@ -720,7 +739,7 @@ def _bf16_case(dev, eye, emission=True, mode="mirror", n_slices=None,
 @pytest.mark.parametrize("mode", ["mirror", "clamp", "wrap"])
 def test_bf16_kernels_match_plain_versions(cuda, eye, axis, sign, emission,
                                            mode):
-    _assert_light_case(*_bf16_case(cuda, eye, emission, mode))
+    _assert_light_case(*_bf16_case(cuda, eye, emission, mode), low=True)
 
 
 @pytest.mark.gpu
@@ -732,13 +751,16 @@ def test_bf16_light_kernels_match_plain_versions(cuda, eye, axis, sign, mode,
     """With rounded weights a fully lit neighbourhood samples just above
     or just below 1: kernel and plain version must decide each such sample
     on the same float, or dL differs by whole shares."""
-    _assert_light_case(*_bf16_case(cuda, eye, mode=mode, kind=kind))
+    _assert_light_case(*_bf16_case(cuda, eye, mode=mode, kind=kind),
+                       low=True)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", [None, "ones", "pushed"])
-def test_bf16_kernels_sub_voxel(cuda, kind):
-    _assert_light_case(*_bf16_case(cuda, EYES[0][0], n_slices=24, kind=kind))
+@pytest.mark.parametrize("emission,kind", [(True, None), (False, None),
+                                           (True, "ones"), (True, "pushed")])
+def test_bf16_kernels_sub_voxel(cuda, emission, kind):
+    _assert_light_case(*_bf16_case(cuda, EYES[0][0], emission, n_slices=24,
+                                   kind=kind), low=True)
 
 
 @pytest.mark.gpu
@@ -749,7 +771,7 @@ def test_bf16_backward_kernel_early_stop_gate(cuda, kind):
     maps, want_maps, got, want = _bf16_case(cuda, EYES[0][0], density=500.0,
                                             kind=kind)
     assert float(maps[1].min()) < 1e-3
-    _assert_light_case(maps, want_maps, got, want, tol=5e-4)
+    _assert_light_case(maps, want_maps, got, want, tol=5e-4, low=True)
 
 
 def _bf16_ref_case(dev, eye, emission=True, kind=None, n_slices=None,
@@ -791,7 +813,7 @@ def _bf16_ref_case(dev, eye, emission=True, kind=None, n_slices=None,
 @pytest.mark.parametrize("emission", [True, False])
 def test_bf16_ref_kernels_match_plain_versions(cuda, eye, axis, sign,
                                                emission):
-    _assert_light_case(*_bf16_ref_case(cuda, eye, emission))
+    _assert_light_case(*_bf16_ref_case(cuda, eye, emission), low=True)
 
 
 @pytest.mark.gpu
@@ -799,18 +821,19 @@ def test_bf16_ref_kernels_match_plain_versions(cuda, eye, axis, sign,
 @pytest.mark.parametrize("kind", ["ones", "pushed"])
 def test_bf16_ref_light_kernels_match_plain_versions(cuda, eye, axis, sign,
                                                      kind):
-    _assert_light_case(*_bf16_ref_case(cuda, eye, kind=kind))
+    _assert_light_case(*_bf16_ref_case(cuda, eye, kind=kind), low=True)
 
 
 @pytest.mark.gpu
 def test_bf16_ref_kernels_sub_voxel_and_gate(cuda):
-    _assert_light_case(*_bf16_ref_case(cuda, EYES[0][0], kind="pushed",
-                                       n_slices=24))
+    for emission, kind in ((True, "pushed"), (True, None), (False, None)):
+        _assert_light_case(*_bf16_ref_case(cuda, EYES[0][0], emission, kind,
+                                           n_slices=24), low=True)
     for kind in (None, "ones"):
         maps, want_maps, got, want = _bf16_ref_case(cuda, EYES[0][0],
                                                     kind=kind, density=500.0)
         assert float(maps[1].min()) < 1e-3
-        _assert_light_case(maps, want_maps, got, want, tol=5e-4)
+        _assert_light_case(maps, want_maps, got, want, tol=5e-4, low=True)
 
 
 @pytest.mark.gpu
@@ -1586,25 +1609,30 @@ def test_cli_animate_on_the_card_writes_render_image_frames(cuda, tmp_path):
 @pytest.mark.gpu
 @pytest.mark.parametrize("eye", [EYES[0][0], EYES[4][0]])
 @pytest.mark.parametrize("n_slab,n_data", [(2, 1), (4, 2), (2, 2)])
-@pytest.mark.parametrize("combine", ["single", "reference"])
+@pytest.mark.parametrize("combine", ["single", "reference", "shadowed"])
 def test_slab_split_matches_the_unsharded_kernels(cuda, eye, n_slab, n_data,
                                                   combine):
     """The sharded sweep's per-rank body on every block (split_sweep: K1/K2
-    or K4/K5 on local blocks, n_slab * n_data launches of each), against
-    the unsharded kernels: maps at 2e-4 (gate off), the grid gradient on
-    seeded cotangents at rtol 1e-3, atol 1e-3 * max (the JAX sharded
-    tests' tolerances)."""
+    or K4/K5 on local blocks, n_slab * n_data launches of each, no general
+    sweep), against the unsharded kernels: maps at 2e-4 (gate off), the
+    gradients of the grid (and of the light volume, shadowed) on seeded
+    cotangents at rtol 1e-3, atol 1e-3 * max (the JAX sharded tests'
+    tolerances); with the early stop on, the frame within 20 eps."""
+    from volumetricrenderer_tpu_torch.ops import sweep as ops_sweep
     from volumetricrenderer_tpu_torch.parallel.sweep_sharded import \
         split_sweep
     cfg = RenderConfig(emission=True, quadrature="sliced",
                        early_stop_transmittance=-1.0)
     rng = np.random.default_rng(1)
-    scroll = None
-    if combine == "single":
+    scroll = lvol = None
+    if combine != "reference":
         grid = torch.tensor(rng.uniform(0.2, 1.0, (16, 16, 16)),
                             dtype=torch.float32, device=cuda)
         medium, mods = MediumConfig(combine="single", density=8.0), \
             (sweep_fwd, sweep_bwd)
+        if combine == "shadowed":
+            lvol = light_transmittance_volume(
+                grid, LightConfig(shadow_steps=16), cfg, medium)
     else:
         grid = torch.tensor(rng.uniform(0.1, 1.0, (16, 16, 16, 4)),
                             dtype=torch.float32, device=cuda)
@@ -1619,49 +1647,71 @@ def test_slab_split_matches_the_unsharded_kernels(cuda, eye, n_slab, n_data,
 
     def run(split):
         g = grid.clone().requires_grad_()
+        lv = None if lvol is None else lvol.clone().requires_grad_()
+        lperm = None if lv is None else lv.permute(plan.perm)
         perm = plan.perm + ((3,) if g.dim() == 4 else ())
-        before = [m.launches for m in mods]
+        before = [m.launches for m in mods] + [ops_sweep.general_calls]
         if split:
-            maps = split_sweep(g, plan, cfg, medium, n_slab, n_data, scroll)
-        elif combine == "single":
-            maps = sweep_fwd.sweep_base(g.permute(perm), plan, cfg, medium)
+            maps = split_sweep(g, plan, cfg, medium, n_slab, n_data, scroll,
+                               lv)
+        elif g.dim() == 3:
+            maps = sweep_fwd.sweep_base(g.permute(perm), plan, cfg, medium,
+                                        lperm=lperm)
         else:
             maps = sweep_ref_fwd.sweep_base_ref(g.permute(perm), plan, cfg,
                                                 medium, scroll=scroll)
         sum((m * c).sum() for m, c in zip(maps[:3], cts)).backward()
         torch.cuda.synchronize()
-        return maps, g.grad, [m.launches - b for m, b in zip(mods, before)]
+        after = [m.launches for m in mods] + [ops_sweep.general_calls]
+        return maps, (g.grad, None if lv is None else lv.grad), \
+            [a - b for a, b in zip(after, before)]
 
-    got, dg, launches = run(True)
-    want, dg_want, _ = run(False)
-    assert launches == [n_slab * n_data] * 2
+    got, grads, launches = run(True)
+    want, grads_want, _ = run(False)
+    assert launches == [n_slab * n_data] * 2 + [0]
     for g, w, n in zip(got, want, NAMES):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4, msg=n)
-    scale = float(dg_want.abs().max())
-    torch.testing.assert_close(dg, dg_want, rtol=1e-3, atol=1e-3 * scale)
+    for dg, dg_want in zip(grads, grads_want):
+        if dg_want is not None:
+            scale = float(dg_want.abs().max())
+            torch.testing.assert_close(dg, dg_want, rtol=1e-3,
+                                       atol=1e-3 * scale)
+    if combine == "single":  # the preset's gate
+        from volumetricrenderer_tpu_torch.ops.sweep import finish_image
+        gate = RenderConfig(emission=True, quadrature="sliced")
+        with torch.no_grad():
+            gated = finish_image(split_sweep(grid, plan, gate, medium, n_slab,
+                                             n_data), plan, gate, medium)
+            whole = render_image(grid, None, gate, medium, plan=plan)
+        assert float((gated - whole).abs().max()) < 20 * 1e-3
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
 
 
 @pytest.mark.gpu
 def test_one_rank_nccl_mesh_equals_render_image(cuda):
     """initialize_distributed starts a one-process NCCL group (tcp on
     localhost); sweep_render_sharded on its 1x1 mesh equals
-    render_image on the same plan bit for bit, with one K1 launch; its
-    train step launches K1 and K2 once a step."""
+    render_image on the same plan bit for bit, with one K1 launch, at
+    voxel-plane and sub-voxel slices; its train step launches K1 and K2
+    once a step and runs no index_put_ backward."""
     import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
 
-    from volumetricrenderer_tpu_torch import cloud_volume, render_image
+    from volumetricrenderer_tpu_torch import cloud_volume
     from volumetricrenderer_tpu_torch.parallel.bootstrap import \
         initialize_distributed
     from volumetricrenderer_tpu_torch.parallel.mesh import make_mesh
     from volumetricrenderer_tpu_torch.parallel.sweep_sharded import (
         make_sweep_train_step, sweep_render_sharded)
-    import socket
-
     from volumetricrenderer_tpu_torch.parallel import bootstrap
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    assert initialize_distributed(coordinator_address=f"localhost:{port}",
+    assert initialize_distributed(coordinator_address=f"localhost:"
+                                  f"{_free_port()}",
                                   num_processes=1, process_id=0, retries=1)
     try:
         assert dist.get_backend() == "nccl"
@@ -1671,19 +1721,29 @@ def test_one_rank_nccl_mesh_equals_render_image(cuda):
         cfg = RenderConfig(emission=True, quadrature="sliced")
         medium = MediumConfig(combine="single", density=8.0)
         plan = plan_for(cam, grid.shape, cfg, device=cuda)
-        before = sweep_fwd.launches
-        img = sweep_render_sharded(grid, plan, mesh, cfg, medium)
-        assert sweep_fwd.launches == before + 1
-        assert torch.equal(img, render_image(grid, cam, cfg, medium,
-                                             plan=plan))
+        for p in (plan_for(cam, grid.shape, cfg, n_slices=16, device=cuda),
+                  plan):  # sub-voxel slices, then the voxel planes
+            before = sweep_fwd.launches
+            img = sweep_render_sharded(grid, p, mesh, cfg, medium)
+            assert sweep_fwd.launches == before + 1
+            assert torch.equal(img, render_image(grid, cam, cfg, medium,
+                                                 plan=p))
         g = torch.full_like(grid, 0.1)
         step, _ = make_sweep_train_step(mesh, plan, cfg, medium, g,
                                         learning_rate=5e-2)
         before = (sweep_fwd.launches, sweep_bwd.launches)
-        losses = [step(img[..., :3]) for _ in range(3)]
+        losses = [step(img[..., :3]) for _ in range(2)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            losses.append(step(img[..., :3]))
+            torch.cuda.synchronize()
         assert (sweep_fwd.launches, sweep_bwd.launches) == \
             (before[0] + 3, before[1] + 3)
         assert losses[-1] < losses[0]
+        assert not [e.name for e in prof.events()  # the warp's own splat
+                    if "indexing_backward_kernel" in e.name
+                    or "IndexBackward" in e.name
+                    or "IndexPutBackward" in e.name]
     finally:
         dist.destroy_process_group()
         bootstrap._initialized = False
@@ -2099,3 +2159,669 @@ def test_light_sweep_kernel_paths(cuda, shape, shift_a, shift_b, sign):
     torch.testing.assert_close(L, want, rtol=1e-5, atol=1e-6)
     scale = float(gwant.abs().max())
     torch.testing.assert_close(g, gwant, rtol=BWD_TOL, atol=BWD_TOL * scale)
+
+
+# --- the main paths at full width -----------------------------------------
+#
+# Launches counted from 0 around each path; frames against the plain
+# version (maps and image), steps' gradients against the plain backward on
+# the launch's inputs. In bfloat16 a frame is also held to its float32 frame
+# as tests/test_bf16.py holds the JAX package's (max below 3e-2, mean below
+# 3e-3), and kernel to plain version within 1e-6 (maps) and 1e-5 of the
+# largest gradient.
+
+FULL = dict(width=1920, height=1080)
+CONFIG4_LIGHT = LightConfig(shadow_steps=32)
+BF16_MAP_LIMIT, BF16_GRAD_LIMIT = 1e-6, 1e-5
+
+
+@pytest.fixture(scope="module")
+def full_width():
+    """The flagship cloud (cloud_volume(256, 7)) and the reference preset's
+    grid (build_volume(VolumeConfig()), 128^3 x 4), built once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the sweep kernel has no CPU mode")
+    from volumetricrenderer_tpu_torch import VolumeConfig, build_volume, \
+        cloud_volume
+    dev = torch.device("cuda", 0)
+    return {"single": cloud_volume(256, 7, device=dev),
+            "reference": build_volume(VolumeConfig(), device=dev)}
+
+
+def _main_path(full_width, path):
+    """(grid, medium, light, views): each view (camera, cfg, scroll) a
+    frame; a step takes the first view of each emission mode."""
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    single = MediumConfig(combine="single", density=8.0)
+    if path == "flagship":
+        cams = [make_camera(CameraConfig(**FULL))] + [
+            orbit_camera(t, **FULL) for t in (0.0, 0.5 * np.pi, np.pi)]
+        return full_width["single"], single, None, [(c, cfg, None)
+                                                    for c in cams]
+    if path == "config4":  # eight orbit cameras around the full circle
+        return full_width["single"], single, CONFIG4_LIGHT, [
+            (orbit_camera(2.0 * np.pi * i / 8, **FULL), cfg, None)
+            for i in range(8)]
+    grid, cam = full_width["reference"], make_camera(CameraConfig())
+    seeded = [_seeded_scroll(s, grid.device) for s in (5, 6)]
+    if path == "reference":  # a step takes the seeded scroll, first
+        scrolls = seeded[:1] + [reference_media_scroll(t, device=grid.device)
+                                for t in (0.0, 1.7)] + seeded[1:]
+        return grid, MediumConfig(), None, [
+            (cam, RenderConfig(emission=em, quadrature="sliced"), sc)
+            for em in (True, False) for sc in scrolls]
+    return grid, MediumConfig(density=8.0), CONFIG4_LIGHT, [
+        (cam, cfg, sc) for sc in seeded]
+
+
+def _launches():
+    from volumetricrenderer_tpu_torch.kernels import light_sweep
+    return (sweep_fwd.launches, sweep_bwd.launches, sweep_ref_fwd.launches,
+            sweep_ref_bwd.launches, light_sweep.launches["forward"],
+            light_sweep.launches["adjoint"])
+
+
+def _since(before):
+    """(K1, K2, K4, K5, light sweep forward, adjoint) launches since."""
+    return tuple(a - b for a, b in zip(_launches(), before))
+
+
+def _expect(grid, fwd, bwd, light_fwd=0, light_adj=0):
+    k = (fwd, bwd, 0, 0) if grid.dim() == 3 else (0, 0, fwd, bwd)
+    return k + (light_fwd, light_adj)
+
+
+def _maps_both(grid, plan, cfg, medium, light, scroll, lvol, low):
+    """The forward kernel's base maps and its plain version's on the same
+    inputs, in float32 or (low) on bfloat16 stacks: comparison launches,
+    outside every counted path."""
+    lc = light if lvol is not None else None
+    if grid.dim() == 4:
+        L, *args = sweep_ref_fwd.sweep_ref_inputs(
+            grid.permute(plan.perm + (3,)), plan, cfg, medium, lc, scroll)
+        ls = None if lvol is None else sweep_ref_fwd.sweep_ref_light_slabs(
+            lvol.permute(plan.perm), plan, cfg).contiguous()
+        L = L.contiguous()
+        L, ls = (_low(L), _low(ls)) if low else (L, ls)
+        got = sweep_ref_fwd.launch_kernel(L, *args, cfg.emission, ls)
+        want = sweep_ref_fwd.sweep_ref_fwd_reference(
+            L, *args, emission=cfg.emission, light=ls)
+    else:
+        (st, *args), flip = sweep_fwd.sweep_inputs(
+            grid.permute(plan.perm), plan, cfg, medium, lc)
+        ls = None if lvol is None else sweep_fwd.sweep_light_stack(
+            lvol.permute(plan.perm), plan, cfg).contiguous()
+        st = st.contiguous()
+        st, ls = (_low(st), _low(ls)) if low else (st, ls)
+        got = sweep_fwd.launch_kernel(st, *args, cfg.emission, flip,
+                                      cfg.address_mode == "wrap", ls)
+        want = sweep_fwd.sweep_fwd_reference(
+            st, *args, emission=cfg.emission, flip=flip,
+            address_mode=cfg.address_mode, light=ls)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _assert_held(img, grid, plan, cfg, medium, light, scroll, lvol, low):
+    """A frame's base maps and image against the plain version's."""
+    from volumetricrenderer_tpu_torch.ops.sweep import finish_image
+    got, want = _maps_both(grid, plan, cfg, medium, light, scroll, lvol, low)
+    with torch.no_grad():
+        want_img = finish_image(want, plan, cfg, medium, light)
+    for g, w, name in zip(list(got) + [img], list(want) + [want_img],
+                          NAMES + ("img",)):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=name)
+        assert not low or float((g - w).abs().max()) <= BF16_MAP_LIMIT, name
+
+
+def _assert_bf16_frame(img, f32):
+    d = (img - f32).abs()
+    assert 0.0 < float(d.max()) < 3e-2 and float(d.mean()) < 3e-3
+
+
+def _mode(cfg, low):
+    return dataclasses.replace(cfg, dtype="bfloat16") if low else cfg
+
+
+def _serve_path(grid, medium, light, views, low):
+    plans = [plan_for(c, grid.shape[:3], cfg, device=grid.device)
+             for c, cfg, _ in views]
+    sweep_ref_fwd.tiles.reset()
+    before = _launches()
+    frames = [render_image(grid, cam, _mode(cfg, low), medium, light,
+                           scroll=sc, plan=plan)
+              for (cam, cfg, sc), plan in zip(views, plans)]
+    torch.cuda.synchronize()
+    n = len(frames)
+    assert _since(before) == _expect(grid, n, 0, n if light else 0)
+    if grid.dim() == 4:  # the stage sized from the plan holds every window
+        assert sweep_ref_fwd.tiles.read()[1] == 0
+    held = {}  # config 4: one frame per sweep sign
+    for k, plan in enumerate(plans):
+        held.setdefault(plan.sign if grid.dim() == 3 and light else k, k)
+    if grid.dim() == 3 and light is not None:  # the orbit's sectors
+        sectors = {(p.axis, p.sign) for p in plans}
+        assert {(0, -1), (0, 1), (1, -1), (1, 1)} <= sectors
+        assert 2 in {a for a, _ in sectors}
+    for k, ((cam, cfg, sc), plan, img) in enumerate(zip(views, plans,
+                                                        frames)):
+        assert img.shape == (cam.height, cam.width, 4)
+        assert img.dtype == torch.float32 and bool(torch.isfinite(img).all())
+        alpha = img[..., 3]
+        assert 0.0 <= float(alpha.min()) and float(alpha.max()) <= 1.0
+        assert float(alpha.max()) > 0.0
+        f32, lvol = render_image(grid, cam, cfg, medium, scroll=sc,
+                                 plan=plan), None
+        if light is not None:
+            lvol = light_transmittance_volume(grid, light, cfg, medium,
+                                              scroll=sc)
+            assert lvol.shape == grid.shape[:3]
+            assert float(lvol.max()) == 1.0 and float(lvol.min()) >= 0.0
+            lit, f32 = f32, render_image(grid, cam, cfg, medium, light,
+                                         scroll=sc, plan=plan,
+                                         light_volume=lvol)
+            if not low:  # shadows keep alpha and darken rgb, somewhere
+                assert float((alpha - lit[..., 3]).abs().max()) <= 1e-6
+                assert bool((img[..., :3] <= lit[..., :3] + 1e-6).all())
+                assert float((lit[..., :3] - img[..., :3]).max()) > 1e-3
+        if low:
+            _assert_bf16_frame(img, f32)
+        if k in held.values():
+            _assert_held(img, grid, plan, cfg, medium, light, sc, lvol, low)
+    if grid.dim() == 4 and light is None:  # a seeded scroll moves the frame
+        assert float((frames[0] - frames[1]).abs().max()) > 1e-3
+
+
+def _step_path(grid, medium, light, views, low, seen):
+    """One forward+backward step (sum of rgb^2 to the float32 grid) per
+    emission mode of the views; `seen` records the backward's launches."""
+    firsts = {}
+    for view in views:
+        firsts.setdefault(view[1].emission, view)
+    lit = 0 if light is None else 1
+    for cam, cfg, sc in firsts.values():
+        plan = plan_for(cam, grid.shape[:3], cfg, device=grid.device)
+        g = grid.clone().requires_grad_()
+        sweep_ref_fwd.tiles.reset()
+        seen.clear()
+        before = _launches()
+        img = render_image(g, cam, _mode(cfg, low), medium, light, scroll=sc,
+                           plan=plan)
+        loss = (img[..., :3] ** 2).sum()
+        names = _autograd_names(loss)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert _since(before) == _expect(grid, 1, 1, lit, lit)
+        assert len(seen) == 1 and "_WarpBilinearBackward" in names
+        assert not [n for n in names
+                    if "IndexBackward" in n or "IndexPutBackward" in n], names
+        if grid.dim() == 4:
+            assert sweep_ref_fwd.tiles.read()[1] == 0
+        assert g.grad.dtype == torch.float32
+        assert bool(torch.isfinite(g.grad).all())
+        per_channel = g.grad.reshape(-1, grid.shape[-1] if grid.dim() == 4
+                                     else 1).abs().amax(0)
+        assert bool((per_channel > 0.0).all())
+        a, kw, got = seen[0]
+        assert a[0].dtype == (BF16 if low else torch.float32)
+        if grid.dim() == 3:
+            want = sweep_bwd.sweep_bwd_reference(
+                *a[:11], emission=a[11], flip=a[12],
+                address_mode=cfg.address_mode, **kw)
+        else:
+            want = sweep_ref_bwd.sweep_ref_bwd_reference(*a, **kw)
+        if kw.get("light") is None:
+            got, want = (got,), (want,)
+        for gk, wk in zip(got, want):  # dG or dL, and the light's
+            assert gk.dtype == torch.float32
+            _assert_grad_close(gk, wk)
+            assert not low or float((gk - wk).abs().max()) \
+                <= BF16_GRAD_LIMIT * float(wk.abs().max())
+        if grid.dim() == 3 and not low and light is None:
+            assert torch.equal(g.grad.permute(plan.perm), got[0])
+        if grid.dim() == 3 and not low and light is not None:
+            g0 = grid.clone().requires_grad_()
+            (render_image(g0, cam, cfg, medium, plan=plan)[..., :3] ** 2) \
+                .sum().backward()
+            scale = float(g0.grad.abs().max())
+            assert float((g.grad - g0.grad).abs().max()) > 1e-3 * scale
+
+
+def _autograd_names(t):
+    """The names of the autograd nodes behind t."""
+    seen, todo = set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is not None and fn not in seen:
+            seen.add(fn)
+            todo += [f for f, _ in fn.next_functions]
+    return {fn.name() for fn in seen}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["serve", "step"])
+@pytest.mark.parametrize("path", ["flagship", "reference", "config4",
+                                  "reference-shadowed"])
+def test_main_path_at_full_width(full_width, monkeypatch, path, kind,
+                                 dtype):
+    """The flagship (256^3 at 1920x1080: the default camera and three
+    orbit cameras), the reference preset (128^3 x 4 at 1280x720, both
+    emission modes, its scroll at t = 0 and 1.7 and two seeded scrolls),
+    config 4 (the flagship cloud, eight orbit cameras, the light volume
+    rebuilt every frame) and the reference medium with shadows at density
+    8 (two seeded scrolls): launches counted from 0, the frames against
+    the plain version, the steps' gradients against the plain backward,
+    no index_put_ backward node in a step's graph."""
+    grid, medium, light, views = _main_path(full_width, path)
+    low = dtype == "bfloat16"
+    if kind == "serve":
+        return _serve_path(grid, medium, light, views, low)
+    bwd_mod, seen = sweep_bwd if grid.dim() == 3 else sweep_ref_bwd, []
+    launch = bwd_mod.launch_kernel
+
+    def spy(*a, **kw):
+        out = launch(*a, **kw)
+        seen.append((a, {k: v for k, v in kw.items() if k != "stage"}, out))
+        return out
+    monkeypatch.setattr(bwd_mod, "launch_kernel", spy)
+    _step_path(grid, medium, light, views, low, seen)
+
+
+# --- the gradient checks against the per-ray oracle and autograd ----------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["reference", "single shadowed",
+                                  "reference shadowed", "bfloat16"])
+def test_gradient_matches_the_per_ray_oracle(cuda, case):
+    """bench.validate_gradients' check for the other media and modes: the
+    kernels' grid gradient of sum(rgb^2) on an identity-warp plan against
+    the per-ray oracle's, rtol 1e-3, atol 1e-3 * max (shadows: the light
+    volume built from the grid in the loss); in bfloat16 against the float32
+    oracle on the rounded grid, within 3e-3 of the largest (2^-9 a weight)."""
+    from volumetricrenderer_tpu_torch import cloud_volume
+    from volumetricrenderer_tpu_torch.kernels.build import bf16_round
+    from volumetricrenderer_tpu_torch.ops.integrate import render_rays_sliced
+    from volumetricrenderer_tpu_torch.ops.sweep import base_rays, sweep_render
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    light = CONFIG4_LIGHT if case.endswith("shadowed") else None
+    scroll = None
+    if case.startswith("reference"):
+        grid = torch.tensor(np.random.default_rng(2).uniform(
+            0.1, 1.0, (24, 24, 24, 4)), dtype=torch.float32, device=cuda)
+        medium, scroll = MediumConfig(density=8.0), _seeded_scroll(5, cuda)
+    else:
+        grid = cloud_volume(24, 7, device=cuda)
+        medium = MediumConfig(combine="single", density=8.0)
+    if case == "bfloat16":
+        grid = bf16_round(grid)
+    plan = plan_for(make_camera(CameraConfig(width=48, height=32)),
+                    grid.shape[:3], cfg, device=cuda)
+    o, d = base_rays(plan)
+
+    def lvol_of(g):
+        return None if light is None else light_transmittance_volume(
+            g, light, cfg, medium, scroll=scroll)
+    g1, g2 = grid.clone().requires_grad_(), grid.clone().requires_grad_()
+    (sweep_render(g1, dataclasses.replace(plan, identity_warp=True),
+                  _mode(cfg, case == "bfloat16"), medium, light,
+                  scroll=scroll, light_volume=lvol_of(g1))[..., :3] ** 2) \
+        .sum().backward()
+    (render_rays_sliced(g2, o, d, plan, cfg, medium, light, scroll=scroll,
+                        light_volume=lvol_of(g2))[..., :3] ** 2).sum() \
+        .backward()
+    assert g1.grad.dtype == torch.float32
+    if case == "bfloat16":
+        scale = float(g2.grad.abs().max())
+        assert 0.0 < float((g1.grad - g2.grad).abs().max()) <= 3e-3 * scale
+    else:
+        _assert_grad_close(g1.grad, g2.grad, 1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", [None, "pushed"], ids=["unlit", "lit"])
+@pytest.mark.parametrize("combine", ["single", "reference"])
+@pytest.mark.parametrize("eye", [e for e, _, _ in EYES])
+def test_plain_backward_matches_autograd_on_the_card(cuda, eye, combine,
+                                                     kind, dtype):
+    """The plain backward, the kernels' yardstick, against autograd of the
+    plain forward on the card, without and with a light volume stretched
+    past [0, 1], in float32 and bfloat16 (autograd on float32 copies of the
+    bfloat16 stacks, _low=True, so that it does not round the gradient)."""
+    scroll = None
+    if combine == "single":
+        grid, cfg, plan, medium = _setup(cuda, eye, True)
+        (stack, *args), flip = sweep_fwd.sweep_inputs(
+            grid.permute(plan.perm), plan, cfg, medium,
+            LIGHT if kind else None)
+        kw = dict(emission=True, flip=flip, address_mode="mirror")
+        fwd, bwd, slabs = sweep_fwd.sweep_fwd_reference, \
+            sweep_bwd.sweep_bwd_reference, sweep_fwd.sweep_light_stack
+    else:
+        grid, cfg, plan, _, _ = _ref_setup(cuda, eye, True)
+        medium = MediumConfig(combine="reference", density=8.0)
+        scroll = _scroll("random", cuda)
+        stack, *args = sweep_ref_fwd.sweep_ref_inputs(
+            grid.permute(plan.perm + (3,)), plan, cfg, medium,
+            LIGHT if kind else None, scroll)
+        kw = dict(emission=True)
+        fwd, bwd, slabs = sweep_ref_fwd.sweep_ref_fwd_reference, \
+            sweep_ref_bwd.sweep_ref_bwd_reference, \
+            sweep_ref_fwd.sweep_ref_light_slabs
+    light = None if kind is None else slabs(_light_volume(
+        grid, cfg, medium, kind, scroll).permute(plan.perm), plan,
+        cfg).contiguous()
+    stack, low = stack.contiguous(), dtype == "bfloat16"
+    if low:
+        stack, light = _low(stack), _low(light)
+    rng = np.random.default_rng(9)
+    cts = [torch.tensor(rng.normal(size=plan.base_shape), dtype=torch.float32,
+                        device=cuda) for _ in range(3)]
+    st = stack.to(torch.float32).requires_grad_()
+    lt = None if light is None else light.to(torch.float32).requires_grad_()
+    maps = fwd(st, *args, light=lt, **kw, **({"_low": True} if low else {}))
+    auto = torch.autograd.grad(sum((m * c).sum() for m, c in zip(maps[:3],
+                                                                cts)),
+                               (st,) if lt is None else (st, lt))
+    own = bwd(stack, *args, *cts, maps[1].detach(), maps[2].detach(),
+              light=light, **kw)
+    for g, w in zip((own,) if light is None else own, auto):
+        _assert_grad_close(g, w)
+
+
+# --- the preset front end on the card -------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["config1", "config2", "config3", "config4",
+                                  "reference"])
+def test_cli_render_preset_on_the_card(cuda, name, tmp_path):
+    """`cli render --preset NAME` at the preset's size: config1-4 launch K1
+    once, `reference` (the per-ray march) nothing; the PNG and
+    render_preset's frame are render_image's on the same grid; a sliced
+    preset's maps and frame are the plain version's at its own shapes;
+    config2 also in bfloat16 through render_preset, one K1 launch."""
+    from volumetricrenderer_tpu_torch import PRESETS, build_volume, cli, \
+        render_preset
+    from volumetricrenderer_tpu_torch.models import scene as scene_mod
+    from volumetricrenderer_tpu_torch.utils.image import encode_png
+    p, out = PRESETS[name], tmp_path / f"{name}.png"
+    sliced = p.render.quadrature == "sliced"
+    before = _launches()
+    assert cli.main(["render", "--preset", name, "--out", str(out)]) == 0
+    torch.cuda.synchronize()
+    assert _since(before)[:4] == ((1, 0, 0, 0) if sliced else (0, 0, 0, 0))
+    cam = make_camera(p.camera)
+    with torch.no_grad():
+        if p.scene:
+            grid, scroll = scene_mod.bake_scene(
+                getattr(scene_mod, p.scene)(p.volume.size, device=cuda),
+                p.volume.size, p.render), None
+        else:
+            grid = build_volume(p.volume, device=cuda)
+            scroll = reference_media_scroll(0.0, n_channels=grid.shape[-1],
+                                            device=cuda)
+        want = render_image(grid, cam, p.render, p.medium, p.light,
+                            scroll=scroll)
+        again = render_preset(p, grid=None if p.scene else grid,
+                              device=cuda)
+    assert want.shape == (p.camera.height, p.camera.width, 4)
+    assert bool(torch.isfinite(want).all()) and float(want[..., 3].max()) > 0
+    assert torch.equal(again, want)
+    assert out.read_bytes() == encode_png(want)
+    if not sliced:
+        return
+    g3 = grid[..., 0] if grid.dim() == 4 else grid
+    plan = plan_for(cam, g3.shape, p.render, device=cuda)
+    with torch.no_grad():
+        lvol = light_transmittance_volume(g3, p.light, p.render, p.medium) \
+            if p.render.emission and p.light.shadow_steps > 0 else None
+        _assert_held(want, g3, plan, p.render, p.medium, p.light, None, lvol,
+                     False)
+        if name == "config2":
+            before = _launches()
+            img = render_preset(dataclasses.replace(
+                p, render=_mode(p.render, True)), grid=grid, device=cuda)
+            torch.cuda.synchronize()
+            assert _since(before)[:4] == (1, 0, 0, 0)
+            _assert_bf16_frame(img, want)
+            _assert_held(img, g3, plan, p.render, p.medium, p.light, None,
+                         lvol, True)
+
+
+@pytest.mark.gpu
+def test_a_second_process_loads_the_built_libraries(cuda):
+    """A process started after the libraries were built loads them (their
+    names carry the sources' key) and builds none."""
+    import subprocess
+    import sys
+    from volumetricrenderer_tpu_torch.kernels import light_sweep
+    mods = (sweep_fwd, sweep_bwd, sweep_ref_fwd, sweep_ref_bwd, light_sweep)
+    paths = [m.build_kernel()["path"] for m in mods]
+    code = ("from volumetricrenderer_tpu_torch.kernels import light_sweep, "
+            "sweep_bwd, sweep_fwd, sweep_ref_bwd, sweep_ref_fwd\n"
+            "for m in (sweep_fwd, sweep_bwd, sweep_ref_fwd, sweep_ref_bwd, "
+            "light_sweep):\n    i = m.build_kernel()\n"
+            "    print(i['path'], i['seconds'])")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    assert [line.split() for line in out.splitlines()] == \
+        [[p, "0.0"] for p in paths]
+
+
+@pytest.mark.gpu
+def test_cli_info_on_the_card(cuda, capsys):
+    from volumetricrenderer_tpu_torch import cli
+    assert cli.main(["info"]) == 0
+    assert torch.cuda.get_device_name(0) in capsys.readouterr().out
+
+
+# --- two ranks sharing the one card ---------------------------------------
+#
+# NCCL refuses two ranks on one device; on that refusal alone the ranks run
+# on gloo (CUDA maps exchanged through host copies, parallel/mesh.py).
+
+SHARED_CARD_RANKS, SHARED_CARD_TIMEOUT_S = 2, 240
+NCCL_REFUSAL = "Duplicate GPU detected"
+
+
+def _shared_card_rank(rank, world, backend, init_file, out_file):
+    """One rank of a (1, world) mesh on cuda:0: config 5's frame (512^3,
+    1080p) and its gradient to the rank's slab block; rank 0 holds them to
+    the unsharded kernels' (early stop off: 2e-4, 1e-3 of the largest)."""
+    import torch.distributed as dist
+
+    from volumetricrenderer_tpu_torch import build_volume, get_preset
+    from volumetricrenderer_tpu_torch.parallel.mesh import make_mesh
+    from volumetricrenderer_tpu_torch.parallel.sweep_sharded import \
+        sweep_render_sharded
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        if backend == "nccl":
+            dist.all_reduce(torch.ones(4, device=dev))
+            torch.cuda.synchronize()
+        mesh = make_mesh(1, world, device="cuda" if backend == "nccl"
+                         else "cpu")
+        p = get_preset("config5")
+        cfg = dataclasses.replace(p.render, early_stop_transmittance=-1.0)
+        grid = build_volume(p.volume, device=dev)[..., 0]
+        torch.cuda.empty_cache()
+        cam = make_camera(p.camera)
+        plan = plan_for(cam, grid.shape, cfg, device=dev)
+        depth = grid.shape[0] // world
+        block = grid[rank * depth:(rank + 1) * depth].clone() \
+            .requires_grad_()
+        before = (sweep_fwd.launches, sweep_bwd.launches)
+        img = sweep_render_sharded(block, plan, mesh, cfg, p.medium)
+        (img[..., :3] ** 2).sum().backward()
+        torch.cuda.synchronize()
+        rows = [None] * world
+        dist.all_gather_object(rows, (sweep_fwd.launches - before[0],
+                                      sweep_bwd.launches - before[1]))
+        if rank == 0:
+            g = grid.clone().requires_grad_()
+            want = render_image(g, cam, cfg, p.medium, plan=plan)
+            (want[..., :3] ** 2).sum().backward()
+            scale = float(g.grad.abs().max())
+            res = {"launches": rows, "image_ok": bool(torch.allclose(
+                img.detach(), want.detach(), rtol=2e-4, atol=2e-4)),
+                "grad_ok": scale > 0 and bool(torch.allclose(
+                    block.grad, g.grad[:depth], rtol=1e-3,
+                    atol=1e-3 * scale))}
+            with open(out_file, "w") as f:
+                json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_shared_card(backend, tmp):
+    """(rank 0's result or None, the error text or None)."""
+    import os
+    import time
+
+    import torch.multiprocessing as mp
+    out_file = os.path.join(tmp, f"out-{backend}.json")
+    ctx = mp.start_processes(
+        _shared_card_rank, args=(SHARED_CARD_RANKS, backend,
+                                 os.path.join(tmp, f"init-{backend}"),
+                                 out_file),
+        nprocs=SHARED_CARD_RANKS, join=False, start_method="spawn")
+    deadline = time.perf_counter() + SHARED_CARD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                return None, f"no result after {SHARED_CARD_TIMEOUT_S} s"
+    except Exception as e:  # a rank raised: its traceback is the message
+        return None, str(e)
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+    with open(out_file) as f:
+        return json.load(f), None
+
+
+@pytest.mark.gpu
+def test_two_ranks_share_the_card(cuda, tmp_path):
+    """Two ranks spawned on cuda:0 render config 5's frame and its
+    gradient through the slab-sharded sweep, one K1 and one K2 launch
+    each, equal to the unsharded kernels'."""
+    torch.cuda.empty_cache()
+    res, err = _run_shared_card("nccl", str(tmp_path))
+    if res is None:
+        assert NCCL_REFUSAL in err, err
+        res, err = _run_shared_card("gloo", str(tmp_path))
+        assert res is not None, err
+    assert [tuple(r) for r in res["launches"]] == \
+        [(1, 1)] * SHARED_CARD_RANKS
+    assert res["image_ok"] and res["grad_ok"], res
+
+
+# --- the runners on the card ----------------------------------------------
+
+# Each runner's main() at its CPU test's size (tests/test_torch_tools.py,
+# tests/test_torch_runners.py): (environment, arguments). The sharded ones
+# on one rank: multichip spawns it (NCCL), sharded_step (without its 512
+# phase) and scaling_rehearsal run it in this process, as under torchrun.
+IN_PLACE, SPAWNED = ("sharded_step", "scaling_rehearsal"), ("multichip",)
+RUNNER_RUNS = {
+    "fit_config3": ({"VOLT_F_SIZE": "12", "VOLT_F_IMG": "24",
+                     "VOLT_F_STEPS": "3"}, []),
+    "anim_config4": ({"VOLT_A_FRAMES": "3", "VOLT_A_VOLUME": "16",
+                      "VOLT_A_WIDTH": "48", "VOLT_A_HEIGHT": "32"}, []),
+    "scale512": ({"VOLT_S_FRAMES": "1", "VOLT_S_SLICES": "16,8",
+                  "VOLT_S_VOLUME": "16", "VOLT_S_WIDTH": "48",
+                  "VOLT_S_HEIGHT": "32"}, []),
+    "serve_local": ({"VOLT_SL_SIZE": "48", "VOLT_SL_K": "4",
+                     "VOLT_SL_ITERS": "1", "VOLT_SL_VOLUME": "16"}, []),
+    "measure_warp": ({"VOLT_W_FRAMES": "2", "VOLT_W_ITERS": "1",
+                      "VOLT_W_VOLUME": "16", "VOLT_W_WIDTH": "48",
+                      "VOLT_W_HEIGHT": "32"}, []),
+    "trace_flagship": ({"V": "16", "W": "48", "H": "32", "K": "2"}, []),
+    "multichip": ({}, ["--ranks", "1"]),
+    "sharded_step": ({"VOLT_SH_VOLUME": "16", "VOLT_SH_WIDTH": "32",
+                      "VOLT_SH_HEIGHT": "32", "VOLT_SH_ITERS": "1",
+                      "VOLT_SH_512": "0"}, ["--ranks", "1"]),
+    "scaling_rehearsal": ({"V": "16", "IMG": "32", "STEPS": "2",
+                           "VOLT_SR_SHAPES": "1x1"}, []),
+    "profile_parts": ({"V": "16", "W": "48", "H": "32", "K": "1",
+                       "I": "1"}, []),
+}
+
+
+def _k(launches):
+    """A line's launches dict as (K1, K2, K4, K5)."""
+    return tuple(launches[k] for k in ("sweep_fwd", "sweep_bwd",
+                                       "sweep_ref_fwd", "sweep_ref_bwd"))
+
+
+# The keys of each runner's line beyond device, power_limit_w, timed_runs,
+# launches and general_sweep_calls.
+RUNNER_KEYS = {
+    "fit_config3": "loss_first loss_last loss_drop_x losses_every_5 losses "
+                   "skipped_steps fit_s ms_per_step host_ms_per_step setup_s",
+    "anim_config4": "frames fps_wall ms_per_frame_wall ms_per_frame "
+                    "mrays_per_s plan_s setup_s warmup_runs",
+    "scale512": "by_slices base_shape ms_per_frame_fwd ms_per_frame_fwd_bwd "
+                "mrays_per_s_fwd_bwd peak_memory_gib warmup_runs",
+    "serve_local": "states iters init_s plan_build_s ms_per_frame_device "
+                   "fps_device_paced ms_per_round_all warmup_runs",
+    "measure_warp": "base_shape moveaxis_only ms_fwd ms_fwd_bwd splat_ms_all "
+                    "splat_ms_footprint pixels footprint_pixels",
+    "trace_flagship": "wall_ms_per_step busy_ms_per_step idle_share top_ops "
+                      "warmup_runs",
+    "multichip": "n_devices mesh loss ok launches_per_rank total_s",
+    "sharded_step": "ms_per_frame host_ms_per_frame launches_per_rank "
+                    "base_fwd_sharded_vs_unsharded full_fwd_sharded_vs_"
+                    "unsharded full_fwdbwd_sharded_vs_unsharded "
+                    "fwd_max_abs_diff train_step_losses train_loss_ratio "
+                    "train_6steps_s launches_per_variant launches_train "
+                    "ranks warmup_runs total_s",
+    "scaling_rehearsal": "volume image base_shape steps_timed shapes "
+                         "launches_per_rank total_s",
+    "profile_parts": "ms_per_frame host_ms_per_frame launches_per_stage "
+                     "base_shape slices warmup_runs total_s",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(RUNNER_RUNS))
+def test_runner_main_on_the_card(cuda, name, monkeypatch, capsys):
+    """Each runner's main() on the card: its line's keys and card; no K4 or
+    K5 (the runners render the single-channel medium); the line's general
+    sweep calls are the counter's; its K1/K2 launches, those of its timed
+    runs, at most the counters' (equal where the line counts the whole run
+    in place; a spawned rank's, above 0, where this process launched
+    none)."""
+    import importlib
+
+    from volumetricrenderer_tpu_torch.ops import sweep as ops_sweep
+    env, argv = RUNNER_RUNS[name]
+    if name in IN_PLACE:
+        env = {**env, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    calls, before = ops_sweep.general_calls, _launches()
+    assert importlib.import_module(
+        f"volumetricrenderer_tpu_torch.tools.{name}").main(argv) == 0
+    torch.cuda.synchronize()
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    keys = ("device power_limit_w timed_runs launches general_sweep_calls "
+            + RUNNER_KEYS[name]).split()
+    assert not [k for k in keys if k not in line]
+    assert line["device"] == torch.cuda.get_device_name(0)
+    assert line["general_sweep_calls"] == ops_sweep.general_calls - calls
+    here, in_line = _since(before)[:4], _k(line["launches"])
+    assert here[2:] == (0, 0) and in_line[2:] == (0, 0)
+    if name in SPAWNED:
+        assert here == (0, 0, 0, 0) and in_line[0] > 0
+    elif name in IN_PLACE:
+        assert here == in_line
+    else:
+        assert all(h >= n for h, n in zip(here, in_line)), (here, in_line)
