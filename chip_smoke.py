@@ -6,10 +6,10 @@ one GPU: the kernel table of PERF.md §6.
 
 1. device: requires a CUDA GPU; prints the card's name and power limit as
    nvidia-smi reports them;
-2. build: compiles the five libraries (kernels/csrc/sweep_fwd.cu K1,
+2. build: compiles the six libraries (kernels/csrc/sweep_fwd.cu K1,
    sweep_bwd.cu K2, sweep_ref_fwd.cu K4, sweep_ref_bwd.cu K5,
-   light_sweep.cu L) and prints nvcc's ptxas report of each: registers per
-   instantiation and spill stores;
+   light_sweep.cu L, adam_clamp.cu A) and prints nvcc's ptxas report of
+   each: registers per instantiation and spill stores;
 3. times each kernel alone with CUDA events (the median of TIMED_RUNS
    launches after WARMUP), beside its plain PyTorch version and the least
    time the card could take for the same work (its bound, below):
@@ -22,17 +22,26 @@ one GPU: the kernel table of PERF.md §6.
      bfloat16, and with a light volume at density 8 in both; K4 and K5
      also at 256^3 x 4 and 1920x1080, float32;
    - L, the light sweep's scan, forward and adjoint at config 4's 256^3;
+   - A, fit_grid's Adam step and clamp (adam_clamp.cu), at 256^3 and 512^3:
+     the wrapper's call, adam_clamp_step, from one seeded state beside the
+     plain version's (torch.optim.Adam's foreach step, then clamp_), each
+     as many calls; bound by bytes, 28 B a voxel
+     (benchmark/optimizer_roofline.py);
 4. holds each kernel's output at those settings to its plain version's on
    the same inputs (the last timed plain call's): base maps at rtol 2e-4,
    atol 2e-5, gradients at rtol 2e-4, atol 2e-4 of their largest (the -m
    gpu suite's tolerances), L's forward bit for bit and its adjoint to
-   light_sweep_adjoint_reference; K4/K5 at 256^3 x 4 have no plain call;
+   light_sweep_adjoint_reference; A's grid and moments after its calls bit
+   for bit to the plain version's after as many; K4/K5 at 256^3 x 4 have
+   no plain call;
 5. counts launches: every timed call must move its kernel's counter by
    one, so a time is a kernel's; and one frame and one training step of
    render_image at each setting above (not 256^3 x 4), every counter
    zeroed first, must launch one forward kernel a frame, one forward and
    one backward a step, and with light one L forward a frame and one
-   forward and one adjoint a step: the JSON's "launches" are those passes'.
+   forward and one adjoint a step; and one fit_grid step at the flagship
+   must launch K1, K2 and A once each: the JSON's "launches" are those
+   passes'.
 
 The wider checks, at small shapes and along every path, are the -m gpu
 suite's, tests/test_torch_gpu.py; this script exits at its first fail().
@@ -65,8 +74,10 @@ from volumetricrenderer_tpu_torch import (CameraConfig, LightConfig,
                                           light_transmittance_volume,
                                           make_camera, orbit_camera, plan_for,
                                           render_image)
-from volumetricrenderer_tpu_torch.kernels import (light_sweep, sweep_bwd,
-                                                  sweep_fwd, sweep_ref_bwd,
+from volumetricrenderer_tpu_torch.fit import fit_grid
+from volumetricrenderer_tpu_torch.kernels import (adam_clamp, light_sweep,
+                                                  sweep_bwd, sweep_fwd,
+                                                  sweep_ref_bwd,
                                                   sweep_ref_fwd)
 from volumetricrenderer_tpu_torch.ops.lighting import light_sweep_geometry
 
@@ -193,10 +204,26 @@ def path_launches(label, grid, cam, cfg, medium, light=None, scroll=None):
     return got
 
 
+def fit_step_launches(grid, cam, cfg, medium):
+    """The launches of one fit_grid step from `grid` against a zero target,
+    every counter zeroed first: (K1, K2, A). Fails unless each is one."""
+    zero_counts()
+    adam_clamp.launches = 0
+    target = torch.zeros((cam.height, cam.width, 3), device=grid.device)
+    fit_grid(target, cam, cfg, medium, init_grid=grid, steps=1)
+    torch.cuda.synchronize()
+    got = (sweep_fwd.launches, sweep_bwd.launches, adam_clamp.launches)
+    log(f"launches, one fit step at the flagship (K1, K2, A): {got}")
+    if got != (1, 1, 1):
+        fail(f"a fit step launched {got}, not (1, 1, 1)")
+    return got
+
+
 def build_all():
-    """Build the five libraries at once, one nvcc each: {name: info}."""
+    """Build the six libraries at once, one nvcc each: {name: info}."""
     mods = {name: mod for name, (mod, _, _) in KERNELS.items()}
     mods["light_sweep"] = light_sweep
+    mods["adam_clamp"] = adam_clamp
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         jobs = {name: pool.submit(mod.build_kernel)
                 for name, mod in mods.items()}
@@ -386,6 +413,38 @@ def light_sweep_timings(grid, light, cfg, medium):
         "bound_ms_adjoint": 3 * sigma.numel() * 4 / PEAK_BYTES * 1e3}
 
 
+def adam_timings(size, dev):
+    """A at size^3: adam_clamp_step (the kernel) and adam_clamp_reference
+    (the plain version) timed from one seeded state (a uniform grid, a
+    gradient over several decades), each WARMUP + TIMED_RUNS steps on its
+    own copy; after them grid and moments must agree bit for bit. Bound by
+    bytes: 28 B a voxel."""
+    shape = (size,) * 3
+    gen = torch.Generator(device=dev).manual_seed(size)
+    grid0 = torch.rand(shape, generator=gen, device=dev)
+    grad = torch.randn(shape, generator=gen, device=dev) * torch.exp(
+        3.0 * torch.randn(shape, generator=gen, device=dev) - 4.0)
+    runs = []
+    for step in (adam_clamp.adam_clamp_step, adam_clamp.adam_clamp_reference):
+        p = grid0.clone().requires_grad_()
+        p.grad = grad
+        opt = torch.optim.Adam([p], lr=5e-2)
+        count = (lambda: adam_clamp.launches) \
+            if step is adam_clamp.adam_clamp_step else None
+        ms, _ = cuda_ms(lambda: step(opt, p, 0.0, 1.0), count)
+        runs.append((ms, p.detach(), opt.state[p]))
+    (ms, got, st), (plain_ms, want, st_want) = runs
+    for a, b, what in ((got, want, "grid"),
+                       (st["exp_avg"], st_want["exp_avg"], "exp_avg"),
+                       (st["exp_avg_sq"], st_want["exp_avg_sq"],
+                        "exp_avg_sq")):
+        if not torch.equal(a, b):
+            fail(f"adam_clamp at {size}^3: {what} differs from the plain "
+                 f"version's by up to {float((a - b).abs().max()):.3e}")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": 0.0,
+            "bound_ms": 28 * grid0.numel() / PEAK_BYTES * 1e3}
+
+
 def entry(name, regs, rows, launches):
     """A kernel's JSON entry from its timings by setting and its launches
     on the counted passes."""
@@ -520,7 +579,22 @@ def main():
         f"version {lt['plain_ms']:.3f} ms; forward equal to it bit for bit, "
         f"adjoint within {lt['max_abs_err']:.3e} of its plain version")
 
-    # 7. Results.
+    # 7. A: a fit step's launches at the flagship, then 256^3 and 512^3.
+    fit_launches = fit_step_launches(grid, cam, cfg, medium)
+    del grid
+    torch.cuda.empty_cache()
+    adam = {}
+    for size in (256, 512):
+        adam[size] = adam_timings(size, dev)
+        torch.cuda.empty_cache()
+        a = adam[size]
+        log(f"[{gpu_line}] adam_clamp at {size}^3: {a['ms']:.3f} ms against "
+            f"a bound of {a['bound_ms']:.4f} ms (bytes; share "
+            f"{a['bound_ms'] / a['ms']:.4f}), plain version "
+            f"{a['plain_ms']:.3f} ms; grid and moments equal to it bit for "
+            f"bit")
+
+    # 8. Results.
     results = []
     for k, name in enumerate(KERNELS):
         report(gpu_line, name, rows[name])
@@ -537,6 +611,17 @@ def main():
         "bound_share": lt["bound_ms"] / lt["ms"],
         "bound_share_adjoint": lt["bound_ms_adjoint"] / lt["adjoint_ms"],
         "library_ms": None, "registers": n_regs, "spill_bytes": spill})
+    n_regs, spill = regs["adam_clamp"]
+    results.append({
+        "name": "adam_clamp", "route": "cuda",
+        "source": "volumetricrenderer_tpu_torch/kernels/csrc/adam_clamp.cu",
+        "replaces": None, "launches": fit_launches[2], "max_abs_err": 0.0,
+        **{f"{k}_{size}": v for size, a in adam.items()
+           for k, v in a.items() if k != "max_abs_err"},
+        **{f"bound_share_{size}": a["bound_ms"] / a["ms"]
+           for size, a in adam.items()},
+        "bound_by": "bytes", "library_ms": None, "registers": n_regs,
+        "spill_bytes": spill})
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

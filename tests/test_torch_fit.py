@@ -32,7 +32,8 @@ from volumetricrenderer_tpu.ops import sweep as jsweep
 from volumetricrenderer_tpu.utils import checkpoint as jckpt
 from volumetricrenderer_tpu_torch import cli
 from volumetricrenderer_tpu_torch import fit as tfit
-from volumetricrenderer_tpu_torch.kernels import sweep_bwd, sweep_fwd
+from volumetricrenderer_tpu_torch.kernels import adam_clamp, sweep_bwd, \
+    sweep_fwd
 from volumetricrenderer_tpu_torch.models import scene as tscene
 from volumetricrenderer_tpu_torch.tools import fit_config3
 from volumetricrenderer_tpu_torch.utils import checkpoint as tckpt
@@ -238,9 +239,10 @@ def test_nan_guard_skips_steps(problem):
 
 
 def test_cpu_fit_launches_no_kernel(problem):
-    before = (sweep_fwd.launches, sweep_bwd.launches)
+    before = (sweep_fwd.launches, sweep_bwd.launches, adam_clamp.launches)
     _torch_fit(problem, 1)
-    assert (sweep_fwd.launches, sweep_bwd.launches) == before
+    assert (sweep_fwd.launches, sweep_bwd.launches,
+            adam_clamp.launches) == before
 
 
 def test_cli_fit_writes_artifacts_and_resumes(tmp_path):

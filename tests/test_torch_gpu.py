@@ -1,7 +1,8 @@
 """The hand-written CUDA sweep kernels (forward and backward, of the
 single-channel medium and of the 4-channel reference medium, without and
-with a light volume, in float32 and in the bfloat16 stream mode) against
-their plain PyTorch versions on the card. Every test here needs a CUDA GPU
+with a light volume, in float32 and in the bfloat16 stream mode), the light
+sweep's scan and fit_grid's Adam-and-clamp step against their plain
+PyTorch versions on the card. Every test here needs a CUDA GPU
 and skips without one (a CUDA kernel has no CPU mode). The file imports no
 JAX, so it runs on a GPU machine without it:
 
@@ -2825,3 +2826,192 @@ def test_runner_main_on_the_card(cuda, name, monkeypatch, capsys):
         assert here == in_line
     else:
         assert all(h >= n for h, n in zip(here, in_line)), (here, in_line)
+
+
+# --- fit_grid's optimizer step: Adam and the clamp (kernels/adam_clamp.py) --
+
+ADAM_LR = 5e-2
+
+
+def _adam_grid(shape, offset, gen):
+    """A seeded uniform [0, 1) float32 grid as a leaf on the card; offset
+    1 makes it a view 4 bytes into its storage, so no pointer of it is
+    16-byte aligned."""
+    n = int(np.prod(shape))
+    buf = torch.empty(n + offset, device=gen.device)
+    grid = buf[offset:].view(shape)
+    grid.copy_(torch.rand(shape, generator=gen, device=gen.device))
+    return grid.detach().requires_grad_()
+
+
+def _adam_grad(shape, offset, gen):
+    """Seeded gradients over several decades (some voxels move by about
+    the learning rate, the clamp acts), laid out as _adam_grid's."""
+    g = torch.randn(shape, generator=gen, device=gen.device) * torch.exp(
+        3.0 * torch.randn(shape, generator=gen, device=gen.device) - 4.0)
+    buf = torch.empty(g.numel() + offset, device=gen.device)
+    return buf[offset:].view(shape).copy_(g)
+
+
+def _adam_equal(got, want, what):
+    """Bit for bit, a NaN where the other has one: the kernel keeps torch's
+    order of operations and its rounding of each."""
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True,
+                               msg=what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["aligned", "unaligned"])
+@pytest.mark.parametrize("shape", [(256,) * 3, (512,) * 3, (37, 41, 43)],
+                         ids=["256", "512", "odd"])
+def test_adam_clamp_kernel_matches_plain_version(cuda, shape, layout):
+    """adam_clamp_step's kernel against its plain version (torch.optim.Adam
+    on the card, torch's foreach path, then clamp_) on the same grid and
+    gradients: grid, moments and step equal bit for bit after 1 and 10
+    steps; the float4 path (aligned) and the scalar path (a grid and
+    gradient 4 bytes into their storage); the odd numel exercises the
+    float4 path's tail, and a NaN in its first gradient stays NaN."""
+    from volumetricrenderer_tpu_torch.kernels import adam_clamp
+    torch.cuda.empty_cache()
+    offset = 1 if layout == "unaligned" else 0
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    got = _adam_grid(shape, offset, gen)
+    assert (got.data_ptr() % 16 == 0) == (offset == 0)
+    want = got.detach().clone().requires_grad_()
+    opt_got = torch.optim.Adam([got], lr=ADAM_LR)
+    opt_want = torch.optim.Adam([want], lr=ADAM_LR)
+    before = adam_clamp.launches
+    for step in range(1, 11):
+        got.grad = _adam_grad(shape, offset, gen)
+        if shape == (37, 41, 43) and step == 1:
+            got.grad.view(-1)[[5, 4 * (got.numel() // 4) + 1]] = float("nan")
+        want.grad = got.grad.clone()
+        adam_clamp.adam_clamp_step(opt_got, got, 0.0, 1.0)
+        adam_clamp.adam_clamp_reference(opt_want, want, 0.0, 1.0)
+        if step in (1, 10):
+            torch.cuda.synchronize()
+            _adam_equal(got.detach(), want.detach(), f"grid, step {step}")
+            for k in ("exp_avg", "exp_avg_sq"):
+                _adam_equal(opt_got.state[got][k], opt_want.state[want][k],
+                            f"{k}, step {step}")
+            assert float(opt_got.state[got]["step"]) == step
+            assert opt_got.state[got]["step"].device.type == "cpu"
+    assert adam_clamp.launches == before + 10
+    assert bool(((got == 0.0) | (got == 1.0)).any())  # the clamp acted
+    if shape == (37, 41, 43):
+        assert int(torch.isnan(got).sum()) == 2
+
+
+@pytest.mark.gpu
+def test_fit_grid_launches_the_adam_kernel_per_applied_step(cuda,
+                                                             monkeypatch):
+    """fit_grid on the card: one adam_clamp launch per applied step and
+    none on a step the NaN guard skips; torch's global optimizer-step post
+    hook sees each applied step and the grid. A plain-path run fed the
+    same gradients (torch.optim.Adam and clamp_ on a shadow grid, step by
+    step) holds the same grid before every step and ends with the same
+    leaves, bit for bit."""
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from volumetricrenderer_tpu_torch import fit as tfit
+    from volumetricrenderer_tpu_torch.kernels import adam_clamp
+    from volumetricrenderer_tpu_torch.utils.checkpoint import \
+        adam_state_to_leaves
+    shadow = {}
+    real = tfit.adam_clamp_step
+
+    def replayed(optimizer, grid, lo, hi):
+        if not shadow:
+            shadow["grid"] = grid.detach().clone().requires_grad_()
+            shadow["opt"] = torch.optim.Adam([shadow["grid"]], lr=ADAM_LR)
+        _adam_equal(grid.detach(), shadow["grid"].detach(), "grid")
+        shadow["grid"].grad = grid.grad.clone()
+        adam_clamp.adam_clamp_reference(shadow["opt"], shadow["grid"], lo,
+                                        hi)
+        real(optimizer, grid, lo, hi)
+
+    monkeypatch.setattr(tfit, "adam_clamp_step", replayed)
+    target = np.random.default_rng(4).uniform(0.0, 0.5, (24, 32, 3)).astype(
+        np.float32)
+    args = (make_camera(CameraConfig(width=32, height=24)),
+            RenderConfig(emission=True, quadrature="sliced"),
+            MediumConfig(combine="single", density=8.0))
+    saved, hooked = [], []
+    handle = register_optimizer_step_post_hook(
+        lambda opt, a, k: hooked.append(opt.param_groups[0]["params"][0]))
+    before = adam_clamp.launches
+    try:
+        res = tfit.fit_grid(target, *args, grid_size=12, steps=4,
+                            learning_rate=ADAM_LR, checkpoint_every=4,
+                            checkpoint_fn=lambda s, g, st: saved.append(st))
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    assert res.skipped_steps == 0 and adam_clamp.launches == before + 4
+    # four from the fit's steps, four from the shadow's optimizer.step()
+    assert len(hooked) == 8
+    assert hooked[1].data_ptr() == res.grid.data_ptr()
+    _adam_equal(res.grid, shadow["grid"].detach(), "final grid")
+    for got, want in zip(saved[0], adam_state_to_leaves(shadow["opt"],
+                                                        shadow["grid"])):
+        np.testing.assert_array_equal(got, want)
+    target[3, 5, 1] = np.nan
+    res = tfit.fit_grid(target, *args, grid_size=12, steps=2,
+                        learning_rate=ADAM_LR)
+    assert res.skipped_steps == 2 and adam_clamp.launches == before + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("writer", ["kernel", "cpu"])
+def test_adam_checkpoint_crosses_kernel_and_cpu_paths(cuda, writer,
+                                                       tmp_path):
+    """Three steps on one path (the kernel on the card, or the plain
+    version on the CPU), a checkpoint, a restore on the other path: the
+    restored state's leaves equal the checkpoint's bit for bit, and two
+    more steps there follow the writer's own two more steps. CPU and card
+    round some products apart (torch's CPU addcmul multiplies in another
+    order), so those are held at rtol 1e-5 with atol 1e-7 on the grid and
+    1e-6 of the largest on the moments; a wrong step moves a voxel by about
+    the learning rate, 5e-2."""
+    from volumetricrenderer_tpu_torch.kernels import adam_clamp
+    from volumetricrenderer_tpu_torch.utils import checkpoint as ck
+    shape = (9, 10, 11)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    grads = [_adam_grad(shape, 0, gen) for _ in range(5)]
+    start = _adam_grid(shape, 0, gen)
+    dev_w, dev_r = (cuda, "cpu") if writer == "kernel" else ("cpu", cuda)
+
+    def path(device, grid=None, leaves=None):
+        p = (start if grid is None else torch.as_tensor(grid)).detach() \
+            .to(device).clone().requires_grad_()
+        opt = torch.optim.Adam([p], lr=ADAM_LR)
+        if leaves is not None:
+            opt.state[p] = ck.adam_state_from_leaves(leaves, p)
+        return p, opt
+
+    def steps(p, opt, gs):
+        for g in gs:
+            p.grad = g.to(p.device)
+            adam_clamp.adam_clamp_step(opt, p, 0.0, 1.0)
+
+    p_w, opt_w = path(dev_w)
+    before = adam_clamp.launches
+    steps(p_w, opt_w, grads[:3])
+    ck.save_checkpoint(str(tmp_path), 3, p_w.detach(),
+                       ck.adam_state_to_leaves(opt_w, p_w))
+    step, grid, leaves, _ = ck.restore_checkpoint(
+        str(tmp_path), opt_state_template=ck.adam_initial_leaves(shape))
+    assert step == 3 and int(leaves[0]) == 3
+    p_r, opt_r = path(dev_r, grid, leaves)
+    for got, want in zip(ck.adam_state_to_leaves(opt_r, p_r), leaves):
+        np.testing.assert_array_equal(got, want)
+    steps(p_r, opt_r, grads[3:])
+    steps(p_w, opt_w, grads[3:])
+    assert adam_clamp.launches == before + (5 if writer == "kernel" else 2)
+    torch.testing.assert_close(p_r.detach().cpu(), p_w.detach().cpu(),
+                               rtol=1e-5, atol=1e-7)
+    for k in ("exp_avg", "exp_avg_sq"):
+        a, b = opt_r.state[p_r][k].cpu(), opt_w.state[p_w][k].cpu()
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-6 * float(b.abs().max()), msg=k)
+    assert float(opt_r.state[p_r]["step"]) == 5.0

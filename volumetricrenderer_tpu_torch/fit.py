@@ -1,11 +1,13 @@
 """Inverse rendering: fit a density grid to a target image by gradient
 descent through the renderer (port of volumetricrenderer_tpu/fit.py, with
-torch.optim.Adam in place of optax.adam).
+torch.optim.Adam's state in place of optax.adam's).
 
 Each step renders the grid, takes the image loss, backpropagates to the
 voxels and applies one Adam update. With quadrature="sliced" the render is
 the slice sweep, which on a CUDA grid runs the forward and backward sweep
-kernels; "fixed" is the per-ray march of ops/integrate.py.
+kernels; "fixed" is the per-ray march of ops/integrate.py. The Adam update
+and the clamp are kernels/adam_clamp.py: one kernel launch a step on a
+CUDA grid, torch.optim.Adam's step and clamp_ on any other.
 
 Spans (utils/clock.py): each step is the root "fit.step" (its request id
 the step number), holding "fit.render" (the forward render and the loss),
@@ -24,6 +26,7 @@ from typing import Callable, Optional
 import torch
 
 from .config import LightConfig, MediumConfig, RenderConfig
+from .kernels.adam_clamp import adam_clamp_step
 from .ops.camera import Camera, camera_rays
 from .ops.integrate import render_rays
 from .utils import clock
@@ -139,9 +142,7 @@ def fit_grid(
                     ok = bool(finite)
             if ok:
                 with clock.span("fit.adam", device=grid):
-                    optimizer.step()
-                    with torch.no_grad():
-                        grid.clamp_(0.0, 1.0)
+                    adam_clamp_step(optimizer, grid, 0.0, 1.0)
             with clock.span("fit.sync"):
                 losses.append(float(loss.detach()))
             if not ok:
