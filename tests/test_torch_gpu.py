@@ -379,6 +379,64 @@ def test_cuda_ref_path_never_runs_plain_versions(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("emission", [True, False])
+@pytest.mark.parametrize("scroll", ["none", "random"])
+def test_ref_frame_graphs_replay_the_eager_frame(cuda, monkeypatch,
+                                                 emission, scroll):
+    """A 4-channel kernel frame without autograd runs eagerly twice per
+    grid, plan and configuration and then replays its CUDA graphs
+    (ops/sweep.py _RefFrameGraphs): each replayed frame equals the eager
+    frame bit for bit, scroll by scroll, and after an in-place change of
+    the grid; a replay counts its K4 launch, returns a frame of its own and
+    records "sweep.ref_layers" (with its device interval) and
+    "sweep.ref_fwd" under clock.tracing(); a frame under autograd stays
+    eager."""
+    from volumetricrenderer_tpu_torch.ops import sweep
+    from volumetricrenderer_tpu_torch.utils import clock
+    grid, cfg, plan, medium, _ = _ref_setup(cuda, EYES[0][0], emission)
+    cam = make_camera(CameraConfig(eye=EYES[0][0], width=96, height=64))
+    scrolls = [None] * 6 if scroll == "none" else \
+        [_seeded_scroll(s, cuda) for s in range(6)]
+
+    def eager(sc):
+        with monkeypatch.context() as m:
+            m.setattr(sweep, "_ref_frame_entry", lambda *a, **kw: None)
+            return render_image(grid, cam, cfg, medium, scroll=sc, plan=plan)
+
+    with torch.no_grad():
+        want = [eager(sc) for sc in scrolls]
+        before = sweep_ref_fwd.launches
+        got = [render_image(grid, cam, cfg, medium, scroll=sc, plan=plan)
+               for sc in scrolls]
+        torch.cuda.synchronize()
+        assert sweep_ref_fwd.launches == before + len(scrolls)
+        entry = sweep._ref_frame_entry(grid, plan, cfg, medium, None,
+                                       scrolls[0], None)
+        assert entry.seen == 2 and entry.graphs is not None
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert got[-1].data_ptr() != got[-2].data_ptr()
+        grid.mul_(0.5)
+        assert torch.equal(
+            render_image(grid, cam, cfg, medium, scroll=scrolls[1],
+                         plan=plan), eager(scrolls[1]))
+        clock.clear_spans()
+        with clock.tracing():
+            render_image(grid, cam, cfg, medium, scroll=scrolls[2],
+                         plan=plan)
+        names = {s.name: s for s in clock.spans()}
+        assert entry.seen == 2
+    assert {"render.image", "sweep.ref_layers", "sweep.ref_fwd"} <= set(names)
+    assert names["sweep.ref_layers"].device_ns > 0
+    g = grid.clone().requires_grad_()
+    before = sweep_ref_fwd.launches
+    img = render_image(g, cam, cfg, medium, scroll=scrolls[3], plan=plan)
+    assert img.requires_grad and sweep_ref_fwd.launches == before + 1
+    assert sweep._ref_frame_entry(g, plan, cfg, medium, None, scrolls[3],
+                                  None) is None
+
+
+@pytest.mark.gpu
 def test_ref_launches_validate_inputs(cuda):
     _, _, plan, _, inputs = _ref_setup(cuda, EYES[0][0], True)
     L, *args = inputs
@@ -2204,6 +2262,14 @@ def _main_path(full_width, path):
             (orbit_camera(2.0 * np.pi * i / 8, **FULL), cfg, None)
             for i in range(8)]
     grid, cam = full_width["reference"], make_camera(CameraConfig())
+    if path == "reference-orbit":
+        v = torch.tensor(np.random.default_rng(11).uniform(-0.25, 0.25,
+                                                           (4, 3)),
+                         dtype=torch.float32, device=grid.device)
+        absorb = RenderConfig(quadrature="sliced")
+        return grid, MediumConfig(), None, [
+            (orbit_camera(np.pi / 4 * (1 + k), width=1280, height=720),
+             absorb, v * (37 * k / 60.0)) for k in range(8)]
     seeded = [_seeded_scroll(s, grid.device) for s in (5, 6)]
     if path == "reference":  # a step takes the seeded scroll, first
         scrolls = seeded[:1] + [reference_media_scroll(t, device=grid.device)
@@ -2403,17 +2469,20 @@ def _autograd_names(t):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["serve", "step"])
 @pytest.mark.parametrize("path", ["flagship", "reference", "config4",
-                                  "reference-shadowed"])
+                                  "reference-shadowed", "reference-orbit"])
 def test_main_path_at_full_width(full_width, monkeypatch, path, kind,
                                  dtype):
     """The flagship (256^3 at 1920x1080: the default camera and three
     orbit cameras), the reference preset (128^3 x 4 at 1280x720, both
     emission modes, its scroll at t = 0 and 1.7 and two seeded scrolls),
     config 4 (the flagship cloud, eight orbit cameras, the light volume
-    rebuilt every frame) and the reference medium with shadows at density
-    8 (two seeded scrolls): launches counted from 0, the frames against
-    the plain version, the steps' gradients against the plain backward,
-    no index_put_ backward node in a step's graph."""
+    rebuilt every frame), the reference medium with shadows at density
+    8 (two seeded scrolls) and the benchmark's reference.view deployment
+    (the reference preset in absorption from its eight ring cameras at
+    1280x720, each frame's scroll a seeded velocity times its media
+    time): launches counted from 0, the frames against the plain version,
+    the steps' gradients against the plain backward, no index_put_
+    backward node in a step's graph."""
     grid, medium, light, views = _main_path(full_width, path)
     low = dtype == "bfloat16"
     if kind == "serve":
@@ -2608,6 +2677,27 @@ def test_a_second_process_loads_the_built_libraries(cuda):
                          text=True, check=True, timeout=120).stdout
     assert [line.split() for line in out.splitlines()] == \
         [[p, "0.0"] for p in paths]
+
+
+@pytest.mark.gpu
+def test_cli_serve_reference_preset_sliced_on_the_card(cuda, capsys):
+    """`cli serve --preset reference --quadrature sliced` at the preset's
+    size: every served frame one K4 launch, no K1, no general sweep."""
+    import socket
+    from volumetricrenderer_tpu_torch import cli
+    from volumetricrenderer_tpu_torch.ops import sweep
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    before, general = _launches(), sweep.general_calls
+    assert cli.main(["serve", "--preset", "reference", "--quadrature",
+                     "sliced", "--selftest-frames", "4", "--port",
+                     str(port)]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert (report["width"], report["height"]) == (1280, 720)
+    k1, k2, k4, k5, _, _ = _since(before)
+    assert (k1, k2, k5) == (0, 0, 0) and k4 >= report["final_state"]["frames"]
+    assert sweep.general_calls == general
 
 
 @pytest.mark.gpu

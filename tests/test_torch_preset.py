@@ -24,6 +24,7 @@ import torch
 
 import volumetricrenderer_tpu as J
 import volumetricrenderer_tpu_torch as T
+from test_torch_serve import _free_port
 from test_torch_sweep_fwd import torch_plan
 from volumetricrenderer_tpu.models import scene as jscene
 from volumetricrenderer_tpu.ops import integrate as jint
@@ -408,6 +409,73 @@ def test_cli_render_options(tmp_path, capsys):
         cli.main(["render", "--preset", "config9", "--device", "cpu"])
     assert e.value.code == 2
     assert "unknown preset" in capsys.readouterr().err
+
+
+SLICED_REFERENCE = ["--preset", "reference", "--quadrature", "sliced",
+                    "--volume-size", "16", "--width", "32", "--height", "24",
+                    "--device", "cpu"]
+
+
+@pytest.mark.parametrize("cmd", ["render", "animate", "serve"])
+def test_cli_reference_preset_sliced_takes_the_four_channel_sweep(
+        tmp_path, monkeypatch, capsys, cmd):
+    """--quadrature sliced sends the reference preset's (16, 16, 16, 4) grid
+    through the 4-channel sweep's plain version on the CPU, in every
+    subcommand that renders: never the per-ray march, never the general
+    sweep. `render` gives render_preset's frame of the same preset."""
+    import importlib
+    from volumetricrenderer_tpu_torch.ops import sweep as tsweep
+    render_mod = importlib.import_module("volumetricrenderer_tpu_torch.render")
+    swept, plain = [], sweep_ref_fwd.sweep_ref_fwd_reference
+
+    def spy(L, *a, **kw):
+        swept.append(tuple(L.shape))
+        return plain(L, *a, **kw)
+
+    def march(*a, **kw):
+        raise AssertionError("the per-ray march ran")
+    monkeypatch.setattr(sweep_ref_fwd, "sweep_ref_fwd_reference", spy)
+    monkeypatch.setattr(render_mod, "render_rays", march)
+    general = tsweep.general_calls
+    out = tmp_path / "out"
+    extra = {"render": ["--time", "0.7", "--out", str(out) + ".png"],
+             "animate": ["--frames", "2", "--out-dir", str(out)],
+             "serve": ["--selftest-frames", "1", "--port",
+                       str(_free_port())]}[cmd]
+    assert cli.main([cmd] + SLICED_REFERENCE + extra) == 0
+    assert swept and set(swept) == {(16, 4, 16, 16)}
+    assert tsweep.general_calls == general
+    if cmd == "animate":
+        assert sorted(os.listdir(out))[:2] == ["frame_00000.png",
+                                               "frame_00001.png"]
+        assert read_png(str(out / "frame_00001.png")).shape == (24, 32, 4)
+    elif cmd == "serve":
+        import json
+        report = json.loads(capsys.readouterr().out)
+        assert report["frames"] == 1 and report["preset"] == "reference"
+        assert (report["width"], report["height"]) == (32, 24)
+    else:
+        p = T.get_preset("reference")
+        p = dataclasses.replace(
+            p, volume=dataclasses.replace(p.volume, size=16),
+            camera=dataclasses.replace(p.camera, width=32, height=24),
+            render=dataclasses.replace(p.render, quadrature="sliced"))
+        want = T.render_preset(p, t=0.7, device="cpu")
+        want8 = np.round(np.clip(want.numpy(), 0.0, 1.0) * 255.0)
+        got = read_png(str(out) + ".png").astype(np.float64)
+        assert np.abs(got - want8).max() <= 1.0
+
+
+def test_cli_serve_reference_preset_without_sliced_still_refuses(caplog):
+    """Without --quadrature the reference preset keeps its "fixed"
+    quadrature, which the live loop's sweep refuses, as before: the frame
+    fails and the server drops the self-drive's connection."""
+    args = [a for a in SLICED_REFERENCE if a not in ("--quadrature",
+                                                     "sliced")]
+    with pytest.raises(ConnectionError):
+        cli.main(["serve"] + args + ["--selftest-frames", "1", "--port",
+                                     str(_free_port())])
+    assert 'backend "sweep" requires quadrature "sliced"' in caplog.text
 
 
 def test_cli_info(capsys):

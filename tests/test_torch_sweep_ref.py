@@ -362,3 +362,22 @@ def test_kernel_launches_refuse_cpu_tensors():
         sweep_ref_bwd.launch_kernel(*inputs, *maps, maps[1], maps[2],
                                     emission=True)
     assert (sweep_ref_fwd.launches, sweep_ref_bwd.launches) == before
+
+
+def test_cpu_frames_take_no_frame_graphs():
+    """A CPU grid's 4-channel frame never looks for CUDA graphs
+    (ops/sweep.py _ref_frame_entry), however often its key repeats: its
+    frames equal, frame after frame, with the scroll read each time."""
+    from volumetricrenderer_tpu_torch.ops import sweep as tsweep
+    grid, _, _, _, tcfg, tplan, tmed = _setup(False)
+    g = torch.from_numpy(grid)
+    scrolls = [torch.tensor(np.random.default_rng(s).uniform(-1, 1, (4, 3)),
+                            dtype=torch.float32) for s in (1, 2)]
+    assert tsweep._ref_frame_entry(g, tplan, tcfg, tmed, None, scrolls[0],
+                                   None) is None
+    with torch.no_grad():
+        frames = [tsweep.sweep_render(g, tplan, tcfg, tmed, scroll=sc)
+                  for sc in scrolls * 2]
+    assert torch.equal(frames[0], frames[2])
+    assert torch.equal(frames[1], frames[3])
+    assert not torch.equal(frames[0], frames[1])

@@ -3,8 +3,8 @@ inactive span records nothing and costs under a microsecond; active spans
 nest, carry parent and request ids, are recorded whole or not at all,
 take the open root as parent on another thread, and agree with the
 profiler's "vr." events; fit_grid (its render, backward, NaN guard,
-update and syncs), render_image, plan_sweep and
-light_transmittance_volume give their spans. The file imports no JAX; its
+update and syncs), render_image, plan_sweep, light_transmittance_volume
+and the 4-channel sweep give their spans. The file imports no JAX; its
 card test runs with
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_trace.py
@@ -317,6 +317,59 @@ def test_render_plan_and_light_give_their_spans():
     assert all(sp.request is None for v in s.values() for sp in v)
     assert s["plan.geometry"][0].parent == s["plan.build"][0].id
     assert s["light.sweep"][0].parent is None
+
+
+def _four_channel_frame(backward):
+    """A traced absorption frame of a (SIZE,)*3 x 4 grid through the
+    4-channel sweep, with a scroll; with `backward`, its sum(rgb^2)
+    differentiated to the grid, outside the frame."""
+    g = torch.rand(SIZE, SIZE, SIZE, 4,
+                   generator=torch.Generator().manual_seed(0))
+    g.requires_grad_(backward)
+    cfg = T.RenderConfig(quadrature="sliced")
+    scroll = torch.linspace(-0.2, 0.3, 12).reshape(4, 3)
+    with clock.tracing():
+        img = T.render_image(g, _camera(), cfg, T.MediumConfig(),
+                             scroll=scroll)
+        if backward:
+            (img[..., :3] ** 2).sum().backward()
+    return _by_name(clock.spans())
+
+
+def test_four_channel_sweep_gives_its_spans():
+    """sweep.ref_layers (the channel-layer build, with its device interval),
+    sweep.ref_fwd in the frame and sweep.ref_bwd in its backward; no span
+    of the single-channel kernels."""
+    s = _four_channel_frame(backward=True)
+    (frame,) = s["render.image"]
+    (layers,) = s["sweep.ref_layers"]
+    (fwd,) = s["sweep.ref_fwd"]
+    (bwd,) = s["sweep.ref_bwd"]
+    for sp in (layers, fwd):
+        assert sp.parent == frame.id and sp.request == frame.id
+        assert frame.t0_ns <= sp.t0_ns <= sp.t1_ns <= frame.t1_ns
+    assert layers.t1_ns <= fwd.t0_ns
+    assert layers.device_ns == layers.t1_ns - layers.t0_ns > 0  # CPU: host
+    assert fwd.device_ns is None and bwd.device_ns is None
+    assert bwd.parent is None and bwd.t0_ns >= frame.t1_ns
+    assert not {"sweep.fwd", "sweep.bwd", "light.sweep"} & set(s)
+
+
+def test_ref_layers_reads_the_layer_spans_per_frame():
+    """ref_layers_ms is the device interval of sweep.ref_layers per
+    render.image root; a run whose program records no such span reads
+    None."""
+    t0 = time.perf_counter()
+    s = _four_channel_frame(backward=False)
+    run = {"t0": t0, "window_s": time.perf_counter() - t0 + 1.0}
+    (layers,) = s["sweep.ref_layers"]
+    assert _reader("ref_layers_ms")(run) == pytest.approx(
+        layers.device_ns * 1e-6, rel=1e-12)
+    clock.clear_spans()
+    with clock.tracing():
+        T.render_image(T.cloud_volume(SIZE, 3, device="cpu"), _camera(), CFG,
+                       MED)
+    assert _reader("ref_layers_ms")(run) is None
 
 
 @pytest.fixture

@@ -7,6 +7,8 @@ Usage:
   python -m volumetricrenderer_tpu_torch animate --preset config4 \
       --frames 48 --orbit --out-dir frames/
   python -m volumetricrenderer_tpu_torch serve --preset config2
+  python -m volumetricrenderer_tpu_torch serve --preset reference \
+      --quadrature sliced
   python -m volumetricrenderer_tpu_torch fit --size 32 --steps 100 \
       --out-dir fit_run/
   python -m volumetricrenderer_tpu_torch fit --preset config5 --steps 100 \
@@ -16,6 +18,11 @@ Usage:
 Every subcommand takes --device, "cuda" by default: the sweep kernels
 forward and backward. Without a GPU the command fails with torch's own
 error; only --device cpu runs the kernels' plain versions on the CPU.
+
+render, animate and serve take a preset's sizes (--width, --height,
+--volume-size) and its quadrature (--quadrature): the `reference` preset
+marches per ray ("fixed"); with --quadrature sliced its (128, 128, 128, 4)
+grid goes through the slice sweep's 4-channel kernels.
 """
 from __future__ import annotations
 
@@ -32,6 +39,17 @@ def _add_device(p):
                         "versions of the kernels")
 
 
+def _add_sizes(p):
+    """The preset overrides _resolve_preset applies."""
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--height", type=int, default=None)
+    p.add_argument("--volume-size", type=int, default=None)
+    p.add_argument("--quadrature", default=None, choices=["fixed", "sliced"],
+                   help="override the preset's quadrature: sliced = the "
+                        "slice sweep (the sweep kernels on a GPU), fixed = "
+                        "the per-ray march")
+
+
 def _add_common(p):
     p.add_argument("--preset", default="config1",
                    help="named BASELINE preset (config1..config5, reference)")
@@ -40,9 +58,7 @@ def _add_common(p):
                    help='"sweep" = the slice sweep (the CUDA sweep kernels '
                         'on a GPU), "reference" = per-ray oracle, auto = '
                         "sweep when supported")
-    p.add_argument("--width", type=int, default=None)
-    p.add_argument("--height", type=int, default=None)
-    p.add_argument("--volume-size", type=int, default=None)
+    _add_sizes(p)
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the render "
                         "(Chrome trace JSON) to this directory")
@@ -100,6 +116,9 @@ def _resolve_preset(args):
     if args.volume_size:
         p = dataclasses.replace(
             p, volume=dataclasses.replace(p.volume, size=args.volume_size))
+    if args.quadrature:
+        p = dataclasses.replace(p, render=dataclasses.replace(
+            p.render, quadrature=args.quadrature))
     return p
 
 
@@ -410,7 +429,7 @@ def cmd_serve(args):
     from .serve import serve
     from .utils.metrics import get_logger
 
-    preset = _get_preset(args.preset)
+    preset = _resolve_preset(args)
     result = serve(preset, port=args.port, frames=args.selftest_frames,
                    host=args.host, device=args.device)
     if result is not None:
@@ -477,6 +496,7 @@ def main(argv=None):
         "serve", help="live interactive renderer over HTTP (keys and the "
                       "mouse drive the camera, R/F the media clock)")
     ps.add_argument("--preset", default="config2")
+    _add_sizes(ps)
     ps.add_argument("--port", type=int, default=8788)
     ps.add_argument("--host", default="127.0.0.1",
                     help="bind address; the server has no auth, so "

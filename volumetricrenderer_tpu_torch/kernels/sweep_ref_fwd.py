@@ -31,7 +31,10 @@ channel (csrc/sweep_ref_tile.cuh). The stage they take is sized once per
 plan and medium (build.ref_stage_for, from the plan and the channels'
 coordinate scales, not the scroll's offsets), so an animated scroll pays no
 read to the host per frame; `tiles` tallies the tile-slices the kernel
-computed and those it read through global memory.
+computed and those it read through global memory. The inputs a frame builds
+on the host side cost no copy to the device either: the medium's scales and
+weights are device vectors made once per device, the params' per-plan head
+once per plan, and the four channels' layers are one vectorised lerp.
 
 RenderConfig(dtype="bfloat16") sweeps in the bfloat16 stream mode that
 kernels/sweep_fwd.py defines: L is built in float32 (_layer_channels), the
@@ -40,20 +43,27 @@ and every channel's tap weights are rounded to bfloat16 on their own. dL
 comes back in float32 (the JAX package rounds it to bfloat16; the port
 does not).
 
-`launches` counts the kernel launches made by this module.
+`launches` counts the kernel launches made by this module. Spans
+(utils/clock.py): "sweep.ref_layers", with its device interval, around the
+channel-layer build in sweep_base_ref (_layer_channels, and the light slabs
+where there are any); "sweep.ref_fwd" and "sweep.ref_bwd", host time only,
+around the node's forward and backward sweeps: on a CUDA tensor K4's and
+K5's launch wrappers, on a CPU tensor their plain versions.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..config import LightConfig, MediumConfig, RenderConfig
 from ..ops.sampling import apply_address_mode, clip_unit
+from ..utils import clock
 from . import sweep_ref_bwd
-from .build import (N_PARAMS, NCH, TileTally, build_library,
-                    channel_resample, check_sweep_inputs, light_sample,
-                    ref_stage_cap, ref_stage_for, stream_cast)
+from .build import (N_PARAMS, NCH, IdentityCache, TileTally,
+                    build_library, channel_resample, check_sweep_inputs,
+                    light_sample, ref_stage_cap, ref_stage_for, stream_cast)
 from .sweep_fwd import _layer_lerp_stack, _params_for
 
 __all__ = ["sweep_ref_inputs", "sweep_ref_light_slabs", "sweep_base_ref",
@@ -67,20 +77,27 @@ _lib = None
 build_info = None  # set by the first build: path, seconds, nvcc output
 
 
+@functools.lru_cache(maxsize=64)
+def _device_vector(values, device):
+    """The float32 tensor of a tuple of the medium's per-channel constants
+    on `device`, made once: a frame copies nothing to the device."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def _channel_offsets(medium: MediumConfig, scroll, coord_order, device=None):
     """Per-channel scroll offsets scroll[c] * channel_scroll_weight[c] in
     the plan's (k, a, b) coord order: a list of NCH (offk, offa, offb)
-    triples of 0-dim float32 tensors (zeros with no scroll)."""
+    triples of 0-dim float32 tensors (zeros with no scroll), views of one
+    (NCH, 3) product."""
     c_k, c_a, c_b = coord_order
     if scroll is None:
         zero = torch.zeros((), dtype=torch.float32, device=device)
         return [(zero, zero, zero)] * NCH
     scroll = torch.as_tensor(scroll, dtype=torch.float32, device=device)
-    offs = []
-    for c in range(NCH):
-        o = scroll[c] * medium.channel_scroll_weight[c]
-        offs.append((o[c_k], o[c_a], o[c_b]))
-    return offs
+    weights = _device_vector(tuple(medium.channel_scroll_weight),
+                             scroll.device)
+    o = scroll * weights[:, None]
+    return [(o[c, c_k], o[c, c_a], o[c, c_b]) for c in range(NCH)]
 
 
 def _layer_channels(gperm4, slice_z, medium: MediumConfig, offs,
@@ -88,22 +105,27 @@ def _layer_channels(gperm4, slice_z, medium: MediumConfig, offs,
     """For every slice s and channel c, the layer-lerped 2-D slab of
     channel c at sweep coord slice_z[s] * scale_c + offk_c: the sweep-axis
     third of the trilinear sample. gperm4 (D, A, B, C) -> (S, NCH, A, B),
-    in slice_z (front-to-back) order. Differentiable in gperm4; the layer
-    fetch is index_select, whose backward is index_add_."""
+    in slice_z (front-to-back) order. The layer pairs of all channels are
+    worked out at once, in each channel's own float32 arithmetic, and the
+    lerp is one. Differentiable in gperm4; the layer fetch is index_select,
+    whose backward is index_add_."""
     depth = gperm4.shape[0]
-    chans = []
-    for c in range(NCH):
-        qk = slice_z * medium.channel_coord_scale[c] + offs[c][0]
-        p = qk * depth - 0.5
-        i0f = torch.floor(p)
-        f = (p - i0f).to(torch.float32)[:, None, None]
-        i0 = i0f.to(torch.int64)
-        l0 = apply_address_mode(i0, depth, address_mode)
-        l1 = apply_address_mode(i0 + 1, depth, address_mode)
-        g = gperm4[..., c].to(torch.float32)
-        chans.append(torch.index_select(g, 0, l0) * (1.0 - f)
-                     + torch.index_select(g, 0, l1) * f)
-    return torch.stack(chans, dim=1)
+    dev = slice_z.device
+    scales = _device_vector(tuple(medium.channel_coord_scale), dev)
+    offk = torch.stack([offs[c][0] for c in range(NCH)]).to(dev)
+    p = (scales[:, None] * slice_z + offk[:, None]) * depth - 0.5
+    i0f = torch.floor(p)
+    f = (p - i0f).to(torch.float32).T[:, :, None, None]
+    i0 = i0f.to(torch.int64)
+    l0 = apply_address_mode(i0, depth, address_mode)
+    l1 = apply_address_mode(i0 + 1, depth, address_mode)
+    g = gperm4.to(torch.float32)
+    lo, hi = (torch.stack([torch.index_select(g[..., c], 0, layer[c])
+                           for c in range(NCH)], dim=1) for layer in (l0, l1))
+    return lo * (1.0 - f) + hi * f
+
+
+_PARAMS_HEAD = IdentityCache()
 
 
 def _params_ref(plan, cfg: RenderConfig, medium: MediumConfig,
@@ -111,13 +133,15 @@ def _params_ref(plan, cfg: RenderConfig, medium: MediumConfig,
     """(N_PARAMS,) float32: _params_for's eight, the four channel coord
     scales, the four b offsets and the four a offsets. (The TPU kernel
     takes the first sixteen and gets the a offsets inside its row
-    matrices, which this port does not build.)"""
-    dev = plan.eye01.device
-    scales = torch.tensor(medium.channel_coord_scale, dtype=torch.float32,
-                          device=dev)
-    return torch.cat([_params_for(plan, cfg, medium, light), scales,
-                      torch.stack([offs[c][2] for c in range(NCH)]),
-                      torch.stack([offs[c][1] for c in range(NCH)])])
+    matrices, which this port does not build.) The first twelve are one
+    tensor per plan and medium."""
+    head8 = _params_for(plan, cfg, medium, light)
+    head = _PARAMS_HEAD.get(
+        (head8,), tuple(medium.channel_coord_scale),
+        lambda: torch.cat([head8, _device_vector(
+            tuple(medium.channel_coord_scale), head8.device)]))
+    return torch.cat([head, torch.stack(
+        [offs[c][2] for c in range(NCH)] + [offs[c][1] for c in range(NCH)])])
 
 
 def sweep_ref_fwd_reference(L, slice_z, v_grid, u_grid, seglen, params, *,
@@ -248,15 +272,17 @@ class _SweepRef(torch.autograd.Function):
                 emission, low, stage):
         ctx.in_dtypes = (L.dtype, None if light is None else light.dtype)
         L, light = stream_cast(L, low), stream_cast(light, low)
-        if L.device.type == "cuda":
-            maps = launch_kernel(L, slice_z, v_grid, u_grid, seglen, params,
-                                 emission, light, stage).unbind(0)
-        elif L.device.type == "cpu":
-            maps = sweep_ref_fwd_reference(L, slice_z, v_grid, u_grid,
-                                           seglen, params, emission=emission,
-                                           light=light)
-        else:
-            raise ValueError(f"sweep: no kernel for device {L.device}")
+        with clock.span("sweep.ref_fwd"):
+            if L.device.type == "cuda":
+                maps = launch_kernel(L, slice_z, v_grid, u_grid, seglen,
+                                     params, emission, light,
+                                     stage).unbind(0)
+            elif L.device.type == "cpu":
+                maps = sweep_ref_fwd_reference(
+                    L, slice_z, v_grid, u_grid, seglen, params,
+                    emission=emission, light=light)
+            else:
+                raise ValueError(f"sweep: no kernel for device {L.device}")
         ctx.mark_non_differentiable(maps[3])
         ctx.save_for_backward(L, slice_z, v_grid, u_grid, seglen, params,
                               maps[1], maps[2], light)
@@ -274,12 +300,14 @@ class _SweepRef(torch.autograd.Function):
         # kernel reads dense maps.
         cts = [c.contiguous() for c in (ct_acc, ct_trans, ct_wsum)]
         args = (L, slice_z, v_grid, u_grid, seglen, params, *cts, trans, wsum)
-        if L.device.type == "cuda":
-            grads = sweep_ref_bwd.launch_kernel(
-                *args, emission=ctx.emission, light=light, stage=ctx.stage)
-        else:
-            grads = sweep_ref_bwd.sweep_ref_bwd_reference(
-                *args, emission=ctx.emission, light=light)
+        with clock.span("sweep.ref_bwd"):
+            if L.device.type == "cuda":
+                grads = sweep_ref_bwd.launch_kernel(
+                    *args, emission=ctx.emission, light=light,
+                    stage=ctx.stage)
+            else:
+                grads = sweep_ref_bwd.sweep_ref_bwd_reference(
+                    *args, emission=ctx.emission, light=light)
         dL, dlight = grads if light is not None else (grads, None)
         dL = dL.to(ctx.in_dtypes[0])
         if dlight is not None:
@@ -317,19 +345,19 @@ def sweep_base_ref(gperm4, plan, cfg: RenderConfig, medium: MediumConfig,
     differentiable in the grid either way. lperm: optional (D, A, B)
     light-transmittance volume in the same layout (emission only); the
     maps are differentiable in it too. cfg.dtype "bfloat16" sweeps in the
-    bfloat16 stream mode."""
+    bfloat16 stream mode. Span "sweep.ref_layers" around the layer build."""
     if gperm4.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sweep_base_ref: no sweep for device "
                          f"{gperm4.device}")
-    L, slice_z, v_grid, _, seglen, params = sweep_ref_inputs(
-        gperm4, plan, cfg, medium, light, scroll)
-    slabs = None
-    if lperm is not None:
-        if lperm.shape != gperm4.shape[:3]:
-            raise ValueError(
-                f"sweep_base_ref: the light volume must have the grid's "
-                f"shape {tuple(gperm4.shape[:3])}, got {tuple(lperm.shape)}")
-        slabs = sweep_ref_light_slabs(lperm, plan, cfg)
+    if lperm is not None and lperm.shape != gperm4.shape[:3]:
+        raise ValueError(
+            f"sweep_base_ref: the light volume must have the grid's "
+            f"shape {tuple(gperm4.shape[:3])}, got {tuple(lperm.shape)}")
+    with clock.span("sweep.ref_layers", device=gperm4):
+        L, slice_z, v_grid, _, seglen, params = sweep_ref_inputs(
+            gperm4, plan, cfg, medium, light, scroll)
+        slabs = None if lperm is None else sweep_ref_light_slabs(lperm, plan,
+                                                                 cfg)
     return sweep_ref_apply(L, slabs, slice_z, v_grid, seglen, params, plan,
                            cfg, medium, light)
 

@@ -10,7 +10,9 @@ Rendering onto a regular (v, u) base grid therefore makes every slice's
 resampling separable, and the volume integral becomes a front-to-back loop
 over slices (kernels/sweep_fwd.py) followed by one projective warp from the
 base grid to the screen pixels (warp_base_to_pixels). The 4-channel
-reference medium sweeps the same way (kernels/sweep_ref_fwd.py). What no
+reference medium sweeps the same way (kernels/sweep_ref_fwd.py); a frame
+of it that repeats a grid and plan without autograd replays CUDA graphs
+of its layers, sweep and warp (_RefFrameGraphs). What no
 kernel covers (the reference medium with clamp or wrap addressing, a light
 volume of another shape than the grid's) takes the general sweep
 (_sweep_base), plain PyTorch like the JAX package's jnp sweep; the
@@ -39,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import LightConfig, MediumConfig, RenderConfig
 from ..kernels import sweep_fwd, sweep_ref_fwd
-from ..kernels.build import bf16_round
+from ..kernels.build import IdentityCache, bf16_round
 from ..utils import clock
 from ..utils.metrics import get_logger
 from .camera import Camera
@@ -745,6 +747,82 @@ def sweep_config(grid, cfg: RenderConfig, medium: MediumConfig, scroll,
     return grid, scroll, light_volume, general
 
 
+class _RefFrameGraphs:
+    """A 4-channel frame on the kernels as two CUDA graphs, captured from
+    the eager frame's own calls: the channel layers (sweep_ref_inputs) from
+    a static scroll, then K4 and finish_image from those layers. A replay
+    runs what an eager frame runs, on the same memory, with no host work
+    per kernel: two graph launches in place of ~80 launches from Python,
+    which pace an eager frame of this medium. The graphs read the grid in place (an in-place change of it is seen)
+    and hold it; the frame they return is a copy of their output, the
+    caller's to keep. A replay counts K4's launch in
+    sweep_ref_fwd.launches and records "sweep.ref_layers" (with its device
+    interval) and "sweep.ref_fwd" around the two graphs; "warp.fwd" is not
+    recorded on this path."""
+
+    def __init__(self, gperm4, plan, cfg, medium, light, scroll):
+        self.gperm4 = gperm4
+        self.scroll = None if scroll is None else torch.empty(
+            (4, 3), dtype=torch.float32, device=gperm4.device)
+        launches = sweep_ref_fwd.launches
+        self.layers, self.sweep = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.device(gperm4.device):
+            with torch.cuda.graph(self.layers,
+                                  capture_error_mode="thread_local"):
+                self.L, _, _, _, _, self.params = \
+                    sweep_ref_fwd.sweep_ref_inputs(gperm4, plan, cfg, medium,
+                                                   light, self.scroll)
+            with torch.cuda.graph(self.sweep, pool=self.layers.pool(),
+                                  capture_error_mode="thread_local"):
+                maps = sweep_ref_fwd.sweep_ref_apply(
+                    self.L, None, plan.slice_z, plan.v_grid, plan.seglen,
+                    self.params, plan, cfg, medium, light)
+                self.out = finish_image(maps, plan, cfg, medium, light=light)
+        self.k4 = sweep_ref_fwd.launches - launches  # captured, not run
+        sweep_ref_fwd.launches = launches
+
+    def replay(self, scroll):
+        with torch.cuda.device(self.gperm4.device):
+            if self.scroll is not None:
+                self.scroll.copy_(scroll)
+            with clock.span("sweep.ref_layers", device=self.gperm4):
+                self.layers.replay()
+            with clock.span("sweep.ref_fwd"):
+                self.sweep.replay()
+            sweep_ref_fwd.launches += self.k4
+            return self.out.clone()
+
+
+class _RefFrameEntry:
+    """A key's frames so far and, from its second, its graphs."""
+
+    def __init__(self):
+        self.seen, self.graphs = 0, None
+
+
+REF_FRAME_GRAPHS = 16  # keys (grid, plan, configuration) kept, oldest out
+_REF_FRAMES = IdentityCache(REF_FRAME_GRAPHS)
+
+
+def _ref_frame_entry(grid, plan, cfg, medium, light, scroll, lperm):
+    """The entry of a 4-channel kernel frame that may run as CUDA graphs
+    (_RefFrameGraphs), or None where it runs eagerly only: off CUDA, under
+    autograd, with light slabs, or with a configuration that does not hash
+    (a list in place of a tuple). A key's first two frames run eagerly;
+    the second captures the graphs, unless spans are being recorded, and
+    every later frame replays them. A camera rendered once (a new plan
+    every frame) never pays for a capture."""
+    if not grid.is_cuda or lperm is not None or (
+            torch.is_grad_enabled() and grid.requires_grad):
+        return None
+    try:
+        return _REF_FRAMES.get(
+            (grid, plan.slice_z, plan.v_grid, plan.u_grid, plan.seglen),
+            (cfg, medium, light, scroll is None), _RefFrameEntry)
+    except TypeError:  # the key does not hash
+        return None
+
+
 def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
                  medium: MediumConfig, light: Optional[LightConfig] = None,
                  scroll=None, light_volume=None, chunk: Optional[int] = None,
@@ -782,7 +860,11 @@ def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
     sends every configuration to the general sweep, on any device and
     without the log line; True raises NotImplementedError where no kernel
     covers the configuration. chunk: the general sweep's checkpointed
-    chunk of slices (None: about sqrt(S)); the kernels do not read it."""
+    chunk of slices (None: about sqrt(S)); the kernels do not read it.
+    A 4-channel kernel frame on a CUDA grid without autograd and without a
+    light volume replays CUDA graphs from the third frame of its grid,
+    plan and configuration on (_RefFrameGraphs): the same kernels on the
+    same memory, bit for bit the eager frame."""
     grid, scroll, light_volume, general = sweep_config(
         grid, cfg, medium, scroll, light_volume)
     if use_kernels and general is not None:
@@ -803,9 +885,20 @@ def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
                                 plan.v_grid, plan.u_grid, plan.seglen, plan,
                                 cfg, medium, light, scroll, chunk=chunk)
     elif medium.combine == "reference":
+        entry = _ref_frame_entry(grid, plan, cfg, medium, light, scroll,
+                                 lperm)
+        if entry is not None and entry.graphs is not None:
+            return entry.graphs.replay(scroll)
         base_maps = sweep_ref_fwd.sweep_base_ref(
             grid.permute(perm), plan, cfg, medium, light, scroll,
             lperm=lperm)
+        out = finish_image(base_maps, plan, cfg, medium, light=light)
+        if entry is not None:
+            entry.seen += 1
+            if entry.seen >= 2 and not clock.recording():
+                entry.graphs = _RefFrameGraphs(grid.permute(perm), plan, cfg,
+                                               medium, light, scroll)
+        return out
     else:
         base_maps = sweep_fwd.sweep_base(grid.permute(perm), plan, cfg,
                                          medium, light, lperm=lperm)

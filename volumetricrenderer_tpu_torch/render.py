@@ -17,8 +17,10 @@ implementation:
       RenderConfig(dtype="bfloat16") selects their bfloat16 stream mode.
     * "reference": the per-ray oracle of the same sliced integral
       (ops/integrate.render_rays_sliced).
-  quadrature "fixed" (the `reference` preset): the per-ray fixed-step march
-  (ops/integrate.render_rays), a Python loop of gathers per step.
+  quadrature "fixed" (the `reference` preset as it is defined): the per-ray
+  fixed-step march (ops/integrate.render_rays), a Python loop of gathers
+  per step. The same preset with quadrature "sliced" (`cli render`,
+  `animate`, `serve --quadrature sliced`) takes the 4-channel sweep.
   backend "auto" takes the sweep for "sliced", falling back (loudly) to the
   per-ray march when the camera admits no sweep axis, and the march for
   "fixed".
@@ -234,8 +236,9 @@ def render_preset(preset: Preset, t: float = 0.0, grid=None,
     passes device="cpu" gets the CPU. A `grid` passed in is rendered on its
     own device. The single-channel presets' (D, H, W, 1) grids take the
     single-channel sweep kernels (ops/sweep.sweep_render), config 3 bakes
-    its scene and takes them too, and the `reference` preset
-    (quadrature="fixed") marches per ray."""
+    its scene and takes them too, and the `reference` preset marches per
+    ray under its own quadrature ("fixed") and takes the 4-channel sweep
+    kernels under quadrature "sliced"."""
     dev = torch.device(device) if grid is None else grid.device
     cam = make_camera(preset.camera)
     if grid is None and preset.scene:

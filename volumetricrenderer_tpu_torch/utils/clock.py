@@ -39,7 +39,7 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["Clock", "sync", "device_timer", "Span", "span", "root",
-           "tracing", "spans", "clear_spans", "MAX_SPANS"]
+           "tracing", "recording", "spans", "clear_spans", "MAX_SPANS"]
 
 
 class Clock:
@@ -202,6 +202,12 @@ class _Active:
         _records.append((self.name, self.id, self.parent, self.request,
                          self.thread, self.t0, t1, self.events))
         return False
+
+
+def recording() -> bool:
+    """Whether a span entered now is active: a torch profiler runs or a
+    tracing() block is open."""
+    return bool(_tracing or _autograd_profiler._is_profiler_enabled)
 
 
 def span(name: str, device=False):
