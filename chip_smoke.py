@@ -6,10 +6,11 @@ one GPU: the kernel table of PERF.md §6.
 
 1. device: requires a CUDA GPU; prints the card's name and power limit as
    nvidia-smi reports them;
-2. build: compiles the six libraries (kernels/csrc/sweep_fwd.cu K1,
+2. build: compiles the seven libraries (kernels/csrc/sweep_fwd.cu K1,
    sweep_bwd.cu K2, sweep_ref_fwd.cu K4, sweep_ref_bwd.cu K5,
-   light_sweep.cu L, adam_clamp.cu A) and prints nvcc's ptxas report of
-   each: registers per instantiation and spill stores;
+   light_sweep.cu L, adam_clamp.cu A, warp_bilinear.cu W) and prints
+   nvcc's ptxas report of each: registers per instantiation and spill
+   stores;
 3. times each kernel alone with CUDA events (the median of TIMED_RUNS
    launches after WARMUP), beside its plain PyTorch version and the least
    time the card could take for the same work (its bound, below):
@@ -27,21 +28,33 @@ one GPU: the kernel table of PERF.md §6.
      plain version's (torch.optim.Adam's foreach step, then clamp_), each
      as many calls; bound by bytes, 28 B a voxel
      (benchmark/optimizer_roofline.py);
+   - W, the screen warp's kernel pair (warp_bilinear.cu), at config 5's
+     plan (512^3 at 1920x1080 from (3, 3, 3)) and config 3's (256^3 at
+     1024^2): the forward with the miss select and the backward that
+     splats the in-footprint pixels, each beside its plain version
+     (warp_reference, splat_reference: the torch ops the warp ran before
+     the kernels) and the library's F.grid_sample, all timed on the card
+     alone with the host's part hidden, the kernel's calls also with it,
+     the SM clock sampled meanwhile; bound by bytes, each way the two
+     maps, the two output channels or cotangents and the base once;
 4. holds each kernel's output at those settings to its plain version's on
    the same inputs (the last timed plain call's): base maps at rtol 2e-4,
    atol 2e-5, gradients at rtol 2e-4, atol 2e-4 of their largest (the -m
    gpu suite's tolerances), L's forward bit for bit and its adjoint to
    light_sweep_adjoint_reference; A's grid and moments after its calls bit
-   for bit to the plain version's after as many; K4/K5 at 256^3 x 4 have
-   no plain call;
+   for bit to the plain version's after as many; W's forward bit for bit
+   (F.grid_sample's within 1e-3 of it in the footprint), its backward at
+   the gradients' tolerance, and its count of splatted pixels equal to
+   the footprint's; K4/K5 at 256^3 x 4 have no plain call;
 5. counts launches: every timed call must move its kernel's counter by
    one, so a time is a kernel's; and one frame and one training step of
    render_image at each setting above (not 256^3 x 4), every counter
    zeroed first, must launch one forward kernel a frame, one forward and
-   one backward a step, and with light one L forward a frame and one
-   forward and one adjoint a step; and one fit_grid step at the flagship
-   must launch K1, K2 and A once each: the JSON's "launches" are those
-   passes'.
+   one backward a step, W's forward once a frame and its backward once a
+   step, and with light one L forward a frame and one forward and one
+   adjoint a step; and one fit_grid step at the flagship must launch K1,
+   K2, A and W's forward and backward once each: the JSON's "launches"
+   are those passes'.
 
 The wider checks, at small shapes and along every path, are the -m gpu
 suite's, tests/test_torch_gpu.py; this script exits at its first fail().
@@ -78,12 +91,14 @@ from volumetricrenderer_tpu_torch.fit import fit_grid
 from volumetricrenderer_tpu_torch.kernels import (adam_clamp, light_sweep,
                                                   sweep_bwd, sweep_fwd,
                                                   sweep_ref_bwd,
-                                                  sweep_ref_fwd)
+                                                  sweep_ref_fwd,
+                                                  warp_bilinear)
 from volumetricrenderer_tpu_torch.ops.lighting import light_sweep_geometry
 
 TIMED_RUNS, WARMUP = 12, 2
 RTOL, ATOL, BWD_TOL = 2e-4, 2e-5, 2e-4  # tests/test_torch_gpu.py's
 PLAIN_RUNS = 3
+HIDE_HOST_CYCLES = 4_000_000  # ~2 ms of the card's spin at 1980 MHz
 WIDTH, HEIGHT, VOLUME = 1920, 1080, 256
 BF16 = torch.bfloat16
 SCROLL_SEED = 5
@@ -129,10 +144,15 @@ def fail(msg):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, count=None, runs=TIMED_RUNS, warmup=WARMUP):
+def cuda_ms(fn, count=None, runs=TIMED_RUNS, warmup=WARMUP,
+            hide_host=False):
     """(median milliseconds of fn() between CUDA events after warm-up, the
     last call's result). count() is the launches of the kernel fn
-    launches: every call must add one."""
+    launches: every call must add one. The events bracket the host's part
+    of the call too, where the card waits for it; with hide_host a spin of
+    the card (HIDE_HOST_CYCLES) is queued before the first event, so the
+    call's launches are queued before the card reaches them and the time
+    is the card's alone."""
     before = count() if count else 0
     for _ in range(warmup):
         fn()
@@ -140,6 +160,8 @@ def cuda_ms(fn, count=None, runs=TIMED_RUNS, warmup=WARMUP):
     for _ in range(runs):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
         e0.record()
         out = fn()
         e1.record()
@@ -176,17 +198,19 @@ def check(got, want, what, grad=False):
 def zero_counts():
     for mod, _, _ in KERNELS.values():
         mod.launches = 0
-    for kind in light_sweep.launches:
-        light_sweep.launches[kind] = 0
+    for counts in (light_sweep.launches, warp_bilinear.launches):
+        for kind in counts:
+            counts[kind] = 0
 
 
 def path_launches(label, grid, cam, cfg, medium, light=None, scroll=None):
     """The launches of one render_image frame and one training step (the
     sum of rgb^2, backward to the grid), every counter zeroed first:
-    (K1, K2, K4, K5, L forward, L adjoint). Fails unless the frame
-    launches one forward kernel, the step one forward and one backward,
-    and with light one L forward a frame and one forward and one adjoint
-    a step."""
+    (K1, K2, K4, K5, L forward, L adjoint, W forward, W backward). Fails
+    unless the frame launches one forward kernel, the step one forward and
+    one backward, each of the two one W forward and the step one W
+    backward, and with light one L forward a frame and one forward and one
+    adjoint a step."""
     zero_counts()
     with torch.no_grad():
         render_image(grid, cam, cfg, medium, light, scroll=scroll)
@@ -195,10 +219,12 @@ def path_launches(label, grid, cam, cfg, medium, light=None, scroll=None):
         .sum().backward()
     torch.cuda.synchronize()
     got = tuple(mod.launches for mod, _, _ in KERNELS.values()) + (
-        light_sweep.launches["forward"], light_sweep.launches["adjoint"])
+        light_sweep.launches["forward"], light_sweep.launches["adjoint"],
+        warp_bilinear.launches["forward"], warp_bilinear.launches["backward"])
     lit = (0, 0) if light is None else (2, 1)
-    want = ((2, 1, 0, 0) if grid.dim() == 3 else (0, 0, 2, 1)) + lit
-    log(f"launches, {label} (K1, K2, K4, K5, L forward, L adjoint): {got}")
+    want = ((2, 1, 0, 0) if grid.dim() == 3 else (0, 0, 2, 1)) + lit + (2, 1)
+    log(f"launches, {label} (K1, K2, K4, K5, L forward, L adjoint, W "
+        f"forward, W backward): {got}")
     if got != want:
         fail(f"{label}: a frame and a step launched {got}, not {want}")
     return got
@@ -206,24 +232,29 @@ def path_launches(label, grid, cam, cfg, medium, light=None, scroll=None):
 
 def fit_step_launches(grid, cam, cfg, medium):
     """The launches of one fit_grid step from `grid` against a zero target,
-    every counter zeroed first: (K1, K2, A). Fails unless each is one."""
+    every counter zeroed first: (K1, K2, A, W forward, W backward). Fails
+    unless each is one."""
     zero_counts()
     adam_clamp.launches = 0
     target = torch.zeros((cam.height, cam.width, 3), device=grid.device)
     fit_grid(target, cam, cfg, medium, init_grid=grid, steps=1)
     torch.cuda.synchronize()
-    got = (sweep_fwd.launches, sweep_bwd.launches, adam_clamp.launches)
-    log(f"launches, one fit step at the flagship (K1, K2, A): {got}")
-    if got != (1, 1, 1):
-        fail(f"a fit step launched {got}, not (1, 1, 1)")
+    got = (sweep_fwd.launches, sweep_bwd.launches, adam_clamp.launches,
+           warp_bilinear.launches["forward"],
+           warp_bilinear.launches["backward"])
+    log(f"launches, one fit step at the flagship (K1, K2, A, W forward, W "
+        f"backward): {got}")
+    if got != (1,) * 5:
+        fail(f"a fit step launched {got}, not {(1,) * 5}")
     return got
 
 
 def build_all():
-    """Build the six libraries at once, one nvcc each: {name: info}."""
+    """Build the seven libraries at once, one nvcc each: {name: info}."""
     mods = {name: mod for name, (mod, _, _) in KERNELS.items()}
     mods["light_sweep"] = light_sweep
     mods["adam_clamp"] = adam_clamp
+    mods["warp_bilinear"] = warp_bilinear
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         jobs = {name: pool.submit(mod.build_kernel)
                 for name, mod in mods.items()}
@@ -445,6 +476,118 @@ def adam_timings(size, dev):
             "bound_ms": 28 * grid0.numel() / PEAK_BYTES * 1e3}
 
 
+class SmClocks:
+    """The card's SM clock in MHz, sampled by nvidia-smi every 20 ms while
+    the block runs, after a spin of the card of about half a second that
+    covers nvidia-smi's start: .mhz (min, median, max, samples), or None
+    if nvidia-smi gave no sample."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "20", "-i", "0"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        torch.cuda._sleep(1_000_000_000)
+        torch.cuda.synchronize()
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        mhz = sorted(int(x) for x in out.split() if x.isdigit())
+        self.mhz = ((mhz[0], statistics.median(mhz), mhz[-1], len(mhz))
+                    if mhz else None)
+        return False
+
+
+def warp_timings(size, width, height, dev):
+    """W at a fit cell's plan (the cloud's size^3 grid at width x height
+    from (3, 3, 3)), on a seeded (Hb, Wb, 2) base and seeded normal
+    cotangents, miss (0, 1): the kernel forward and backward (the backward
+    alone, from the saved maps, as _WarpBilinear's backward calls it),
+    their plain versions and the library's warp, F.grid_sample (bilinear,
+    border, align_corners=False: the same clip-then-tent taps, on a
+    channel-first copy of the base made once, without the miss select;
+    its backward alone from a kept graph, which splats every pixel), each
+    timed on the card alone (hide_host), and the kernel's calls also with
+    the host's part (call_ms, as row A's), with the SM clock sampled
+    meanwhile; the forward held bit for bit to the plain version and the
+    library's to within 1e-3, the gradient at the gradients' tolerance,
+    the count of splatted pixels to the footprint's. Bound by bytes, each
+    way: 8 B of maps and 8 B of output or cotangent a pixel, and the
+    base's 8 B a texel once."""
+    import torch.nn.functional as F
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    cam = make_camera(CameraConfig(width=width, height=height))
+    plan = plan_for(cam, (size,) * 3, cfg, device=dev)
+    rows, cols = plan.warp_rows01, plan.warp_cols01
+    shape = tuple(plan.base_shape) + (2,)
+    base = seeded(shape, 11, dev, 0.0, 1.0)
+    ct = torch.randn(tuple(rows.shape) + (2,), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(12))
+    miss = (0.0, 1.0)
+    miss_t = torch.tensor(miss, device=dev)
+
+    def count(kind):
+        return lambda: warp_bilinear.launches[kind]
+
+    def fwd():
+        return warp_bilinear.launch_forward(base, rows, cols, miss)
+
+    def bwd():
+        return warp_bilinear.launch_backward(ct, rows, cols, shape, True)
+    lib_base = base.permute(2, 0, 1)[None].contiguous().requires_grad_()
+    lib_grid = torch.stack([2.0 * cols - 1.0, 2.0 * rows - 1.0], -1)[None]
+    lib_ct = ct.permute(2, 0, 1)[None].contiguous()
+
+    def lib_fwd():
+        return F.grid_sample(lib_base, lib_grid, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+    lib_out = lib_fwd()
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, lib_base, lib_ct,
+                                   retain_graph=True)[0]
+    with SmClocks() as clocks:
+        ms, got = cuda_ms(fwd, count("forward"), hide_host=True)
+        bwd_ms, grad = cuda_ms(bwd, count("backward"), hide_host=True)
+        call_ms, _ = cuda_ms(fwd, count("forward"))
+        call_bwd_ms, _ = cuda_ms(bwd, count("backward"))
+        with torch.no_grad():
+            lib_ms, lib_got = cuda_ms(lib_fwd, hide_host=True)
+        lib_bwd_ms, _ = cuda_ms(lib_bwd, hide_host=True)
+    splatted, given = warp_bilinear.splat_pixels()
+    plain_ms, want = cuda_ms(lambda: warp_bilinear.warp_reference(
+        base, rows, cols, miss_t), runs=PLAIN_RUNS, warmup=1, hide_host=True)
+    plain_bwd_ms, want_grad = cuda_ms(lambda: warp_bilinear.splat_reference(
+        ct, rows, cols, shape, True), runs=PLAIN_RUNS, warmup=1,
+        hide_host=True)
+    if not torch.equal(got, want):
+        fail(f"warp at {size}^3, {width}x{height}: the forward differs from "
+             f"its plain version by up to "
+             f"{float((got - want).abs().max()):.3e}")
+    inr = (warp_bilinear.in01(rows) & warp_bilinear.in01(cols))[..., None]
+    lib_err = float(torch.where(inr, lib_got[0].permute(1, 2, 0) - got,
+                                0.0).abs().max())
+    if not lib_err <= 1e-3:
+        fail(f"warp at {size}^3, {width}x{height}: F.grid_sample differs "
+             f"from the kernel by {lib_err:.3e} in the footprint")
+    footprint = int(inr.sum())
+    if (splatted, given) != (footprint, rows.numel()):
+        fail(f"warp at {size}^3, {width}x{height}: splatted {splatted} of "
+             f"{given} pixels, the footprint holds {footprint}")
+    err = check(grad, want_grad, f"warp backward at {size}^3", grad=True)
+    nbytes = rows.numel() * 16 + base.numel() * 4
+    return {"plan": f"{size}^3 {width}x{height}",
+            "base_shape": list(shape[:2]), "pixels": rows.numel(),
+            "footprint_pixels": footprint, "ms": ms, "bwd_ms": bwd_ms,
+            "call_ms": call_ms, "call_bwd_ms": call_bwd_ms,
+            "plain_ms": plain_ms, "plain_bwd_ms": plain_bwd_ms,
+            "library_ms": lib_ms, "library_bwd_ms": lib_bwd_ms,
+            "library_max_abs_diff": lib_err, "sm_mhz": clocks.mhz,
+            "max_abs_err": err, "bound_ms": nbytes / PEAK_BYTES * 1e3}
+
+
 def entry(name, regs, rows, launches):
     """A kernel's JSON entry from its timings by setting and its launches
     on the counted passes."""
@@ -526,7 +669,7 @@ def main():
             ("reference with shadows", grid4, cam4, REF_SHADOW_MEDIUM,
              CONFIG4_LIGHT, scroll))
         for low in (False, True)]
-    launches = [sum(c[k] for c in counted) for k in range(6)]
+    launches = [sum(c[k] for c in counted) for k in range(8)]
 
     # 4. K1 and K2: the flagship, and config 4's orbit frame 0 with light.
     plan = plan_for(cam, grid.shape, cfg, device=dev)
@@ -594,7 +737,26 @@ def main():
             f"{a['plain_ms']:.3f} ms; grid and moments equal to it bit for "
             f"bit")
 
-    # 8. Results.
+    # 8. W at config 5's and config 3's plans.
+    warps = [warp_timings(512, WIDTH, HEIGHT, dev),
+             warp_timings(256, 1024, 1024, dev)]
+    for w in warps:
+        log(f"[{gpu_line}] warp_bilinear at {w['plan']} (base "
+            f"{tuple(w['base_shape'])}, {w['footprint_pixels']} of "
+            f"{w['pixels']} pixels in the footprint): forward {w['ms']:.4f} "
+            f"ms, backward {w['bwd_ms']:.4f} ms against a bound of "
+            f"{w['bound_ms']:.4f} ms each (bytes; shares "
+            f"{w['bound_ms'] / w['ms']:.4f}, "
+            f"{w['bound_ms'] / w['bwd_ms']:.4f}); the calls with their host "
+            f"part {w['call_ms']:.4f} and {w['call_bwd_ms']:.4f} ms; SM clock "
+            f"meanwhile (min, median, max MHz; samples) {w['sm_mhz']}; plain version "
+            f"{w['plain_ms']:.4f} ms and {w['plain_bwd_ms']:.4f} ms; "
+            f"F.grid_sample {w['library_ms']:.4f} ms and "
+            f"{w['library_bwd_ms']:.4f} ms (within "
+            f"{w['library_max_abs_diff']:.3e}); forward equal to the plain "
+            f"version bit for bit, gradient within {w['max_abs_err']:.3e}")
+
+    # 9. Results.
     results = []
     for k, name in enumerate(KERNELS):
         report(gpu_line, name, rows[name])
@@ -622,6 +784,18 @@ def main():
            for size, a in adam.items()},
         "bound_by": "bytes", "library_ms": None, "registers": n_regs,
         "spill_bytes": spill})
+    n_regs, spill = regs["warp_bilinear"]
+    results.append({
+        "name": "warp_bilinear", "route": "cuda",
+        "source": "volumetricrenderer_tpu_torch/kernels/csrc/"
+                  "warp_bilinear.cu",
+        "replaces": None, "launches": launches[6] + launches[7],
+        "launches_backward": launches[7],
+        "fit_step_launches": list(fit_launches[3:]),
+        "max_abs_err": max(w["max_abs_err"] for w in warps),
+        "plans": warps, "bound_by": "bytes",
+        "library_ms": [w["library_ms"] for w in warps],
+        "registers": n_regs, "spill_bytes": spill})
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {

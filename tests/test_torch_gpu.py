@@ -1874,39 +1874,144 @@ def _flagship_plan(dev):
     return cam, cfg, plan_for(cam, (256, 256, 256), cfg, device=dev)
 
 
+# The warp's plans (camera, grid, rows of the band or None) and the pixels
+# in their base footprint, counted from the same plans on the CPU: the
+# flagship (256^3 at 1920x1080), config 3's (256^3 at 1024^2 from (3, 3,
+# 3)), config 5's (512^3 at 1920x1080), and one row band of the flagship's.
+WARP_PLANS = {
+    "flagship": ((1920, 1080), 256, None, 567100),
+    "config3": ((1024, 1024), 256, None, 487482),
+    "config5": ((1920, 1080), 512, None, 568190),
+    "flagship band": ((1920, 1080), 256, (270, 540), None),
+}
+
+
 @pytest.mark.gpu
-def test_warp_adjoint_at_flagship_width(cuda):
-    """At the flagship's plan (1536^2 base, 1920x1080, the two channels
-    the warp carries): the op's forward equals the four gathers bit for
-    bit, with and without the miss mask, and the base gradient through
-    warp_base_to_pixels equals autograd of the masked gathers within 1e-6
-    of the largest (the two sum a texel's taps in another order). The
-    mask gives out-of-footprint pixels a zero cotangent, as the op
-    requires: there every pixel takes an edge texel, whose sum of
-    hundreds of thousands of taps would differ by its order alone."""
-    from volumetricrenderer_tpu_torch.ops.sweep import _WarpBilinear, \
-        _in01, warp_base_to_pixels
-    _, _, plan = _flagship_plan(cuda)
+@pytest.mark.parametrize("miss", [(0.0, 1.0), None])
+@pytest.mark.parametrize("name", list(WARP_PLANS))
+def test_warp_adjoint_at_flagship_width(cuda, name, miss):
+    """At the flagship's, config 3's and config 5's plans and a row band of
+    the flagship's (the two channels the warp carries), with the miss
+    select and without: the kernel forward (one launch) equals the four
+    gathers, and the where, bit for bit; the kernel backward (one launch)
+    gives the base gradient of autograd of the same expression within
+    1e-6 of its largest (the two sum a texel's taps in another order), and
+    splat_pixels() counts the footprint's pixels with the miss, every pixel
+    without. The cotangent is seeded normal in the footprint; outside it,
+    seeded normal too with the miss (whose select zeroes it, so the kernel
+    must add none of it) and zero without: there every pixel takes an edge
+    texel, whose sum of tens of thousands of taps would differ by its order
+    alone (test_warp_splats_every_pixel_without_a_miss holds those adds)."""
+    from volumetricrenderer_tpu_torch.kernels import warp_bilinear
+    from volumetricrenderer_tpu_torch.ops.sweep import _in01, \
+        warp_base_to_pixels
+    (width, height), size, band, footprint = WARP_PLANS[name]
+    cfg = RenderConfig(emission=True, quadrature="sliced")
+    plan = plan_for(make_camera(CameraConfig(width=width, height=height)),
+                    (size,) * 3, cfg, device=cuda)
+    if band is not None:
+        plan = dataclasses.replace(
+            plan, warp_rows01=plan.warp_rows01[band[0]:band[1]],
+            warp_cols01=plan.warp_cols01[band[0]:band[1]])
+    rows, cols = plan.warp_rows01, plan.warp_cols01
+    inr = (_in01(rows) & _in01(cols))[..., None]
+    if footprint is not None:
+        assert int(inr.sum()) == footprint
     gen = torch.Generator(device=cuda).manual_seed(4)
     base = torch.rand(plan.base_shape + (2,), generator=gen, device=cuda)
-    ct = torch.randn(tuple(plan.warp_rows01.shape) + (2,), generator=gen,
-                     device=cuda)
-    rows, cols = plan.warp_rows01, plan.warp_cols01
-    assert torch.equal(_WarpBilinear.apply(base, rows, cols),
-                       _four_gathers(base, rows, cols))
-    inr = (_in01(rows) & _in01(cols))[..., None]
-    miss = torch.tensor((0.0, 1.0), device=cuda)
+    ct = torch.randn(tuple(rows.shape) + (2,), generator=gen, device=cuda)
+    if miss is None:
+        ct = torch.where(inr, ct, 0.0)
     b1 = base.clone().requires_grad_()
     b2 = base.clone().requires_grad_()
-    got = warp_base_to_pixels(b1, plan, miss=(0.0, 1.0))
-    want = torch.where(inr, _four_gathers(b2, rows, cols), miss)
+    before = dict(warp_bilinear.launches)
+    got = warp_base_to_pixels(b1, plan, miss=miss)
+    want = _four_gathers(b2, rows, cols)
+    if miss is not None:
+        want = torch.where(inr, want, torch.tensor(miss, device=cuda))
     assert torch.equal(got, want)
     got.backward(ct)
     want.backward(ct)
+    torch.cuda.synchronize()
+    assert warp_bilinear.launches == {"forward": before["forward"] + 1,
+                                      "backward": before["backward"] + 1}
+    assert warp_bilinear.splat_pixels() == (
+        int(inr.sum()) if miss is not None else rows.numel(), rows.numel())
     scale = float(b2.grad.abs().max())
     assert scale > 0.0
     torch.testing.assert_close(b1.grad, b2.grad, rtol=0.0,
                                atol=1e-6 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+def test_warp_splats_every_pixel_without_a_miss(cuda, channels):
+    """Without a miss the kernel pair takes every pixel, the out-of-
+    footprint ones at their clamped edge texels: at a small plan (the
+    sweep tests' first eye at 96x64, 1,428 of its 6,144 pixels outside) with
+    1 to 4 channels and a cotangent seeded normal everywhere, the forward
+    equals the plain version bit for bit and the gradient equals it to the
+    suite's tolerance for atomic sums (BWD_TOL); with a scalar miss the
+    same holds and the outside pixels take it."""
+    from volumetricrenderer_tpu_torch.kernels import warp_bilinear
+    from volumetricrenderer_tpu_torch.ops.sweep import _in01, \
+        warp_base_to_pixels
+    _, cfg, plan, _ = _setup(cuda, EYES[0][0], True)
+    rows, cols = plan.warp_rows01, plan.warp_cols01
+    inr = (_in01(rows) & _in01(cols))[..., None]
+    assert 0 < int(inr.sum()) < rows.numel()
+    gen = torch.Generator(device=cuda).manual_seed(channels)
+    base = torch.rand(plan.base_shape + (channels,), generator=gen,
+                      device=cuda)
+    ct = torch.randn(tuple(rows.shape) + (channels,), generator=gen,
+                     device=cuda)
+    for miss in (None, 0.25):
+        b = base.clone().requires_grad_()
+        got = warp_base_to_pixels(b, plan, miss=miss)
+        grad, = torch.autograd.grad(got, b, ct)
+        want = warp_bilinear.warp_reference(
+            base, rows, cols,
+            None if miss is None else torch.tensor(miss, device=cuda))
+        assert torch.equal(got, want)
+        assert warp_bilinear.splat_pixels() == (
+            rows.numel() if miss is None else int(inr.sum()), rows.numel())
+        want_grad = warp_bilinear.splat_reference(
+            ct, rows, cols, tuple(base.shape), miss is not None)
+        torch.testing.assert_close(
+            grad, want_grad, rtol=BWD_TOL,
+            atol=BWD_TOL * float(want_grad.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,match", [
+    ("float64 base", "base must be float32"),
+    ("bfloat16 base", "base must be float32"),
+    ("float64 maps", "rows01 must be float32"),
+    ("five channels", "1 <= C <= 4")])
+def test_warp_on_the_card_refuses_what_the_kernel_cannot_take(cuda, case,
+                                                              match):
+    """On a CUDA base the warp is the kernel or a ValueError, never the
+    plain version's torch ops: a base or maps not float32, or more than 4
+    channels, are refused before anything is launched or counted."""
+    from volumetricrenderer_tpu_torch.kernels import warp_bilinear
+    from volumetricrenderer_tpu_torch.ops.sweep import warp_base_to_pixels
+    _, _, plan, _ = _setup(cuda, EYES[0][0], True)
+    channels = 5 if case == "five channels" else 2
+    base = torch.rand(plan.base_shape + (channels,), device=cuda)
+    if case == "float64 base":
+        base = base.double()
+    elif case == "bfloat16 base":
+        base = base.bfloat16()
+    elif case == "float64 maps":
+        plan = dataclasses.replace(plan,
+                                   warp_rows01=plan.warp_rows01.double(),
+                                   warp_cols01=plan.warp_cols01.double())
+    before = dict(warp_bilinear.launches)
+    with pytest.raises(ValueError, match=match):
+        warp_base_to_pixels(base.requires_grad_(), plan,
+                            miss=(0.0,) * channels)
+    torch.cuda.synchronize()
+    assert warp_bilinear.launches == before
 
 
 @pytest.mark.gpu
@@ -2862,8 +2967,8 @@ RUNNER_KEYS = {
                 "mrays_per_s_fwd_bwd peak_memory_gib warmup_runs",
     "serve_local": "states iters init_s plan_build_s ms_per_frame_device "
                    "fps_device_paced ms_per_round_all warmup_runs",
-    "measure_warp": "base_shape moveaxis_only ms_fwd ms_fwd_bwd splat_ms_all "
-                    "splat_ms_footprint pixels footprint_pixels",
+    "measure_warp": "base_shape moveaxis_only ms_fwd ms_fwd_bwd pixels "
+                    "footprint_pixels",
     "trace_flagship": "wall_ms_per_step busy_ms_per_step idle_share top_ops "
                       "warmup_runs",
     "multichip": "n_devices mesh loss ok launches_per_rank total_s",

@@ -84,9 +84,8 @@ SMALL = {  # each runner's size cut, and the keys of its line
         {"VOLT_W_FRAMES": "2", "VOLT_W_ITERS": "1", "VOLT_W_VOLUME": "16",
          "VOLT_W_WIDTH": "48", "VOLT_W_HEIGHT": "32"},
         ("base_shape", "channels", "moveaxis_only", "ms_fwd", "host_ms_fwd",
-         "ms_fwd_bwd", "host_ms_fwd_bwd", "splat_ms_all",
-         "splat_ms_footprint", "splat_ms_own_texels", "pixels",
-         "footprint_pixels", "warmup_runs")),
+         "ms_fwd_bwd", "host_ms_fwd_bwd", "pixels", "footprint_pixels",
+         "warmup_runs")),
     "trace_flagship": (
         {"V": "16", "W": "48", "H": "32", "K": "2"},
         ("volume", "width", "height", "steps", "fwd_only", "base_shape",

@@ -40,8 +40,9 @@ from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from ..config import LightConfig, MediumConfig, RenderConfig
-from ..kernels import sweep_fwd, sweep_ref_fwd
+from ..kernels import sweep_fwd, sweep_ref_fwd, warp_bilinear
 from ..kernels.build import IdentityCache, bf16_round
+from ..kernels.warp_bilinear import in01 as _in01
 from ..utils import clock
 from ..utils.metrics import get_logger
 from .camera import Camera
@@ -389,67 +390,51 @@ def _device_const(values, dtype, device):
     return torch.tensor(values, dtype=dtype, device=device)
 
 
-def _in01(x):
-    return (x >= 0.0) & (x <= 1.0)
-
-
-def _taps(q01, n):
-    """Clip-then-tent bilinear taps along one base axis: the position
-    clips to [0, n-1] texel units first, so an out-of-range position
-    takes the edge texel with weight 1 (the JAX warp's _tap_weights)."""
-    p = torch.clamp(q01 * n - 0.5, 0.0, float(n - 1))
-    i0f = torch.floor(p)
-    i0 = i0f.to(torch.int64)
-    return i0, torch.clamp(i0 + 1, max=n - 1), (p - i0f)[..., None]
-
-
 class _WarpBilinear(torch.autograd.Function):
     """The bilinear warp base (Hb, Wb, C) -> (H, W, C) at the per-pixel
-    base coordinates (rows01, cols01), with its adjoint written out: the
-    port of the JAX package's custom VJP (_warp_bilinear, its
-    _warp_bilinear_fwd and _warp_bilinear_bwd, the splat _splat_windowed;
-    warp_band for one band of pixel rows in the sharded path, which here is
-    the same op on a row-sliced plan). Autograd of the gather would splat
-    with index_put_ and accumulate, a sort-based scatter.
+    base coordinates (rows01, cols01), with the miss select and its
+    adjoint written out: the port of the JAX package's custom VJP
+    (_warp_bilinear, its _warp_bilinear_fwd and _warp_bilinear_bwd, the
+    splat _splat_windowed; warp_band for one band of pixel rows in the
+    sharded path, which here is the same op on a row-sliced plan) and of
+    the where around it. Autograd of the gather would splat with
+    index_put_ and accumulate, a sort-based scatter.
 
-    Forward: the 4-tap gather of clip-then-tent taps (_taps). Saved: the
-    base's shape and the two coordinate maps, as in JAX; the backward
-    recomputes the taps. Backward: the pixel cotangents splatted into the
-    base with the same four weights (index_add_, atomics on CUDA, so the
-    last bits of a texel's sum follow the order its adds land in); zero
-    for the coordinates. Out-of-footprint pixels get a clamped edge sample
-    and its adjoint here; warp_base_to_pixels gives them `miss`, and so a
-    zero cotangent, outside this op, as JAX does (whose backward requires
-    that zero). Reverse mode only, as a jax.custom_vjp. The backward is
-    the span "warp.splat", with its device interval."""
+    Forward: the 4-tap gather of clip-then-tent taps (kernels/
+    warp_bilinear.py taps); with `miss` (C floats, or None), out-of-
+    footprint pixels take it. Saved: the base's shape and the two
+    coordinate maps, as in JAX; the backward recomputes the taps.
+    Backward: the pixel cotangents splatted into the base with the same
+    four weights (atomics on CUDA, so the last bits of a texel's sum
+    follow the order its adds land in); with `miss`, out-of-footprint
+    pixels have a zero cotangent and add nothing; zero for the
+    coordinates. Reverse mode only, as a jax.custom_vjp. On a CUDA base
+    each way is one kernel (kernels/warp_bilinear.py), which refuses what
+    it cannot take (a base or maps not float32, more than 4 channels); on
+    a CPU base, its plain version. The backward is the span "warp.splat",
+    with its device interval."""
 
     @staticmethod
-    def forward(ctx, base, rows01, cols01):
-        Hb, Wb = base.shape[:2]
-        r0, r1, fr = _taps(rows01, Hb)
-        c0, c1, fc = _taps(cols01, Wb)
+    def forward(ctx, base, rows01, cols01, miss):
         ctx.save_for_backward(rows01, cols01)
-        ctx.base_shape = base.shape
-        return ((1.0 - fc) * ((1.0 - fr) * base[r0, c0] + fr * base[r1, c0])
-                + fc * ((1.0 - fr) * base[r0, c1] + fr * base[r1, c1]))
+        ctx.base_shape, ctx.masked = base.shape, miss is not None
+        ctx.kernel = base.device.type != "cpu"
+        if ctx.kernel:
+            return warp_bilinear.launch_forward(base, rows01, cols01, miss)
+        return warp_bilinear.warp_reference(
+            base, rows01, cols01,
+            None if miss is None else _device_const(miss, base.dtype,
+                                                    base.device))
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct):
         with clock.span("warp.splat", device=ct):
             rows01, cols01 = ctx.saved_tensors
-            Hb, Wb, C = ctx.base_shape
-            r0, r1, fr = _taps(rows01, Hb)
-            c0, c1, fc = _taps(cols01, Wb)
-            # The products in the order autograd of the forward forms them.
-            left, right = ct * (1.0 - fc), ct * fc
-            flat = ct.new_zeros(Hb * Wb, C)
-            for r, c, w in ((r0, c0, left * (1.0 - fr)), (r1, c0, left * fr),
-                            (r0, c1, right * (1.0 - fr)),
-                            (r1, c1, right * fr)):
-                flat.index_add_(0, (r * Wb + c).reshape(-1),
-                                w.reshape(-1, C))
-            return flat.view(Hb, Wb, C), None, None
+            splat = (warp_bilinear.launch_backward if ctx.kernel
+                     else warp_bilinear.splat_reference)
+            return (splat(ct, rows01, cols01, ctx.base_shape, ctx.masked),
+                    None, None, None)
 
 
 def warp_base_to_pixels(base_img, plan: SweepPlan, miss=None):
@@ -458,18 +443,22 @@ def warp_base_to_pixels(base_img, plan: SweepPlan, miss=None):
     backward is the explicit 4-tap splat).
 
     Pixels mapping outside the base grid's [0, 1] footprint are guaranteed
-    box misses: they take the per-channel `miss` value."""
+    box misses: they take the `miss` value, a scalar or one per channel."""
     if plan.identity_warp:
         return base_img
     squeeze = base_img.dim() == 2
     if squeeze:
         base_img = base_img[..., None]
-    out = _WarpBilinear.apply(base_img, plan.warp_rows01, plan.warp_cols01)
     if miss is not None:
-        inr = (_in01(plan.warp_rows01) & _in01(plan.warp_cols01))[..., None]
-        key = miss if isinstance(miss, (int, float)) else tuple(miss)
-        out = torch.where(inr, out, _device_const(key, out.dtype,
-                                                  out.device))
+        miss = ((float(miss),) if isinstance(miss, (int, float))
+                else tuple(float(m) for m in miss))
+        if len(miss) == 1:
+            miss *= base_img.shape[-1]
+        if len(miss) != base_img.shape[-1]:
+            raise ValueError(f"warp_base_to_pixels: miss holds {len(miss)} "
+                             f"values for {base_img.shape[-1]} channels")
+    out = _WarpBilinear.apply(base_img, plan.warp_rows01, plan.warp_cols01,
+                              miss)
     return out[..., 0] if squeeze else out
 
 
