@@ -275,7 +275,7 @@ def test_cli_fit_preset_config5(tmp_path):
     """`fit --preset config5` at a 16^3 cloud and a 32x18 target: its
     artifacts, a non-square target and fitted image, checkpoints of the
     preset's grid size, and a resume that continues to the new step
-    count."""
+    count; `fit --preset reference` fits the four channels."""
     out = str(tmp_path / "run")
     args = ["fit", "--preset", "config5", "--size", "16", "--width", "32",
             "--height", "18", "--out-dir", out, "--device", "cpu"]
@@ -291,11 +291,13 @@ def test_cli_fit_preset_config5(tmp_path):
     with open(os.path.join(out, "metrics.jsonl")) as f:
         steps = [json.loads(line)["step"] for line in f]
     assert steps == [0, 1, 3]  # steps 0 and 1, then the resumed 2..3
-    # A preset that combines four channels has no single grid to fit.
-    with pytest.raises(SystemExit):
-        cli.main(["fit", "--preset", "reference", "--size", "8",
-                  "--steps", "1", "--out-dir", str(tmp_path / "ref"),
-                  "--device", "cpu"])
+    # The preset that combines four channels fits its (D, H, W, 4) grid.
+    ref = str(tmp_path / "ref")
+    assert cli.main(["fit", "--preset", "reference", "--size", "8",
+                     "--image-size", "12", "--steps", "1", "--out-dir", ref,
+                     "--device", "cpu"]) == 0
+    _, grid, _, _ = tckpt.restore_checkpoint(os.path.join(ref, "ckpt"))
+    assert grid.shape == (8, 8, 8, 4)
 
 
 def test_cli_fit_preset_sizes_and_default():

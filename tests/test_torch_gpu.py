@@ -437,6 +437,71 @@ def test_ref_frame_graphs_replay_the_eager_frame(cuda, monkeypatch,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("emission", [True, False])
+def test_ref_step_graphs_replay_the_eager_step(cuda, monkeypatch, emission):
+    """A 4-channel kernel frame under autograd without a scroll runs eagerly
+    twice per grid, plan and configuration and then replays the CUDA
+    graphs of its forward and backward (ops/sweep.py _RefStepGraphs): each
+    replayed frame equals the eager frame bit for bit, its gradient the
+    eager gradient (the splat's and K5's atomics apart), also after an
+    in-place change of the grid; a replay counts one K4, one K5 and one
+    layers' backward, returns a frame of its own, and records
+    "sweep.ref_layers" and "sweep.ref_layers_bwd" (with their device
+    intervals), "sweep.ref_fwd" and "sweep.ref_bwd" under clock.tracing();
+    with a scroll the step stays eager."""
+    from volumetricrenderer_tpu_torch.ops import sweep
+    from volumetricrenderer_tpu_torch.utils import clock
+    grid, cfg, plan, medium, _ = _ref_setup(cuda, EYES[0][0], emission)
+    cam = make_camera(CameraConfig(eye=EYES[0][0], width=96, height=64))
+    leaf = grid.clone().requires_grad_()
+    cts = [torch.tensor(np.random.default_rng(s).normal(size=(64, 96, 4)),
+                        dtype=torch.float32, device=cuda) for s in range(5)]
+
+    def step(g, ct, eager=False):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(sweep, "_ref_step_entry", lambda *a, **kw: None)
+            g.grad = None
+            img = render_image(g, cam, cfg, medium, plan=plan)
+            (img * ct).sum().backward()
+            return img.detach(), g.grad.clone()
+
+    want = [step(grid.clone().requires_grad_(), ct, eager=True)
+            for ct in cts]
+    before = _launches(), sweep_ref_fwd.layer_backwards
+    got = [step(leaf, ct) for ct in cts]
+    torch.cuda.synchronize()
+    assert _since(before[0]) == (0, 0, 5, 5, 0, 0)
+    assert sweep_ref_fwd.layer_backwards == before[1] + 5
+    entry = sweep._ref_step_entry(leaf, plan, cfg, medium, None, None, None)
+    assert entry.seen == 2 and entry.graphs is not None
+    for (gi, gg), (wi, wg) in zip(got, want):
+        assert torch.equal(gi, wi)
+        _assert_grad_close(gg, wg)
+    assert got[-1][0].data_ptr() != got[-2][0].data_ptr()
+    with torch.no_grad():
+        leaf.mul_(0.5)
+    half = grid * 0.5
+    wi, wg = step(half.requires_grad_(), cts[0], eager=True)
+    gi, gg = step(leaf, cts[0])
+    assert torch.equal(gi, wi)
+    _assert_grad_close(gg, wg)
+    clock.clear_spans()
+    with clock.tracing():
+        step(leaf, cts[1])
+        torch.cuda.synchronize()
+    names = {s.name: s for s in clock.spans()}
+    assert {"render.image", "sweep.ref_layers", "sweep.ref_fwd",
+            "sweep.ref_bwd", "sweep.ref_layers_bwd"} <= set(names)
+    assert names["sweep.ref_layers"].device_ns > 0
+    assert names["sweep.ref_layers_bwd"].device_ns > 0
+    assert entry.seen == 2
+    scroll = _seeded_scroll(3, cuda)
+    assert sweep._ref_step_entry(leaf, plan, cfg, medium, None, scroll,
+                                 None) is None
+
+
+@pytest.mark.gpu
 def test_ref_launches_validate_inputs(cuda):
     _, _, plan, _, inputs = _ref_setup(cuda, EYES[0][0], True)
     L, *args = inputs
@@ -3154,6 +3219,82 @@ def test_fit_grid_launches_the_adam_kernel_per_applied_step(cuda,
     res = tfit.fit_grid(target, *args, grid_size=12, steps=2,
                         learning_rate=ADAM_LR)
     assert res.skipped_steps == 2 and adam_clamp.launches == before + 4
+
+
+@pytest.mark.gpu
+def test_reference_fit_steps_at_the_cells_width(cuda, monkeypatch):
+    """fit_grid on the reference medium at the reference.fit cell's widths
+    (the preset's 128^3 x 4 channels from a 0.1 grid, absorption, a
+    1280x720 target from the preset camera), four steps, the last two
+    replays of the step's CUDA graphs: exactly one K4 and one K5 launch a
+    step and one channel-layers backward; K5's dL against its plain
+    version; the grid's gradient against autograd of the channel layers'
+    old form (eight index_select) on that dL; each step's loss below the
+    last; and the Adam kernel's grid and moments bit for bit those of
+    torch's Adam and clamp_ fed the same gradients."""
+    from volumetricrenderer_tpu_torch import build_volume
+    from volumetricrenderer_tpu_torch import fit as tfit
+    from volumetricrenderer_tpu_torch.config import get_preset
+    from volumetricrenderer_tpu_torch.kernels import adam_clamp
+    from volumetricrenderer_tpu_torch.utils.checkpoint import \
+        adam_state_to_leaves
+    preset = get_preset("reference")
+    cfg = dataclasses.replace(preset.render, quadrature="sliced")
+    medium, cam = preset.medium, make_camera(preset.camera)
+    with torch.no_grad():
+        target = render_image(build_volume(preset.volume, device=cuda), cam,
+                              cfg, medium)[..., :3].contiguous()
+    seen, grads, shadow = [], [], {}
+    launch, real = sweep_ref_bwd.launch_kernel, tfit.adam_clamp_step
+
+    def spy(*a, **kw):
+        out = launch(*a, **kw)
+        seen.append((a, {k: v for k, v in kw.items() if k != "stage"}, out))
+        return out
+
+    def replayed(optimizer, grid, lo, hi):
+        if not shadow:
+            shadow["grid"] = grid.detach().clone().requires_grad_()
+            shadow["opt"] = torch.optim.Adam([shadow["grid"]], lr=ADAM_LR)
+        _adam_equal(grid.detach(), shadow["grid"].detach(), "grid")
+        grads.append(grid.grad.clone())
+        shadow["grid"].grad = grid.grad.clone()
+        adam_clamp.adam_clamp_reference(shadow["opt"], shadow["grid"], lo,
+                                        hi)
+        real(optimizer, grid, lo, hi)
+
+    monkeypatch.setattr(sweep_ref_bwd, "launch_kernel", spy)
+    monkeypatch.setattr(tfit, "adam_clamp_step", replayed)
+    before, layers, saved = (_launches(), sweep_ref_fwd.layer_backwards,
+                             [])
+    res = tfit.fit_grid(target, cam, cfg, medium, grid_size=128, steps=4,
+                        learning_rate=ADAM_LR, checkpoint_every=4,
+                        checkpoint_fn=lambda s, g, st: saved.append(st))
+    torch.cuda.synchronize()
+    assert res.skipped_steps == 0 and res.grid.shape == (128,) * 3 + (4,)
+    assert _since(before) == (0, 0, 4, 4, 0, 0)
+    assert sweep_ref_fwd.layer_backwards == layers + 4
+    assert len(seen) == 3  # the two eager steps and the capture
+    assert all(b < a for a, b in zip(res.losses, res.losses[1:]))
+    a, kw, dL = seen[0]
+    _assert_grad_close(dL, sweep_ref_bwd.sweep_ref_bwd_reference(*a, **kw))
+    plan = plan_for(cam, res.grid.shape, cfg, device=cuda)
+    g0 = torch.full(res.grid.shape, 0.1, device=cuda).permute(
+        plan.perm + (3,)).requires_grad_()
+    offs = sweep_ref_fwd._channel_offsets(medium, None, plan.coord_order,
+                                          device=cuda)
+    layers, w = sweep_ref_fwd._layer_taps(g0.shape[0], plan.slice_z, medium,
+                                          offs, cfg.address_mode)
+    lo, hi = (torch.stack([torch.index_select(g0[..., c], 0, layer[:, c])
+                           for c in range(4)], dim=1) for layer in layers)
+    (want,) = torch.autograd.grad(lo * w[0] + hi * w[1], g0, dL)
+    _assert_grad_close(grads[0].permute(plan.perm + (3,)), want)
+    per_channel = grads[0].reshape(-1, 4).abs().amax(0)
+    assert bool((per_channel > 0.0).all())
+    _adam_equal(res.grid, shadow["grid"].detach(), "final grid")
+    for got, want in zip(saved[0], adam_state_to_leaves(shadow["opt"],
+                                                        shadow["grid"])):
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.gpu

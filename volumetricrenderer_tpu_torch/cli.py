@@ -13,6 +13,8 @@ Usage:
       --out-dir fit_run/
   python -m volumetricrenderer_tpu_torch fit --preset config5 --steps 100 \
       --out-dir fit_run5/
+  python -m volumetricrenderer_tpu_torch fit --preset reference \
+      --steps 100 --out-dir fit_ref/
   python -m volumetricrenderer_tpu_torch info
 
 Every subcommand takes --device, "cuda" by default: the sweep kernels
@@ -22,7 +24,10 @@ error; only --device cpu runs the kernels' plain versions on the CPU.
 render, animate and serve take a preset's sizes (--width, --height,
 --volume-size) and its quadrature (--quadrature): the `reference` preset
 marches per ray ("fixed"); with --quadrature sliced its (128, 128, 128, 4)
-grid goes through the slice sweep's 4-channel kernels.
+grid goes through the slice sweep's 4-channel kernels. fit differentiates
+through the slice sweep unless given --quadrature fixed, for every preset:
+`fit --preset reference` fits the four channels through the 4-channel
+kernels forward and backward.
 """
 from __future__ import annotations
 
@@ -304,12 +309,15 @@ def cmd_info(args):
 
 def _fit_problem(args, dev):
     """(grid size, camera, RenderConfig, MediumConfig, LightConfig, true
-    grid) of `cli fit`. With --preset: the preset's volume size, camera,
-    render, medium and light configs, and as true grid its baked scene
-    (config3) or else the FBM cloud with the seed of its volume's first
-    channel. Without: the demo's 32^3 cloud (seed 7) seen at 64x64, the
-    emission sweep at density 8. --size, --image-size (a square),
-    --width, --height and --quadrature override either."""
+    grid) of `cli fit`; the fitted grid takes the true grid's shape. With
+    --preset: the preset's volume size, camera, render, medium and light
+    configs under the slice sweep, and as true grid its baked scene
+    (config3), its four noise channels for the reference medium
+    (build_volume, as render_preset builds them), or else the FBM cloud
+    with the seed of its volume's first channel. Without: the demo's 32^3
+    cloud (seed 7) seen at 64x64, the emission sweep at density 8. --size,
+    --image-size (a square), --width, --height and --quadrature override
+    either."""
     from .config import CameraConfig, LightConfig, MediumConfig, RenderConfig
     from .models import scene as scene_mod
     from .ops.camera import make_camera
@@ -330,21 +338,20 @@ def _fit_problem(args, dev):
         seed, scene = 7, ""
     else:
         p = _get_preset(args.preset)
-        if p.medium.combine != "single":
-            print(f"error: fit fits one density channel; preset {p.name!r} "
-                  f"combines {p.medium.combine!r}", file=sys.stderr)
-            raise SystemExit(2)
         size = args.size or p.volume.size
         cfg, med, light, cam = p.render, p.medium, p.light, p.camera
-        if args.quadrature:
-            cfg = dataclasses.replace(cfg, quadrature=args.quadrature)
+        cfg = dataclasses.replace(cfg, quadrature=args.quadrature
+                                  or "sliced")
         if args.image_size:
             cam = dataclasses.replace(cam, width=args.image_size,
                                       height=args.image_size)
         seed, scene = p.volume.channels[0].seed, p.scene
     cam = dataclasses.replace(cam, width=args.width or cam.width,
                               height=args.height or cam.height)
-    if scene:
+    if med.combine == "reference":
+        true_grid = scene_mod.build_volume(
+            dataclasses.replace(p.volume, size=size), device=dev)
+    elif scene:
         true_grid = scene_mod.bake_scene(
             getattr(scene_mod, scene)(size, device=dev), size, cfg)
     else:
@@ -386,7 +393,8 @@ def cmd_fit(args):
     start = 0
     if args.resume and latest_step(ckpt_dir) is not None:
         start, init_grid, init_opt, extra = restore_checkpoint(
-            ckpt_dir, opt_state_template=adam_initial_leaves((size,) * 3))
+            ckpt_dir,
+            opt_state_template=adam_initial_leaves(tuple(true_grid.shape)))
         # A checkpoint written under another quadrature would continue
         # under another loss: refuse. Checkpoints without the metadata
         # resume with a warning, as in the JAX package.
@@ -465,12 +473,14 @@ def main(argv=None):
                          "(self-contained scrubber viewer)")
     pa.set_defaults(fn=cmd_animate)
 
-    pf = sub.add_parser("fit", help="inverse-render fit demo (config 3)")
+    pf = sub.add_parser("fit", help="inverse-render fit: a grid fitted to "
+                                    "a render of the true grid")
     pf.add_argument("--preset", default=None,
                     help="fit at a named preset's volume size, camera, "
-                         "render, medium and light (single-channel "
-                         "presets: config1..config5); without it the demo: "
-                         "a 32^3 cloud seen at 64x64")
+                         "render, medium and light (config1..config5 fit "
+                         "one density channel, reference its four noise "
+                         "channels); without it the demo: a 32^3 cloud "
+                         "seen at 64x64")
     pf.add_argument("--size", type=int, default=None,
                     help="grid size (default 32, or the preset's)")
     pf.add_argument("--image-size", type=int, default=None,
@@ -484,8 +494,8 @@ def main(argv=None):
     pf.add_argument("--quadrature", default=None,
                     choices=["sliced", "fixed"],
                     help="sliced = differentiate through the slice sweep "
-                         "(the sweep kernels on a GPU; the default, or the "
-                         "preset's); fixed = the per-ray march")
+                         "(the sweep kernels on a GPU; the default, for "
+                         "every preset); fixed = the per-ray march")
     pf.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint in "
                          "<out-dir>/ckpt")

@@ -1,20 +1,23 @@
 """Inverse rendering: fit a density grid to a target image by gradient
 descent through the renderer (port of volumetricrenderer_tpu/fit.py, with
-torch.optim.Adam's state in place of optax.adam's).
+torch.optim.Adam's state in place of optax.adam's): a single-channel grid,
+or the four channels of the reference medium.
 
 Each step renders the grid, takes the image loss, backpropagates to the
 voxels and applies one Adam update. With quadrature="sliced" the render is
 the slice sweep, which on a CUDA grid runs the forward and backward sweep
-kernels; "fixed" is the per-ray march of ops/integrate.py. The Adam update
-and the clamp are kernels/adam_clamp.py: one kernel launch a step on a
-CUDA grid, torch.optim.Adam's step and clamp_ on any other.
+kernels (the 4-channel ones for the reference medium); "fixed" is the
+per-ray march of ops/integrate.py. The Adam update and the clamp are
+kernels/adam_clamp.py: one kernel launch a step on a CUDA grid,
+torch.optim.Adam's step and clamp_ on any other.
 
 Spans (utils/clock.py): each step is the root "fit.step" (its request id
 the step number), holding "fit.render" (the forward render and the loss),
-"fit.backward" (loss.backward(): the backward sweep, the warp's splat, the
-gradient's zeroing and copies), "fit.adam" (the update and the clamp), each
-with its device interval, and two "fit.sync" (the NaN guard's check and the
-loss read back to the host: the host waiting for the device). The first
+"fit.backward" (loss.backward(): the backward sweep, the warp's splat, a
+4-channel grid's channel layers, the gradient's zeroing and copies),
+"fit.adam" (the update and the clamp), each with its device interval, and
+two "fit.sync" (the NaN guard's check and the loss read back to the host:
+the host waiting for the device). The first
 "fit.sync" holds "fit.guard", the device interval of the guard's
 finiteness reduction over the loss and every voxel's gradient.
 """
@@ -27,6 +30,7 @@ import torch
 
 from .config import LightConfig, MediumConfig, RenderConfig
 from .kernels.adam_clamp import adam_clamp_step
+from .kernels.build import NCH
 from .ops.camera import Camera, camera_rays
 from .ops.integrate import render_rays
 from .utils import clock
@@ -69,8 +73,13 @@ def fit_grid(
     nan_guard: bool = True,
     device="cuda",
 ) -> FitResult:
-    """Fit a single-channel density grid so the rendered image matches
-    target_rgb (H, W, 3). Returns the fitted grid and the loss history.
+    """Fit a density grid so the rendered image matches target_rgb
+    (H, W, 3). Returns the fitted grid and the loss history.
+
+    Without init_grid the fit starts from a grid of 0.1: (grid_size,) * 3
+    for a single-channel medium, and (grid_size,) * 3 + (4,) for
+    medium.combine "reference", whose four noise channels it fits. The
+    grid's shape is init_grid's where one is given.
 
     The fit runs on the device of init_grid, else of target_rgb, when
     either is a tensor, and on `device` otherwise: "cuda" unless the caller
@@ -94,8 +103,9 @@ def fit_grid(
     dev = _device_of(init_grid, target_rgb, default=device)
     target = torch.as_tensor(target_rgb, dtype=torch.float32, device=dev)
     if init_grid is None:
-        grid = torch.full((grid_size,) * 3, 0.1, dtype=torch.float32,
-                          device=dev)
+        channels = (NCH,) if medium.combine == "reference" else ()
+        grid = torch.full((grid_size,) * 3 + channels, 0.1,
+                          dtype=torch.float32, device=dev)
     else:
         grid = torch.as_tensor(init_grid, dtype=torch.float32,
                                device=dev).clone()

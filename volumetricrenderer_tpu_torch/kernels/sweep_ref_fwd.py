@@ -8,9 +8,9 @@ The reference medium samples four noise channels, each at its own scaled
 and scrolled coordinate with mirror addressing, and combines them as
 sigma = (s1*s2)*(s3+s4)*sample_scale. As in the JAX package, the
 sweep-axis third of each channel's trilinear sample is taken outside the
-kernel, in plain differentiable PyTorch (_layer_channels): the kernel
-sweeps the pre-lerped channel slabs L (S, 4, A, B), its gradient is dL, and
-autograd carries dL through the lerp to the grid.
+kernel, in plain PyTorch (_layer_channels): the kernel sweeps the
+pre-lerped channel slabs L (S, 4, A, B), its gradient is dL, and the node
+_LayerChannels carries dL through the lerp to the grid.
 
 `sweep_base_ref` runs the sweep as one autograd node on either device: on
 a CUDA tensor its forward launches this kernel and its backward the
@@ -43,12 +43,21 @@ and every channel's tap weights are rounded to bfloat16 on their own. dL
 comes back in float32 (the JAX package rounds it to bfloat16; the port
 does not).
 
-`launches` counts the kernel launches made by this module. Spans
+The layers of all channels are fetched by one gather and lerped at once.
+Under autograd they are one node of their own (_LayerChannels), whose
+backward is written out: the lerp's two weights on dL and one index_add_
+of every channel's two layers into the gradient of the permuted grid. A
+sweep without a scroll (a fit's) works its layer taps out once per plan.
+
+`launches` counts the kernel launches made by this module, and
+`layer_backwards` the channel layers' backward passes. Spans
 (utils/clock.py): "sweep.ref_layers", with its device interval, around the
 channel-layer build in sweep_base_ref (_layer_channels, and the light slabs
-where there are any); "sweep.ref_fwd" and "sweep.ref_bwd", host time only,
-around the node's forward and backward sweeps: on a CUDA tensor K4's and
-K5's launch wrappers, on a CPU tensor their plain versions.
+where there are any); "sweep.ref_layers_bwd", with its device interval,
+around the channel layers' backward (on autograd's device thread on a
+card); "sweep.ref_fwd" and "sweep.ref_bwd", host time only, around the
+node's forward and backward sweeps: on a CUDA tensor K4's and K5's launch
+wrappers, on a CPU tensor their plain versions.
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..config import LightConfig, MediumConfig, RenderConfig
 from ..ops.sampling import apply_address_mode, clip_unit
@@ -68,9 +78,10 @@ from .sweep_fwd import _layer_lerp_stack, _params_for
 
 __all__ = ["sweep_ref_inputs", "sweep_ref_light_slabs", "sweep_base_ref",
            "sweep_ref_apply", "sweep_ref_fwd_reference", "build_kernel",
-           "launch_kernel", "launches", "tiles"]
+           "launch_kernel", "launches", "layer_backwards", "tiles"]
 
 launches = 0  # kernel launches since import (or since a caller reset it)
+layer_backwards = 0  # _LayerChannels backward passes, counted likewise
 tiles = TileTally()  # tile-slices (computed, read through global memory)
 
 _lib = None
@@ -100,6 +111,84 @@ def _channel_offsets(medium: MediumConfig, scroll, coord_order, device=None):
     return [(o[c, c_k], o[c, c_a], o[c, c_b]) for c in range(NCH)]
 
 
+def _layer_taps(depth, slice_z, medium: MediumConfig, offs, address_mode):
+    """Per slice s and channel c, the two layers bracketing the sweep
+    coord slice_z[s] * scale_c + offk_c and their lerp weights: (layers,
+    w), layers (2, S, NCH) int64 (the lower layer, then the upper) and w
+    (2, S, NCH, 1, 1) float32 (1 - f, then f). Each channel's positions
+    are worked out in its own float32 arithmetic."""
+    dev = slice_z.device
+    scales = _device_vector(tuple(medium.channel_coord_scale), dev)
+    offk = torch.stack([offs[c][0] for c in range(NCH)]).to(dev)
+    p = (scales[:, None] * slice_z + offk[:, None]) * depth - 0.5
+    i0f = torch.floor(p)
+    f = (p - i0f).to(torch.float32).T[:, :, None, None]
+    i0 = i0f.to(torch.int64).T
+    layers = torch.stack((apply_address_mode(i0, depth, address_mode),
+                          apply_address_mode(i0 + 1, depth, address_mode)))
+    return layers, torch.stack((1.0 - f, f))
+
+
+@functools.lru_cache(maxsize=16)
+def _channels(device):
+    """(NCH,) int64 0, 1, .., NCH - 1 on `device`, made once."""
+    return torch.arange(NCH, dtype=torch.int64, device=device)
+
+
+def _lerp_layers(g, layers, w):
+    """The (S, NCH, A, B) lerp lo * (1 - f) + hi * f of each channel's two
+    layers of g (D, A, B, C) float32, both fetched by one gather."""
+    both = g[layers, :, :, _channels(g.device)]
+    return both[0] * w[0] + both[1] * w[1]
+
+
+def _layer_adjoint(dL, layers, w, shape):
+    """The gradient of _lerp_layers' (S, NCH, A, B) output dL with respect
+    to g of `shape` (D, A, B, C): channel c's layer layers[0, s, c] gets
+    dL[s, c] * (1 - f) and layer layers[1, s, c] gets dL[s, c] * f, summed
+    over the slices that read it, by one index_add_ into a channel-major
+    (C * D, A, B) gradient (atomics on a card), returned as its
+    (D, A, B, C) float32 view."""
+    depth, A, B, C = shape
+    rows = layers + _channels(dL.device) * depth
+    grad = torch.zeros((C * depth, A, B), dtype=torch.float32,
+                       device=dL.device)
+    grad.index_add_(0, rows.view(-1), (dL.unsqueeze(0) * w).view(-1, A, B))
+    return grad.view(C, depth, A, B).permute(1, 2, 3, 0)
+
+
+class _LayerChannels(torch.autograd.Function):
+    """The channel layers as one autograd node, differentiable in the
+    permuted grid gperm4 (D, A, B, C) alone. The forward is _lerp_layers,
+    the backward _layer_adjoint. Span "sweep.ref_layers_bwd" with its
+    device interval; counted in layer_backwards."""
+
+    @staticmethod
+    def forward(ctx, gperm4, layers, w):
+        ctx.save_for_backward(layers, w)
+        ctx.shape, ctx.dtype = gperm4.shape, gperm4.dtype
+        return _lerp_layers(gperm4.to(torch.float32), layers, w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dL):
+        global layer_backwards
+        layers, w = ctx.saved_tensors
+        with clock.span("sweep.ref_layers_bwd", device=dL):
+            grad = _layer_adjoint(dL, layers, w, ctx.shape)
+            layer_backwards += 1
+        return grad.to(ctx.dtype), None, None
+
+
+def _lerp_channels(gperm4, layers, w):
+    """_lerp_layers of gperm4 at the taps of _layer_taps: where autograd
+    records it, the node _LayerChannels, whose backward is one
+    index_add_."""
+    if torch.is_grad_enabled() and gperm4.requires_grad:
+        return _LayerChannels.apply(gperm4, layers, w)
+    return _lerp_layers(gperm4.to(torch.float32), layers, w)
+
+
 def _layer_channels(gperm4, slice_z, medium: MediumConfig, offs,
                     address_mode):
     """For every slice s and channel c, the layer-lerped 2-D slab of
@@ -107,25 +196,13 @@ def _layer_channels(gperm4, slice_z, medium: MediumConfig, offs,
     third of the trilinear sample. gperm4 (D, A, B, C) -> (S, NCH, A, B),
     in slice_z (front-to-back) order. The layer pairs of all channels are
     worked out at once, in each channel's own float32 arithmetic, and the
-    lerp is one. Differentiable in gperm4; the layer fetch is index_select,
-    whose backward is index_add_."""
-    depth = gperm4.shape[0]
-    dev = slice_z.device
-    scales = _device_vector(tuple(medium.channel_coord_scale), dev)
-    offk = torch.stack([offs[c][0] for c in range(NCH)]).to(dev)
-    p = (scales[:, None] * slice_z + offk[:, None]) * depth - 0.5
-    i0f = torch.floor(p)
-    f = (p - i0f).to(torch.float32).T[:, :, None, None]
-    i0 = i0f.to(torch.int64)
-    l0 = apply_address_mode(i0, depth, address_mode)
-    l1 = apply_address_mode(i0 + 1, depth, address_mode)
-    g = gperm4.to(torch.float32)
-    lo, hi = (torch.stack([torch.index_select(g[..., c], 0, layer[c])
-                           for c in range(NCH)], dim=1) for layer in (l0, l1))
-    return lo * (1.0 - f) + hi * f
+    lerp is one. Differentiable in gperm4 (_lerp_channels)."""
+    return _lerp_channels(gperm4, *_layer_taps(
+        gperm4.shape[0], slice_z, medium, offs, address_mode))
 
 
 _PARAMS_HEAD = IdentityCache()
+_STILL = IdentityCache()  # sweep_ref_inputs' taps and params, no scroll
 
 
 def _params_ref(plan, cfg: RenderConfig, medium: MediumConfig,
@@ -284,6 +361,7 @@ class _SweepRef(torch.autograd.Function):
             else:
                 raise ValueError(f"sweep: no kernel for device {L.device}")
         ctx.mark_non_differentiable(maps[3])
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(L, slice_z, v_grid, u_grid, seglen, params,
                               maps[1], maps[2], light)
         ctx.emission, ctx.stage = emission, stage
@@ -296,9 +374,13 @@ class _SweepRef(torch.autograd.Function):
             return (None, None) + none
         L, slice_z, v_grid, u_grid, seglen, params, trans, wsum, light = \
             ctx.saved_tensors
-        # Cotangents may arrive broadcast (the gradient of a sum); the
-        # kernel reads dense maps.
-        cts = [c.contiguous() for c in (ct_acc, ct_trans, ct_wsum)]
+        # Cotangents may arrive broadcast (the gradient of a sum), or as
+        # None for a map the loss does not read; the sweep reads dense maps
+        # of those its mode needs (absorption acc, emission trans and wsum).
+        needed = (not ctx.emission, ctx.emission, ctx.emission)
+        cts = [None if not need else torch.zeros_like(seglen) if c is None
+               else c.contiguous()
+               for c, need in zip((ct_acc, ct_trans, ct_wsum), needed)]
         args = (L, slice_z, v_grid, u_grid, seglen, params, *cts, trans, wsum)
         with clock.span("sweep.ref_bwd"):
             if L.device.type == "cuda":
@@ -320,13 +402,36 @@ def sweep_ref_inputs(gperm4, plan, cfg: RenderConfig, medium: MediumConfig,
     """The kernel's inputs (L, slice_z, v_grid, u_grid, seglen, params) for
     a 4-channel grid permuted so the sweep axis is dim 0
     (grid.permute(plan.perm + (3,))) and an optional (4, 3) scroll. L is
-    built per call: the scroll moves the sweep-axis lerp."""
+    built per call: the scroll moves the sweep-axis lerp. Without a scroll
+    the layer taps and the params depend on the plan and the configuration
+    alone, and are worked out once per plan (_STILL): a fit's step builds
+    only the lerp."""
+    taps, params = taps_and_params(gperm4.shape[0], plan, cfg, medium, light,
+                                   scroll)
+    return (_lerp_channels(gperm4, *taps), plan.slice_z, plan.v_grid,
+            plan.u_grid, plan.seglen, params)
+
+
+def taps_and_params(depth, plan, cfg: RenderConfig, medium: MediumConfig,
+                    light=None, scroll=None):
+    """(_layer_taps' (layers, w), _params_ref's params) of a grid of
+    `depth` layers along the sweep axis: without a scroll worked out once
+    per plan and configuration (_STILL), with one per call."""
     lt = light if light is not None else LightConfig()
-    offs = _channel_offsets(medium, scroll, plan.coord_order,
-                            device=gperm4.device)
-    L = _layer_channels(gperm4, plan.slice_z, medium, offs, cfg.address_mode)
-    return (L, plan.slice_z, plan.v_grid, plan.u_grid, plan.seglen,
-            _params_ref(plan, cfg, medium, lt, offs))
+
+    def make():
+        offs = _channel_offsets(medium, scroll, plan.coord_order,
+                                device=plan.slice_z.device)
+        return (_layer_taps(depth, plan.slice_z, medium, offs,
+                            cfg.address_mode),
+                _params_ref(plan, cfg, medium, lt, offs))
+    if scroll is None:
+        try:
+            return _STILL.get((plan.slice_z, plan.eye01),
+                              (depth, cfg, medium, lt), make)
+        except TypeError:  # a configuration that does not hash
+            pass
+    return make()
 
 
 def sweep_ref_light_slabs(lperm, plan, cfg: RenderConfig):

@@ -11,8 +11,9 @@ resampling separable, and the volume integral becomes a front-to-back loop
 over slices (kernels/sweep_fwd.py) followed by one projective warp from the
 base grid to the screen pixels (warp_base_to_pixels). The 4-channel
 reference medium sweeps the same way (kernels/sweep_ref_fwd.py); a frame
-of it that repeats a grid and plan without autograd replays CUDA graphs
-of its layers, sweep and warp (_RefFrameGraphs). What no
+of it that repeats a grid and plan replays CUDA graphs of its layers,
+sweep and warp (_RefFrameGraphs), and under autograd without a scroll of
+their backwards too (_RefStepGraphs: a fit's step). What no
 kernel covers (the reference medium with clamp or wrap addressing, a light
 volume of another shape than the grid's) takes the general sweep
 (_sweep_base), plain PyTorch like the JAX package's jnp sweep; the
@@ -40,7 +41,7 @@ from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from ..config import LightConfig, MediumConfig, RenderConfig
-from ..kernels import sweep_fwd, sweep_ref_fwd, warp_bilinear
+from ..kernels import sweep_fwd, sweep_ref_bwd, sweep_ref_fwd, warp_bilinear
 from ..kernels.build import IdentityCache, bf16_round
 from ..kernels.warp_bilinear import in01 as _in01
 from ..utils import clock
@@ -470,23 +471,61 @@ def warp_inputs(base_maps, cfg: RenderConfig):
     return torch.stack([acc, hit], dim=-1), (0.0, 0.0)
 
 
+def _beer_lambert(out, density, background):
+    """Absorption's display transform of the warped (acc, hit) pixels:
+    gray = 1 - exp(-density * acc), hitp = clamp(hit, 0, 1), rgb = gray *
+    hitp + background * (1 - hitp), alpha = hitp. Returns the (H, W, 4)
+    pixels and (exp(-density * acc), gray, hitp)."""
+    e = torch.exp(-density * out[..., 0])
+    gray = 1.0 - e
+    hitp = torch.clamp(out[..., 1], 0.0, 1.0)
+    rgb = (gray[..., None] * hitp[..., None]
+           + background * (1.0 - hitp[..., None]))
+    return torch.cat([rgb, hitp[..., None]], dim=-1), (e, gray, hitp)
+
+
+class _BeerLambert(torch.autograd.Function):
+    """_beer_lambert as one autograd node, differentiable in the warped
+    pixels: the forward is its arithmetic; the backward writes out the
+    adjoint, d acc = sum_c(d rgb_c) * hitp * density * e and d hit =
+    sum_c(d rgb_c * (gray - background_c)) + d alpha where 0 <= hit <= 1
+    (clamp's own rule), in a dozen operations where autograd takes about
+    two dozen."""
+
+    @staticmethod
+    def forward(ctx, out, density, background):
+        pixels, (e, gray, hitp) = _beer_lambert(out, density, background)
+        ctx.save_for_backward(out, e, gray, hitp, background)
+        ctx.density = density
+        return pixels
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dpix):
+        out, e, gray, hitp, background = ctx.saved_tensors
+        drgb = dpix[..., :3]
+        total = drgb.sum(-1)
+        d_acc = total * hitp * e * ctx.density
+        d_hitp = total * gray - (drgb * background).sum(-1) + dpix[..., 3]
+        d_hit = torch.where(hitp == out[..., 1], d_hitp, 0.0)
+        return torch.stack([d_acc, d_hit], dim=-1), None, None
+
+
 def postwarp_pixels(out, cfg: RenderConfig, medium: MediumConfig,
                     light: Optional[LightConfig] = None):
     """Per-pixel nonlinearities after the warp: color = wsum * light color,
-    or the Beer-Lambert display transform in absorption mode."""
+    or the Beer-Lambert display transform in absorption mode (under
+    autograd the node _BeerLambert)."""
     background = _device_const(tuple(cfg.background), torch.float32,
                                out.device)
-    if cfg.emission:
-        lt = light if light is not None else LightConfig()
-        lcol = _device_const(tuple(lt.color), torch.float32, out.device)
-        rgb = out[..., 0:1] * lcol + out[..., 1:2] * background
-        alpha = 1.0 - out[..., 1]
-    else:
-        gray = 1.0 - torch.exp(-medium.density * out[..., 0])
-        hitp = torch.clamp(out[..., 1], 0.0, 1.0)
-        rgb = (gray[..., None] * hitp[..., None]
-               + background * (1.0 - hitp[..., None]))
-        alpha = hitp
+    if not cfg.emission:
+        if torch.is_grad_enabled() and out.requires_grad:
+            return _BeerLambert.apply(out, medium.density, background)
+        return _beer_lambert(out, medium.density, background)[0]
+    lt = light if light is not None else LightConfig()
+    lcol = _device_const(tuple(lt.color), torch.float32, out.device)
+    rgb = out[..., 0:1] * lcol + out[..., 1:2] * background
+    alpha = 1.0 - out[..., 1]
     return torch.cat([rgb, alpha[..., None]], dim=-1)
 
 
@@ -770,7 +809,7 @@ class _RefFrameGraphs:
         self.k4 = sweep_ref_fwd.launches - launches  # captured, not run
         sweep_ref_fwd.launches = launches
 
-    def replay(self, scroll):
+    def replay(self, gperm4, scroll):
         with torch.cuda.device(self.gperm4.device):
             if self.scroll is not None:
                 self.scroll.copy_(scroll)
@@ -782,6 +821,99 @@ class _RefFrameGraphs:
             return self.out.clone()
 
 
+class _RefStepGraphs:
+    """A 4-channel frame under autograd on the kernels, without a scroll
+    (a fit's step), as four CUDA graphs captured from the calls of an
+    eager step: the channel layers (the taps and params are the plan's);
+    K4 and finish_image from a static leaf of those layers, with their
+    autograd graph; that graph's backward to the layers (the Beer-Lambert
+    node's, W's splat, K5); and the layers' backward to the grid
+    (_layer_adjoint). A replay (_RefStepReplay) runs what an eager step
+    runs, on the same memory, with no host work per kernel: two graph
+    launches each way in place of about 40 launches from Python, which
+    pace an eager step of this medium. The graphs read the grid in place
+    and hold it; the frame they return is a copy of their output, and the
+    gradient a view of theirs, which autograd copies into the grid's own
+    layout. A replay counts K4's launch, K5's and the layers' backward,
+    and records "sweep.ref_layers" and "sweep.ref_layers_bwd" (with their
+    device intervals), "sweep.ref_fwd" and "sweep.ref_bwd" around the
+    graphs; "warp.fwd" and "warp.splat" are not recorded on this path."""
+
+    def __init__(self, gperm4, plan, cfg, medium, light, scroll):
+        counts = (sweep_ref_fwd.launches, sweep_ref_bwd.launches,
+                  sweep_ref_fwd.layer_backwards)
+        g = gperm4.detach()
+        self.gperm4, self.shape = g, gperm4.shape
+        self.taps, params = sweep_ref_fwd.taps_and_params(
+            g.shape[0], plan, cfg, medium, light)
+        self.graphs = [torch.cuda.CUDAGraph() for _ in range(4)]
+        layers, sweep, sweep_bwd, layers_bwd = self.graphs
+        with torch.cuda.device(g.device):
+            with torch.cuda.graph(layers):
+                self.L = sweep_ref_fwd._lerp_layers(g.to(torch.float32),
+                                                    *self.taps)
+            pool = layers.pool()
+            self.L.requires_grad_()
+            with torch.cuda.graph(sweep, pool=pool):
+                maps = sweep_ref_fwd.sweep_ref_apply(
+                    self.L, None, plan.slice_z, plan.v_grid, plan.seglen,
+                    params, plan, cfg, medium, light)
+                self.out = finish_image(maps, plan, cfg, medium, light=light)
+            self.ct = torch.empty_like(self.out)
+            with torch.cuda.graph(sweep_bwd, pool=pool):
+                (self.dL,) = torch.autograd.grad(self.out, self.L, self.ct)
+            with torch.cuda.graph(layers_bwd, pool=pool):
+                self.grad = sweep_ref_fwd._layer_adjoint(self.dL, *self.taps,
+                                                         self.shape)
+        after = (sweep_ref_fwd.launches, sweep_ref_bwd.launches,
+                 sweep_ref_fwd.layer_backwards)
+        self.k4, self.k5, _ = (b - a for a, b in zip(counts, after))
+        sweep_ref_fwd.launches, sweep_ref_bwd.launches, \
+            sweep_ref_fwd.layer_backwards = counts
+
+    def replay(self, gperm4, scroll):
+        return _RefStepReplay.apply(gperm4, self)
+
+    def forward(self):
+        """The frame: the layers' and the sweep's graphs."""
+        layers, sweep, _, _ = self.graphs
+        with torch.cuda.device(self.gperm4.device):
+            with clock.span("sweep.ref_layers", device=self.gperm4):
+                layers.replay()
+            with clock.span("sweep.ref_fwd"):
+                sweep.replay()
+            sweep_ref_fwd.launches += self.k4
+            return self.out.detach().clone()
+
+    def backward(self, ct):
+        """The grid's gradient of the frame's cotangent ct."""
+        _, _, sweep_bwd, layers_bwd = self.graphs
+        with torch.cuda.device(self.gperm4.device):
+            self.ct.copy_(ct)
+            with clock.span("sweep.ref_bwd"):
+                sweep_bwd.replay()
+            with clock.span("sweep.ref_layers_bwd", device=self.ct):
+                layers_bwd.replay()
+            sweep_ref_bwd.launches += self.k5
+            sweep_ref_fwd.layer_backwards += 1
+            return self.grad
+
+
+class _RefStepReplay(torch.autograd.Function):
+    """A replay of _RefStepGraphs as the autograd node of the frame: its
+    forward the frame's graphs, its backward the backward's."""
+
+    @staticmethod
+    def forward(ctx, gperm4, graphs):
+        ctx.graphs, ctx.dtype = graphs, gperm4.dtype
+        return graphs.forward()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        return ctx.graphs.backward(ct.contiguous()).to(ctx.dtype), None
+
+
 class _RefFrameEntry:
     """A key's frames so far and, from its second, its graphs."""
 
@@ -791,6 +923,8 @@ class _RefFrameEntry:
 
 REF_FRAME_GRAPHS = 16  # keys (grid, plan, configuration) kept, oldest out
 _REF_FRAMES = IdentityCache(REF_FRAME_GRAPHS)
+REF_STEP_GRAPHS = 2  # the same for frames under autograd (a fit's grid)
+_REF_STEPS = IdentityCache(REF_STEP_GRAPHS)
 
 
 def _ref_frame_entry(grid, plan, cfg, medium, light, scroll, lperm):
@@ -804,8 +938,21 @@ def _ref_frame_entry(grid, plan, cfg, medium, light, scroll, lperm):
     if not grid.is_cuda or lperm is not None or (
             torch.is_grad_enabled() and grid.requires_grad):
         return None
+    return _graphs_entry(_REF_FRAMES, grid, plan, cfg, medium, light, scroll)
+
+
+def _ref_step_entry(grid, plan, cfg, medium, light, scroll, lperm):
+    """As _ref_frame_entry, for a frame under autograd without a scroll or
+    light slabs (a fit's step; _RefStepGraphs), or None."""
+    if not grid.is_cuda or lperm is not None or scroll is not None or not (
+            torch.is_grad_enabled() and grid.requires_grad):
+        return None
+    return _graphs_entry(_REF_STEPS, grid, plan, cfg, medium, light, scroll)
+
+
+def _graphs_entry(cache, grid, plan, cfg, medium, light, scroll):
     try:
-        return _REF_FRAMES.get(
+        return cache.get(
             (grid, plan.slice_z, plan.v_grid, plan.u_grid, plan.seglen),
             (cfg, medium, light, scroll is None), _RefFrameEntry)
     except TypeError:  # the key does not hash
@@ -853,7 +1000,9 @@ def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
     A 4-channel kernel frame on a CUDA grid without autograd and without a
     light volume replays CUDA graphs from the third frame of its grid,
     plan and configuration on (_RefFrameGraphs): the same kernels on the
-    same memory, bit for bit the eager frame."""
+    same memory, bit for bit the eager frame. Under autograd without a
+    scroll (a fit's step) the frame and its backward replay graphs the
+    same way (_RefStepGraphs)."""
     grid, scroll, light_volume, general = sweep_config(
         grid, cfg, medium, scroll, light_volume)
     if use_kernels and general is not None:
@@ -874,10 +1023,13 @@ def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
                                 plan.v_grid, plan.u_grid, plan.seglen, plan,
                                 cfg, medium, light, scroll, chunk=chunk)
     elif medium.combine == "reference":
-        entry = _ref_frame_entry(grid, plan, cfg, medium, light, scroll,
-                                 lperm)
+        entry, graphs = _ref_frame_entry(grid, plan, cfg, medium, light,
+                                         scroll, lperm), _RefFrameGraphs
+        if entry is None:
+            entry, graphs = _ref_step_entry(grid, plan, cfg, medium, light,
+                                            scroll, lperm), _RefStepGraphs
         if entry is not None and entry.graphs is not None:
-            return entry.graphs.replay(scroll)
+            return entry.graphs.replay(grid.permute(perm), scroll)
         base_maps = sweep_ref_fwd.sweep_base_ref(
             grid.permute(perm), plan, cfg, medium, light, scroll,
             lperm=lperm)
@@ -885,8 +1037,8 @@ def sweep_render(grid, plan: SweepPlan, cfg: RenderConfig,
         if entry is not None:
             entry.seen += 1
             if entry.seen >= 2 and not clock.recording():
-                entry.graphs = _RefFrameGraphs(grid.permute(perm), plan, cfg,
-                                               medium, light, scroll)
+                entry.graphs = graphs(grid.permute(perm), plan, cfg, medium,
+                                      light, scroll)
         return out
     else:
         base_maps = sweep_fwd.sweep_base(grid.permute(perm), plan, cfg,
