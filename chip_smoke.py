@@ -18,6 +18,9 @@ one GPU: the kernel table of PERF.md §6.
      camera at 1920x1080, emission, density 8; in float32 and bfloat16;
    - K1 and K2 with a light volume at config 4: the same cloud at orbit
      frame 0 and LightConfig(shadow_steps=32); float32 and bfloat16;
+   - K1 and K2 at config 5's plan, where `config5.fit` runs them:
+     cloud_volume(512, 7) at 1920x1080 (a 1536^2 base, 512 slices, a stage
+     of 1,156 texels), emission, density 8, float32;
    - K4 and K5 at the reference preset: build_volume(VolumeConfig()),
      128^3 x 4 at 1280x720, emission, a seeded (4, 3) scroll; float32 and
      bfloat16, and with a light volume at density 8 in both; K4 and K5
@@ -100,6 +103,7 @@ RTOL, ATOL, BWD_TOL = 2e-4, 2e-5, 2e-4  # tests/test_torch_gpu.py's
 PLAIN_RUNS = 3
 HIDE_HOST_CYCLES = 4_000_000  # ~2 ms of the card's spin at 1980 MHz
 WIDTH, HEIGHT, VOLUME = 1920, 1080, 256
+CONFIG5_VOLUME = 512
 BF16 = torch.bfloat16
 SCROLL_SEED = 5
 CONFIG4_LIGHT = LightConfig(shadow_steps=32)
@@ -407,6 +411,15 @@ def time_pair(case, kind, plan, ref, plain=True):
                         f"{plan.base_shape}", grad)
         out.append((ms, plain_ms, *bound(name + suffix, samples, lines,
                                          work), err))
+    if not ref:
+        # K2's tally of one launch: its tile-slices computed, and those of
+        # them read through global memory.
+        sweep_bwd.tiles.reset()
+        bwd()
+        torch.cuda.synchronize()
+        done, glob = sweep_bwd.tiles.read()
+        log(f"  sweep_bwd{suffix} ({kind}) at {plan.base_shape}: {done} "
+            f"tile-slices, {glob} through global memory")
     return out
 
 
@@ -690,6 +703,18 @@ def main():
         f, b = time_pair(case, kind, p, ref=False)
         rows["sweep_fwd"][key], rows["sweep_bwd"][key] = f, b
     del flag, lit
+
+    # K1 and K2 at config 5's plan.
+    grid5 = cloud_volume(CONFIG5_VOLUME, 7, device=dev)
+    plan5 = plan_for(cam, grid5.shape, cfg, device=dev)
+    log(f"config 5 {CONFIG5_VOLUME}^3 at {WIDTH}x{HEIGHT}: base "
+        f"{plan5.base_shape}, {plan5.slice_z.shape[0]} slices")
+    c5 = single_case(grid5, plan5, cfg, medium)
+    del grid5
+    f, b = time_pair(c5, "f32", plan5, ref=False)
+    rows["sweep_fwd"]["_config5"], rows["sweep_bwd"]["_config5"] = f, b
+    del c5
+    torch.cuda.empty_cache()
 
     # 5. K4 and K5: the reference preset, with light at density 8, and
     # 256^3 x 4 at 1920x1080.

@@ -7,20 +7,26 @@ single-channel K1 (kernels/csrc/sweep_fwd.cu) and K2 (sweep_bwd.cu), or with
 
     python3 kernel_ab.py --other DIR [--ref] [--out DIR] [--runs N]
 
-DIR holds the other sweep_fwd.cu and sweep_bwd.cu (with --ref:
-sweep_ref_fwd.cu and sweep_ref_bwd.cu) and the headers they include, with
-the per-pixel kernels' C interface (no stage and no tally arguments): for
+DIR holds another tree's volumetricrenderer_tpu_torch/ package: for
 example an earlier commit's,
 
-    mkdir -p DIR && git archive REV \\
-        volumetricrenderer_tpu_torch/kernels/csrc \\
-        | tar -x --strip-components=3 -C DIR
+    mkdir -p DIR && git archive REV volumetricrenderer_tpu_torch \\
+        | tar -x -C DIR
 
 (a directory that .gitignore lists, such as volumetricrenderer_tpu_torch/
-_build/other). K1 and K2: four settings, the flagship forward+backward
-plan (cloud_volume(256, 7), default camera at 1920x1080: 1536^2 base, 256
-slices) in float32 and bfloat16, and config 4's orbit frame 0 with its
-light volume (LightConfig(shadow_steps=32)) in both. K4 and K5 (--ref):
+_build/other). Its kernels/csrc/ holds the other sweep_fwd.cu and
+sweep_bwd.cu (with --ref: sweep_ref_fwd.cu and sweep_ref_bwd.cu) and the
+headers they include. Where its kernels/build.py has stage_buffers, its K1
+and K2 take the tiled C interface (a stage and a tally argument) and
+launch with the window buffers that its own stage_buffers gives; else the
+per-pixel kernels' (no stage and no tally arguments).
+
+K1 and K2: five settings, the flagship forward+backward plan
+(cloud_volume(256, 7), default camera at 1920x1080: 1536^2 base, 256
+slices) in float32 and bfloat16, config 4's orbit frame 0 with its light
+volume (LightConfig(shadow_steps=32)) in both, and config 5's plan
+(cloud_volume(512, 7) at 1920x1080: 1536^2 base, 512 slices) in float32,
+where `config5.fit` runs K2. K4 and K5 (--ref):
 the reference preset (build_volume(VolumeConfig()), 128^3 x 4, default
 camera at 1280x720: 1024^2 base, 128 slices, a seeded (4, 3) scroll) with
 emission in float32 and bfloat16, with absorption, with a light volume at
@@ -37,8 +43,8 @@ emission. For each, both kernels of each version run on the same inputs:
   each a median of --runs CUDA-event intervals after two warm-ups.
 
 It prints the nvcc/ptxas report of every build, one line per timing, the
-tile-slice tally, and the results as one JSON line (also written to
---out/kernel_ab.json). It needs a GPU and fails without one.
+tile-slice tallies of K1 and K2, and the results as one JSON line (also
+written to --out/kernel_ab.json). It needs a GPU and fails without one.
 """
 from __future__ import annotations
 
@@ -67,6 +73,7 @@ from volumetricrenderer_tpu_torch.kernels import (build, sweep_bwd,
                                                   sweep_ref_fwd)
 
 WIDTH, HEIGHT, VOLUME = 1920, 1080, 256
+CONFIG5_VOLUME = 512
 GRAD_TOL = 2e-4
 # The C launchers' pointer arguments before their int arguments (the other
 # copy's interface: 7 ints and the stream after them, or 9 for K1 and K2).
@@ -80,9 +87,29 @@ def log(msg):
     print(msg, flush=True)
 
 
-def build_other(src_dir, names):
+def other_buffers(root):
+    """The window buffers a volume that the other tree's K1 and K2 take,
+    (forward, backward), from its own kernels/build.py stage_buffers, run
+    in a process of its own on that tree; None where it has none."""
+    code = ("from volumetricrenderer_tpu_torch.kernels import build\n"
+            "f = getattr(build, 'stage_buffers', None)\n"
+            "print(None if f is None else "
+            "[f(backward, False) for backward in (False, True)])")
+    root = os.path.abspath(root)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          env=dict(os.environ, PYTHONPATH=root),
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the other tree's build.py: {proc.stderr}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1].replace(
+        "None", "null"))
+    return None if got is None else tuple(got)
+
+
+def build_other(src_dir, names, tiled=False):
     """Compile the other copies of `names` (e.g. sweep_fwd, sweep_bwd) with
-    the port's flags; returns ({name: launcher}, {name: nvcc output})."""
+    the port's flags; returns ({name: launcher}, {name: nvcc output}).
+    tiled: their launchers take a stage and a tally after the ints."""
     fns, logs = {}, {}
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     for name in names:
@@ -98,7 +125,8 @@ def build_other(src_dir, names):
             raise RuntimeError(f"nvcc failed on {src}:\n{logs[name]}")
         fn = getattr(ctypes.CDLL(lib), name + "_launch")
         fn.argtypes = [ctypes.c_void_p] * N_PTRS[name] \
-            + [ctypes.c_int] * N_INTS[name] + [ctypes.c_void_p]
+            + [ctypes.c_int] * (N_INTS[name] + tiled) \
+            + [ctypes.c_void_p] * (1 + tiled)
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns, logs
@@ -113,21 +141,26 @@ def elem_of(stack):
         build.ELEM_F32
 
 
-def other_fwd(fn, stack, args, flip, light):
+def stage_args(cap):
+    """The tiled interface's stage and (no) tally, or nothing."""
+    return () if cap is None else (cap, None)
+
+
+def other_fwd(fn, stack, args, flip, light, cap=None):
     slice_z, v, u, seg, params = args
     S, A, B = stack.shape
     out = torch.empty((4, v.numel(), u.numel()), dtype=torch.float32,
                       device=stack.device)
     rc = fn(ptr(stack), ptr(light), ptr(slice_z), ptr(v), ptr(u), ptr(seg),
             ptr(params), ptr(out), S, A, B, v.numel(), u.numel(), 1,
-            int(flip), 0, elem_of(stack),
+            int(flip), 0, elem_of(stack), *stage_args(cap),
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"other sweep_fwd launch failed: CUDA error {rc}")
     return out
 
 
-def other_bwd(fn, stack, args, cts, maps, flip, light):
+def other_bwd(fn, stack, args, cts, maps, flip, light, cap=None):
     slice_z, v, u, seg, params = args
     S, A, B = stack.shape
     dG = torch.zeros((S, A, B), dtype=torch.float32, device=stack.device)
@@ -135,7 +168,7 @@ def other_bwd(fn, stack, args, cts, maps, flip, light):
     rc = fn(ptr(stack), ptr(light), ptr(slice_z), ptr(v), ptr(u), ptr(seg),
             ptr(params), None, ptr(cts[1]), ptr(cts[2]), ptr(maps[1]),
             ptr(maps[2]), ptr(dG), ptr(dL), S, A, B, v.numel(), u.numel(), 1,
-            int(flip), 0, elem_of(stack),
+            int(flip), 0, elem_of(stack), *stage_args(cap),
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"other sweep_bwd launch failed: CUDA error {rc}")
@@ -195,9 +228,14 @@ def setting(name, stack, args, flip, light, other, runs, gpu_line):
     res["stage_texels"] = build.stage_for(*args[:3], args[4], stack.shape[1],
                                           stack.shape[2], False)
     res["tile_slices"], res["tile_slices_global"] = done, glob
+    # The other copy's stages, where it takes the tiled interface.
+    vols = 1 if light is None else 2
+    cap_f, cap_b = (None, None) if other["buffers"] is None else (
+        build.stage_cap(res["stage_texels"], b * vols)
+        for b in other["buffers"])
     gmaps = sweep_fwd.launch_kernel(stack, *args, True, flip, False, light,
                                     stage=0)
-    omaps = other_fwd(other["sweep_fwd"], stack, args, flip, light)
+    omaps = other_fwd(other["sweep_fwd"], stack, args, flip, light, cap_f)
     torch.cuda.synchronize()
     if not (torch.equal(staged, omaps) and torch.equal(gmaps, omaps)):
         raise RuntimeError(
@@ -210,9 +248,13 @@ def setting(name, stack, args, flip, light, other, runs, gpu_line):
         return sweep_bwd.launch_kernel(stack, *args, None, cts[1], cts[2],
                                        maps[1], maps[2], True, flip, False,
                                        light=light, stage=stage)
-    grads = {"staged": new_bwd(), "global": new_bwd(0),
-             "other": other_bwd(other["sweep_bwd"], stack, args, cts, maps,
-                                flip, light)}
+    sweep_bwd.tiles.reset()
+    grads = {"staged": new_bwd()}
+    bdone, bglob = sweep_bwd.tiles.read()
+    res["bwd_tile_slices"], res["bwd_tile_slices_global"] = bdone, bglob
+    grads["global"] = new_bwd(0)
+    grads["other"] = other_bwd(other["sweep_bwd"], stack, args, cts, maps,
+                               flip, light, cap_b)
     torch.cuda.synchronize()
     if light is None:
         grads = {k: (g, None) for k, g in grads.items()}
@@ -226,19 +268,20 @@ def setting(name, stack, args, flip, light, other, runs, gpu_line):
         raise RuntimeError(f"{name}: K2 differs from the other K2: {errs}")
 
     fwd = {"other": lambda: other_fwd(other["sweep_fwd"], stack, args, flip,
-                                      light),
+                                      light, cap_f),
            "global": lambda: sweep_fwd.launch_kernel(
                stack, *args, True, flip, False, light, stage=0),
            "staged": lambda: sweep_fwd.launch_kernel(
                stack, *args, True, flip, False, light)}
     bwd = {"other": lambda: other_bwd(other["sweep_bwd"], stack, args, cts,
-                                      maps, flip, light),
+                                      maps, flip, light, cap_b),
            "global": lambda: new_bwd(0), "staged": new_bwd}
     for kernel, fns in (("K1", fwd), ("K2", bwd)):
         res[kernel] = time_turns(name, kernel, fns, runs, gpu_line)
     log(f"  {name}: base {tuple(res['base'])}, {res['slices']} slices, stage "
         f"{res['stage_texels']} texels, {done} tile-slices of which {glob} "
-        f"through global memory; K2 error {errs}")
+        f"through global memory; K2 {bdone} of which {bglob} through global "
+        f"memory; K2 error {errs}")
     return res
 
 
@@ -406,8 +449,8 @@ def ref_settings(other, runs, gpu_line, dev):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", required=True,
-                        help="directory with the other kernels' sources "
-                        "and the headers they include")
+                        help="directory with another tree's "
+                        "volumetricrenderer_tpu_torch/ package")
     parser.add_argument("--ref", action="store_true",
                         help="K4 and K5 (the reference medium) instead of "
                         "K1 and K2")
@@ -435,7 +478,11 @@ def main(argv=None):
         log(f"build {name} (this tree): {info['seconds']:.1f} s")
         for line in info["log"].strip().splitlines():
             log(f"  nvcc: {line}")
-    other, logs = build_other(args.other, [name for name, _ in mods])
+    buffers = None if args.ref else other_buffers(args.other)
+    other, logs = build_other(
+        os.path.join(args.other, "volumetricrenderer_tpu_torch", "kernels",
+                     "csrc"), [name for name, _ in mods], buffers is not None)
+    other["buffers"] = buffers
     for name, text in logs.items():
         log(f"build {name} (other): " + text.splitlines()[0])
         for line in text.strip().splitlines()[1:]:
@@ -474,6 +521,14 @@ def main(argv=None):
                            stack4.contiguous().to(torch.bfloat16), fargs4,
                            flip4, lstack.to(torch.bfloat16), other,
                            args.runs, gpu_line))
+    del grid, stack, stack4, lstack, lvol
+
+    grid5 = cloud_volume(CONFIG5_VOLUME, 7, device=dev)
+    plan5 = plan_for(cam, grid5.shape, cfg, device=dev)
+    (stack5, *fargs5), flip5 = sweep_fwd.sweep_inputs(
+        grid5.permute(plan5.perm), plan5, cfg, medium)
+    results.append(setting("config 5", stack5.contiguous(), fargs5, flip5,
+                           None, other, args.runs, gpu_line))
 
     return finish(results, gpu_line, args.out, "kernel_ab.json")
 

@@ -1080,12 +1080,17 @@ def test_bf16_launches_validate_inputs(cuda):
 # --- the tiled schedule of K1 and K2 (csrc/sweep_tile.cuh) ------------------
 
 def _tiled_inputs(dev, eye, emission=True, mode="mirror", n_slices=None,
-                  density=8.0, kind=None, low=False, force=None, d=16):
+                  density=8.0, kind=None, low=False, force=None, d=16,
+                  cloud=False):
     """The sweep kernels' inputs for one plan: (stack, args, flip, wrap,
-    light, cfg, plan, medium); force: the base grid's (Hb, Wb)."""
+    light, cfg, plan, medium); force: the base grid's (Hb, Wb); cloud: the
+    FBM cloud (empty space, fully lit in places) for a uniform random
+    grid."""
+    from volumetricrenderer_tpu_torch import cloud_volume
     from volumetricrenderer_tpu_torch.ops.sweep import plan_sweep
-    grid = torch.tensor(np.random.default_rng(0).uniform(0.2, 1.0, (d,) * 3),
-                        dtype=torch.float32, device=dev)
+    grid = cloud_volume(d, 7, device=dev) if cloud else torch.tensor(
+        np.random.default_rng(0).uniform(0.2, 1.0, (d,) * 3),
+        dtype=torch.float32, device=dev)
     cfg = RenderConfig(emission=emission, quadrature="sliced",
                        address_mode=mode)
     plan = plan_sweep(make_camera(CameraConfig(eye=eye, width=96, height=64)),
@@ -1248,9 +1253,8 @@ def test_tile_tally_matches_host_mirror(cuda, mode):
 @pytest.mark.gpu
 def test_tiled_stage_above_48kb(cuda):
     """A plan whose windows need more than 48 KB of dynamic shared memory
-    (128^3 on a 56 x 56 base: 8,832 texels, 70 KB for K1) launches with
-    the larger stage, and K2's windows beyond STAGE_BYTES_MAX read through
-    global memory."""
+    (128^3 on a 56 x 56 base: 8,832 texels, 70 KB for K1 and for K2, which
+    stages as K1 does) launches K1 and K2 with the larger stage."""
     from volumetricrenderer_tpu_torch.kernels import build
     stack, args, flip, wrap, *_ = _tiled_inputs(cuda, eye=EYES[3][0], d=128,
                                                 force=(56, 56))
@@ -1258,6 +1262,63 @@ def test_tiled_stage_above_48kb(cuda):
     assert 4 * 2 * build.stage_cap(need, build.stage_buffers(False, False)) \
         > 48 * 1024
     _tiled_paths(cuda, eye=EYES[3][0], d=128, force=(56, 56))
+
+
+# Config 5's magnification (512 texels across a 1536 base: a third of a
+# texel a base pixel, windows of about 21 x 21 texels for a tile) at 128^3
+# on a 384^2 base, 128 slices: every tile-slice of K2 staged.
+C5_MAG = dict(eye=(3.0, 3.0, 3.0), d=128, force=(384, 384), cloud=True)
+
+C5_CASES = {
+    "emission": dict(),
+    "absorption, clamp": dict(emission=False, mode="clamp"),
+    "emission, wrap": dict(mode="wrap"),
+    "light": dict(kind="pushed"),
+    "bfloat16": dict(low=True),
+    "bfloat16 with light": dict(low=True, kind="ones"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(C5_CASES))
+def test_tiled_paths_at_config5_magnification(cuda, name):
+    """K2 against its plain version at config 5's magnification, staged,
+    with no stage and with half of it (the global fallback beside the
+    staged tile-slices in one launch)."""
+    from volumetricrenderer_tpu_torch.kernels import build
+    case = dict(C5_MAG, **C5_CASES[name])
+    stack, args, *_ = _tiled_inputs(cuda, **case)
+    spans = _spans(stack, args, case.get("mode") == "wrap")
+    need = build.stage_texels(spans)
+    assert 300 <= need <= build.stage_cap(need, build.stage_buffers(True,
+                                                                    True))
+    _tiled_paths(cuda, **case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["mirror", "clamp", "wrap"])
+def test_k2_tally_at_config5_magnification(cuda, mode):
+    """At config 5's magnification K2 stages every tile-slice: none reads
+    through global memory. In absorption (no early stop) every active
+    tile-slice is computed, as the host mirror counts; a stage of half the
+    plan's sends the larger windows to the global fallback, as the mirror
+    counts too."""
+    from volumetricrenderer_tpu_torch.kernels import build
+    stack, args, flip, wrap, *_ = _tiled_inputs(cuda, emission=False,
+                                                mode=mode, **C5_MAG)
+    spans = _spans(stack, args, wrap)
+    need = build.stage_texels(spans)
+    cts = [torch.ones(args[1].numel(), args[2].numel(), device=cuda)] * 3
+    maps = sweep_fwd.launch_kernel(stack, *args, False, flip, wrap)
+    for stage, none_global in ((None, True), (need // 2, False)):
+        sweep_bwd.tiles.reset()
+        sweep_bwd.launch_kernel(stack, *args, *cts, maps[1], maps[2], False,
+                                flip, wrap, stage=stage)
+        cap = build.stage_cap(need if stage is None else stage,
+                              build.stage_buffers(True, False))
+        active, glob = build.tile_slices(spans, cap)
+        assert (glob == 0) == none_global
+        assert sweep_bwd.tiles.read() == (active, glob)
 
 
 # --- the tiled schedule of K4 and K5 (csrc/sweep_ref_tile.cuh) -------------
@@ -1518,7 +1579,8 @@ def test_fit_grid_numpy_target_runs_on_the_gpu(cuda):
 
 # A block may use 48 KB of shared memory, static and dynamic together,
 # without opting in. K1 and K2 hold 32 + 32 Line records of 16 bytes
-# statically (csrc/sweep_tile.cuh kStaticSmem); a stage whose dynamic bytes
+# statically (csrc/sweep_tile.cuh kStaticSmem), K2 also their 8-byte layer
+# offsets (csrc/sweep_bwd.cu kStaticSmemBwd); a stage whose dynamic bytes
 # land in (48 KB - 1 KB, 48 KB] is refused at launch unless the launcher
 # counts them.
 SMEM_DEFAULT = 48 * 1024

@@ -132,13 +132,25 @@ def test_stage_cap_bounds_the_shared_memory():
     """stage_cap keeps a launch's windows within STAGE_BYTES_MAX."""
     most = build.STAGE_BYTES_MAX // 4
     assert [build.stage_buffers(bwd, light) for bwd in (False, True)
-            for light in (False, True)] == [2, 4, 10, 20]
-    for buffers in (2, 4, 10, 20):
+            for light in (False, True)] == [2, 4, 2, 4]
+    for buffers in (2, 4):
         assert build.stage_cap(10 ** 9, buffers) * 4 * buffers \
             <= build.STAGE_BYTES_MAX
         assert build.stage_cap(most // buffers, buffers) == most // buffers
         assert build.stage_cap(7, buffers) == 7
     assert build.stage_cap(0, 2) == 0
+
+
+@pytest.mark.parametrize("light", [False, True])
+def test_k2_layout_fits_the_stage_bytes(light):
+    """K2 stages as K1 does, two windows a volume (its sums go straight to
+    global memory), and config 5's stage of 1,156 texels fits whole within
+    STAGE_BYTES_MAX."""
+    buffers = build.stage_buffers(True, light)
+    assert buffers == build.stage_buffers(False, light) == (4 if light
+                                                            else 2)
+    assert build.stage_cap(1156, buffers) == 1156
+    assert 4 * buffers * 1156 <= build.STAGE_BYTES_MAX
 
 
 def test_stage_for_is_sized_once_per_plan():

@@ -359,9 +359,10 @@ def stage_for(slice_z, v_grid, u_grid, params, A, B, wrap) -> int:
 def stage_buffers(backward: bool, light: bool) -> int:
     """The window buffers of `cap` float slots a launch takes besides its
     window table (csrc/sweep_fwd.cu, sweep_bwd.cu): two staged windows per
-    volume (the stack's, and the light stack's); K2 also one accumulation
-    window per warp (8) and volume."""
-    return (2 if light else 1) * (2 + (8 if backward else 0))
+    volume (the stack's, and the light stack's), K1 and K2 alike
+    (`backward` changes nothing): K2 adds its sums straight to global
+    memory, so the stage holds only what it reads."""
+    return (2 if light else 1) * 2
 
 
 def stage_cap(texels: int, buffers: int) -> int:

@@ -41,8 +41,9 @@
 // per live sample (eight with light), ran at 2.4 ms (5.5 with light) on an
 // NVIDIA H100 80GB HBM3 at 700 W: ~650 M atomics per flagship backward,
 // and a warp's 32 lanes, one base row, landing on ~6 texel columns of the
-// same two rows, so same-address atomics serialised in L2. This design
-// runs the same work in 1.8 ms (3.0 with light) on that card (PERF.md §6).
+// same two rows, so same-address atomics serialised in L2. The tiled
+// design below runs it in 1.5 ms (2.4 with light) on that card, and
+// config 5's plan (512^3 at 1920x1080) in 3.2 ms (PERF.md §6).
 //
 // Design (sweep_tile.cuh, K1's schedule). One CTA per 32 x 32 base tile, a
 // thread holding (T, Wr, cw, bct, seg) of 4 pixels in registers; the tile
@@ -50,14 +51,17 @@
 // light's) tap window staged in shared memory one active slice ahead and
 // the taps computed once per line. The scatter: a warp is one tile row, so
 // its lanes share the row taps and fall on a few column taps in runs of
-// neighbouring lanes; warp shuffles sum each run and its last lane adds the
-// sum to the warp's own dG (and dL) window in shared memory, no atomic
-// needed. After the slice's barrier the eight warps' windows are summed
-// per texel, added to global memory with one atomicAdd per nonzero texel
-// (tiles overlap at their borders) and zeroed. At the flagship that turns
-// ~4 x 1024 global atomics per tile-slice into about one per texel of its
-// ~7 x 7 window. A tile-slice whose window exceeds the stage reads through
-// global memory and adds its run sums there with atomicAdd, and is counted.
+// neighbouring lanes; warp shuffles sum each run, in as many rounds as the
+// slice's longest run needs, and its last lane adds the sums to global
+// memory with atomicAdd (warp_scatter<true>), at the layer offsets of its
+// taps. A staged tile-slice reads its window from shared memory and adds
+// the same way: the stage holds only texels read, so K1's layout serves.
+// Summing the runs into eight per-warp windows in shared memory first, and
+// those into global memory once per texel, took 4.1 ms at config 5's plan,
+// where a run is one to three lanes; gathering the tile's du in shared
+// memory through the separable bilinear adjoint in two passes, 3.9. A
+// tile-slice whose window exceeds the stage reads through global memory,
+// and is counted.
 //
 // Numerics: dG sums in another order on every run (atomics), so it agrees
 // with the plain version to a tolerance, not bit for bit.
@@ -75,8 +79,23 @@ namespace {
 
 namespace tl = sweep::tile;
 
+// The layer offsets of the taps of one line (make_line's, for a tile-slice
+// read through global memory): where K2 adds its sums, staged or not.
+template <typename T>
+__device__ __forceinline__ int2 layer_offsets(float x01, int n, int wrap,
+                                              int stride) {
+  const tl::Line l = tl::make_line<T>(x01, n, wrap, false, 0, 0, 1, stride);
+  return make_int2(l.o0, l.o1);
+}
+
+// The static shared memory K2 takes besides K1's: the layer offsets of its
+// rows and columns.
+constexpr size_t kStaticSmemBwd =
+    tl::kStaticSmem + (tl::kRows + tl::kCols) * sizeof(int2);
+
 // 85 registers (3 CTAs an SM) hold every instantiation but the bfloat16
-// light one, which gets up to 128 (2 CTAs) rather than spill.
+// light one, which gets up to 128 (2 CTAs) rather than spill. At 64 (4
+// CTAs) float32 spills, and ran 2 % slower at config 5's plan.
 template <bool kLight, typename T>
 __global__ void __launch_bounds__(tl::kThreads,
                                   kLight && sizeof(T) == 2 ? 2 : 3)
@@ -92,9 +111,10 @@ __global__ void __launch_bounds__(tl::kThreads,
     int emission, int flip, int wrap, int cap,
     unsigned long long* __restrict__ counts) {
   // The window table (S entries), then [stack, light][buffer][cap] staged
-  // texels, then [dG, dL][warp][cap] accumulation windows.
+  // texels. rows_g, cols_g: the layer offsets of the lines' taps.
   extern __shared__ int4 smem[];
   __shared__ tl::Line rows_l[tl::kRows], cols_l[tl::kCols];
+  __shared__ int2 rows_g[tl::kRows], cols_g[tl::kCols];
   constexpr int kVols = kLight ? 2 : 1;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * tl::kCols + tx;
@@ -102,11 +122,8 @@ __global__ void __launch_bounds__(tl::kThreads,
   const size_t layer = (size_t)A * B;
   int4* const tab = smem;
   float* const stage = reinterpret_cast<float*>(smem + S);
-  float* const acc = stage + 2 * kVols * cap;
   tl::fill_windows(tab, P, slice_z, v_grid, u_grid, S, A, B, Hb, Wb, wrap,
                    tid);
-  for (int m = tid; m < tl::kGroups * kVols * cap; m += tl::kThreads)
-    acc[m] = 0.f;
 
   // Per pixel p (row tile_row0 + ty + 8p, column j). Emission: seg, cw,
   // bct and the replay's (T, Wr); absorption: du = ct_acc * seg * sscale
@@ -131,12 +148,10 @@ __global__ void __launch_bounds__(tl::kThreads,
       cw[p] = ct_acc[pix] * seg[p] * P.sscale;
     }
   }
-  __syncthreads();  // the window table and the zeroed windows
+  __syncthreads();  // the window table
 
   const auto win = [&](int bb) { return stage + bb * cap; };
   const auto lwin = [&](int bb) { return stage + (2 + bb) * cap; };
-  float* const gacc = acc + ty * cap;                  // this warp's dG
-  float* const lacc = acc + (tl::kGroups + ty) * cap;  // and dL windows
   unsigned long long n_done = 0, n_global = 0;
   int s = tl::next_active(tab, 0, S);
   if (emission && s < S) {
@@ -166,6 +181,16 @@ __global__ void __launch_bounds__(tl::kThreads,
     const tl::Window w = tl::window_at(tab, s, S, flip, cap);
     tl::make_lines<T>(rows_l, cols_l, P, w, v_grid, u_grid, A, B, Hb, Wb,
                       wrap);
+    if (ty == 2) {
+      cols_g[tx] = j < Wb ? layer_offsets<T>(P.e_b + w.delta * u_grid[j], B,
+                                             wrap, 1)
+                          : make_int2(-1, -1);
+    } else if (ty == 3) {
+      const int i = tl::tile_row0() + tx;
+      rows_g[tx] = i < Hb ? layer_offsets<T>(P.e_a + w.delta * v_grid[i], A,
+                                             wrap, B)
+                          : make_int2(-1, -1);
+    }
     tl::copy_wait_prior();
     if (emission && w.staged) {
       tl::widen_window<T>(win(b), stack + w.k * layer, w, A, B, wrap,
@@ -176,8 +201,14 @@ __global__ void __launch_bounds__(tl::kThreads,
     }
     __syncthreads();
 
+    // The column's taps as warp_scatter adds them (the Line's weights at
+    // the layer offsets), its runs and the warp's longest run.
     const tl::Line col = cols_l[tx];
-    const tl::Runs runs = tl::runs_of(col);
+    const int2 cg = cols_g[tx];
+    const tl::Line col_g{cg.x, cg.y, col.w0, col.w1};
+    const tl::Runs runs = tl::runs_of(col_g);
+    const int span = (int)__reduce_max_sync(
+        tl::kFull, (unsigned)(tx + 1 - min(runs.start0, runs.start1)));
     const bool col_ok = col.o0 >= 0 && j < Wb;
     const T* const g_layer = stack + w.k * layer;
     bool live = false;
@@ -217,31 +248,19 @@ __global__ void __launch_bounds__(tl::kThreads,
       }
       if (!act) du = 0.f;
       if (__any_sync(tl::kFull, act)) {
-        if (w.staged) {
-          tl::warp_scatter<false>(gacc, row, col, runs, du);
-          if constexpr (kLight)
-            tl::warp_scatter<false>(lacc, row, col, runs, dl);
-        } else {
-          tl::warp_scatter<true>(dstack + w.k * layer, row, col, runs, du);
-          if constexpr (kLight)
-            tl::warp_scatter<true>(dlight + w.k * layer, row, col, runs,
-                                   dl);
-        }
+        const int2 rg = rows_g[ty + tl::kGroups * p];
+        const tl::Line row_g{rg.x, rg.y, row.w0, row.w1};
+        tl::warp_scatter<true>(dstack + w.k * layer, row_g, col_g, runs, du,
+                               span);
+        if constexpr (kLight)
+          tl::warp_scatter<true>(dlight + w.k * layer, row_g, col_g, runs,
+                                 dl, span);
       }
       live = live || (j < Wb && (!emission || trans[p] > P.thresh));
     }
     ++n_done;
     if (!w.staged) ++n_global;
     const bool any = __syncthreads_or(live);
-    // This slice's sums, complete at the barrier; the next slice's first
-    // barrier orders the zeroed windows before its adds.
-    if (w.staged) {
-      tl::flush_windows(acc, cap, dstack + w.k * layer, w, A, B, wrap,
-                        tid);
-      if constexpr (kLight)
-        tl::flush_windows(acc + tl::kGroups * cap, cap,
-                          dlight + w.k * layer, w, A, B, wrap, tid);
-    }
     if (!any) break;
     s = sn;
     b ^= 1;
@@ -266,12 +285,11 @@ int launch(const void* stack_v, const void* light_v, const float* slice_z,
   const dim3 block(tl::kCols, tl::kGroups);
   const dim3 grid((Wb + tl::kCols - 1) / tl::kCols,
                   (Hb + tl::kRows - 1) / tl::kRows);
-  const size_t smem = tl::smem_bytes(
-      S, light ? 2 * (2 + tl::kGroups) : 2 + tl::kGroups, cap);
+  const size_t smem = tl::smem_bytes(S, light ? 4 : 2, cap);
   cudaError_t err;
   if (light) {
     err = tl::allow_smem(sweep_bwd_kernel<true, T>, smem,
-                           tl::kStaticSmem);
+                           kStaticSmemBwd);
     if (err == cudaSuccess)
       sweep_bwd_kernel<true, T><<<grid, block, smem, st>>>(
           stack, light, slice_z, v_grid, u_grid, seglen, params, ct_acc,
@@ -279,7 +297,7 @@ int launch(const void* stack_v, const void* light_v, const float* slice_z,
           Hb, Wb, emission, flip, wrap, cap, counts);
   } else {
     err = tl::allow_smem(sweep_bwd_kernel<false, T>, smem,
-                           tl::kStaticSmem);
+                           kStaticSmemBwd);
     if (err == cudaSuccess)
       sweep_bwd_kernel<false, T><<<grid, block, smem, st>>>(
           stack, light, slice_z, v_grid, u_grid, seglen, params, ct_acc,
@@ -301,9 +319,9 @@ int launch(const void* stack_v, const void* light_v, const float* slice_z,
 // is the zeroed (S, A, B) float32 gradient. `light` is the (S, A, B) light
 // stack the forward read and `dlight` its zeroed float32 gradient, or both
 // null for no light volume (emission only). `cap` and `counts` as in
-// sweep_fwd_launch; the launch takes 16 * S + (light ? 20 : 10) * cap * 4
-// bytes of dynamic shared memory (the window table, the staged texels and
-// the eight warps' accumulation windows).
+// sweep_fwd_launch; the launch takes 16 * S + (light ? 4 : 2) * cap * 4
+// bytes of dynamic shared memory (the window table and the staged texels),
+// as sweep_fwd_launch does.
 extern "C" int sweep_bwd_launch(const void* stack, const void* light,
                                 const float* slice_z, const float* v_grid,
                                 const float* u_grid, const float* seglen,

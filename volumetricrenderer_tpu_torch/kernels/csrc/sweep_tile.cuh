@@ -44,12 +44,10 @@
 // K2's scatter. The lanes of a warp (one tile row, 32 neighbouring columns)
 // share their row taps, and their column taps fall on a few texels in runs
 // of neighbouring lanes. warp_scatter adds each run's contributions with
-// warp shuffles, and the run's last lane adds the sum to the warp's own
-// accumulation window in shared memory with a plain add: the addresses of a
-// warp's runs differ, and no other warp writes that window, so no atomic
-// is needed there. After the slice's barrier the eight warps' windows are
-// summed texel by texel and added to global memory with one atomicAdd per
-// nonzero texel (tiles overlap at their borders).
+// warp shuffles, as many rounds as the slice's longest run needs, and the
+// run's last lane adds the sums to the global gradient layer with
+// atomicAdd, staged tile-slice or not: the stage holds the texels K2
+// reads, not the sums it writes.
 #pragma once
 
 #include <stdint.h>
@@ -423,25 +421,6 @@ __device__ __forceinline__ void warp_scatter(float* base, const Line& r,
   __syncwarp();
 }
 
-// Adds the kGroups warps' accumulation windows of one volume (warp g's at
-// acc + g * cap) to the global gradient layer, once per nonzero texel, and
-// zeroes them for their next use.
-__device__ __forceinline__ void flush_windows(float* acc, int cap,
-                                              float* layer, const Window& w,
-                                              int A, int B, int wrap,
-                                              int tid) {
-  const int n = w.rows * w.cols;
-  for (int m = tid; m < n; m += kThreads) {
-    float v = 0.f;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-      v += acc[g * cap + m];
-      acc[g * cap + m] = 0.f;
-    }
-    if (v != 0.f) atomicAdd(layer + slot_texel(w, m, A, B, wrap), v);
-  }
-}
-
 // Dynamic shared memory of a launch: the S-entry window table, then
 // `buffers` windows of `cap` float slots.
 inline size_t smem_bytes(int S, int buffers, int cap) {
@@ -450,8 +429,9 @@ inline size_t smem_bytes(int S, int buffers, int cap) {
 }
 
 // The static shared memory of K1 and K2: their rows_l and cols_l Line
-// records (sweep_fwd.cu, sweep_bwd.cu). The 48 KB default covers static and
-// dynamic together, so allow_smem must count these too.
+// records (sweep_fwd.cu, sweep_bwd.cu; K2 counts its layer offsets
+// besides). The 48 KB default covers static and dynamic together, so
+// allow_smem must count these too.
 constexpr size_t kStaticSmem = (kRows + kCols) * sizeof(Line);
 
 // Allows a kernel more than the default 48 KB of shared memory: `bytes`

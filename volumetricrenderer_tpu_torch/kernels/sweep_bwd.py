@@ -12,9 +12,10 @@ CUDA stack launches the kernel (or raises), a CPU stack runs the plain
 version. Plan arrays and params get no gradient, as in the JAX package;
 `hit` is not differentiable.
 
-The kernel runs K1's tiled schedule (csrc/sweep_tile.cuh) and sums each
-tile-slice's dG (and dL) in shared memory, per warp, before adding it to the
-gradient; `tiles` tallies its tile-slices as kernels/sweep_fwd.py's does.
+The kernel runs K1's tiled schedule (csrc/sweep_tile.cuh), reading each
+staged tile-slice's texels from shared memory, and adds each warp's run
+sums of dG (and dL) to the gradient; `tiles` tallies its tile-slices as
+kernels/sweep_fwd.py's does.
 
 `launches` counts the kernel launches made by this module.
 """
